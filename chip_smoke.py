@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (classpro_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # needs one CUDA card; about a minute
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. probe   - CUDA present, card name and power limit (nvidia-smi).
+2. build   - nvcc builds csrc/rel_dp.cu for sm_90a (printing -Xptxas -v)
+             while g++ builds the C++ host library, both from the checkout.
+3. kernel  - the DP kernel against its plain torch version (rel_ref) on
+             the card: the packs of the medium fixture's chunks (batch 200,
+             their natural (R, max_m) buckets) and a pack whose rows the
+             no-H rescue re-runs (branch/search9); then the whole per-chunk
+             stage (rel.rel_only) with the kernel against rel_only with the
+             plain DP.  Tolerance: asgn bit-equal on rows whose plain margin
+             is >= 1e-5, finite margins within 1e-9, the inf / 1e-30
+             margin patterns equal, rescue equal, risky equal except where
+             the margin lies within 1e-9 of 1e-5.  Times the kernel (CUDA
+             events) and the plain version at the medium shapes.
+4. e2e     - the main path: classify_file_torch over the tiny and medium
+             fixtures writes .class files byte-identical to their
+             golden.class.gz; the kernel's launch count is reset just before
+             and read just after, and must be > 0.
+5. stream  - steady stream: --passes passes over medium through
+             TorchEngine.classify_stream(sort_window=8) (the depth-3
+             pipeline), every chunk checked against the golden; prints
+             k-mers/s, DP-kernel time per launch (CUDA events), launches
+             per chunk, guard_flagged and max_memory_allocated.
+
+It prints one {"kernels": [...]} line and one {"stream": {...}} line, the
+card's name and power limit, and, as its last line,
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIX = os.path.join(HERE, "tests", "fixtures")
+EPS = 1e-5          # REL_MARGIN_EPS
+MARGIN_TOL = 1e-9   # absolute tolerance on finite margins
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 (non-tensor) op/s
+PEAK_BYTES = 3.35e12
+PEAK_F64 = 34e12
+# f64 operations of one live DP step (init cell and traceback not
+# counted), read off rel_dp_row.cuh step(): 4 source cells x (R emission
+# ~10 + two log-Skellam lookups ~50 each + lambdas ~8), then the 4x4
+# score table, special cases, argmaxes with margins, dh ratios and
+# register counts ~250; log/exp/sqrt/floor and compares count as one.
+OPS_PER_STEP = 700
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def golden_classes(fx: str) -> list[str]:
+    with gzip.open(os.path.join(FIX, fx, "golden.class.gz"), "rt") as f:
+        return f.read().split("\n")[3::4]
+
+
+# --------------------------------------------------------------------- 2
+def phase_build():
+    from classpro_tpu_torch import kernels, native
+
+    t0 = time.time()
+    box: dict = {}
+
+    def host():
+        try:
+            native.get_lib(force=True)
+            box["host_s"] = time.time() - t0
+        except BaseException as e:    # re-raised on the main thread
+            box["err"] = e
+
+    th = threading.Thread(target=host)
+    th.start()
+    kernels.build("cuda", force=True)
+    cuda_s = time.time() - t0
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    for line in kernels.BUILD_LOG["cuda"].splitlines():
+        if "ptxas" in line or "bytes stack frame" in line:
+            say(f"  {line.strip()}")
+    say(f"build: nvcc rel_dp.cu {cuda_s:.1f} s, g++ host library "
+        f"{box['host_s']:.1f} s (in parallel)")
+
+
+# --------------------------------------------------------------------- 3
+def _model(fx: str):
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+    from classpro_tpu_torch.io.fastx import read_fastx
+
+    d = os.path.join(FIX, fx)
+    args = {}
+    if os.path.exists(os.path.join(d, "args.json")):
+        with open(os.path.join(d, "args.json")) as f:
+            args = json.load(f)
+    root = os.path.join(d, "reads")
+    gm = build_global_model(load_histogram(root), **args)
+    P = open_profiles(root)
+    reads = list(read_fastx(os.path.join(d, "reads.fasta.gz")))
+    profs = [P.fetch(i) for i in range(len(reads))]
+    return gm, [r.seq for r in reads], profs
+
+
+def _packs(eng, seqs, profs, B=200):
+    out = []
+    for lo in range(0, len(seqs), B):
+        pk = eng.stage_pack(seqs[lo:lo + B], profs[lo:lo + B])
+        if pk is not None:
+            out.append(pk)
+    return out
+
+
+def _margin_check(tag, m_k, m_r, rows):
+    """Margin tolerance; returns the max |diff| of finite margins."""
+    m_k, m_r = m_k[rows], m_r[rows]
+    if not torch.equal(torch.isinf(m_k), torch.isinf(m_r)):
+        fail(f"{tag}: inf margin pattern differs")
+    if not torch.equal(m_k == 1e-30, m_r == 1e-30):
+        fail(f"{tag}: 1e-30 force-flag pattern differs")
+    fin = torch.isfinite(m_k) & torch.isfinite(m_r)
+    err = float((m_k[fin] - m_r[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    if err > MARGIN_TOL:
+        fail(f"{tag}: margin differs by {err:.3e} > {MARGIN_TOL}")
+    return err
+
+
+def _compare_dp(tag, planes, cov, P, active=None):
+    """Kernel vs plain torch DP on the same card inputs."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    a_k, d_k, m_k = kernels.rel_dp(*planes, cov, P, active=active)
+    a_r, d_r, m_r = rel_dp_ref(*planes, cov, P)
+    torch.cuda.synchronize()
+    rows = (torch.ones_like(m_r, dtype=torch.bool) if active is None
+            else active)
+    ok = rows & (m_r >= EPS)
+    bad = int(((a_k != a_r).any(1) & ok).sum())
+    if bad:
+        fail(f"{tag}: asgn differs on {bad} unflagged row(s)")
+    err = _margin_check(tag, m_k, m_r, rows)
+    dk, dr = d_k[rows], d_r[rows]
+    if not torch.equal(torch.isneginf(dk), torch.isneginf(dr)):
+        fail(f"{tag}: dead-state pattern of the final cell differs")
+    fin = torch.isfinite(dk) & torch.isfinite(dr)
+    if bool(fin.any()):
+        err = max(err, float((dk[fin] - dr[fin]).abs().max()))
+    return err, int(rows.sum()), int(ok.sum())
+
+
+def _compare_rel_only(tag, fb, ib, P, R, max_m):
+    from classpro_tpu_torch.rel import rel_only, unpack_out
+
+    got = rel_only(fb, ib, P, R, max_m, impl="cuda").cpu().numpy()
+    want = rel_only(fb, ib, P, R, max_m, impl="ref").cpu().numpy()
+    gv, gr, gres, gm = unpack_out(got, max_m)
+    wv, wr, wres, wm = unpack_out(want, max_m)
+    ok = wm >= EPS
+    if ((gv != wv).any(1) & ok).any():
+        fail(f"{tag}: rel_only asgn differs on unflagged rows")
+    if (gres != wres).any():
+        fail(f"{tag}: rescue flags differ")
+    near = abs(wm.astype("float64") - EPS) < MARGIN_TOL
+    diff = (gr != wr) & ~near
+    if diff.any():
+        fail(f"{tag}: risky flags differ on rows {diff.nonzero()[0][:8]}: "
+             f"kernel margins {gm[diff][:8]}, plain {wm[diff][:8]}")
+    return int(wres.sum())
+
+
+def _time_cuda(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _bound_ms(planes, cov, P) -> dict:
+    """Least time for one DP pass over these inputs: the bytes it must
+    move (live plane cells and per-row inputs read once, the distinct
+    40-byte Skellam-table records its live steps read once, lf_small
+    once, outputs written once) against its operations (OPS_PER_STEP per
+    live step).  The records are counted off the plain version run on
+    the same inputs."""
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    gathers: list = []
+    rel_dp_ref(*planes, cov, P, gathers=gathers)
+    records = int(torch.unique(torch.cat(gathers)).numel()) if gathers \
+        else 0
+    m = planes[7]
+    R2, max_m = planes[0].shape
+    cells = int(m.sum())
+    steps = int((m - 1).clamp(min=0).sum())
+    nbytes = (cells * (5 * 8 + 2 * 8) + R2 * (8 + 8 + 1 + 32)
+              + records * 40 + P.lf_small.numel() * 8
+              + R2 * max_m + R2 * (32 + 8))
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = steps * OPS_PER_STEP / PEAK_F64 * 1e3
+    return {"ms": max(t_b, t_o),
+            "by": "bytes" if t_b >= t_o else "operations",
+            "bytes_ms": t_b, "ops_ms": t_o, "records": records,
+            "steps": steps}
+
+
+def phase_kernel():
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.rel import rel_only, rel_planes, rescue_rows
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    dev = torch.device("cuda")
+    rec = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": []}
+    for fx in ("medium", "branch/search9"):
+        gm, seqs, profs = _model(fx)
+        eng = TorchEngine(gm, device=dev)
+        packs = _packs(eng, seqs, profs)
+        for k, (fb, ib, R, max_m) in enumerate(packs):
+            tag = f"{fx} chunk {k} (R2={2 * R}, max_m={max_m})"
+            fb_d = torch.from_numpy(fb).to(dev)
+            ib_d = torch.from_numpy(ib).to(dev)
+            P = eng.P
+            planes = rel_planes(fb_d, ib_d, P, R, max_m)
+            cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+            err, n, n_ok = _compare_dp(tag, planes, cov, P)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            # the rescue pass: the rows the plain first pass rescues,
+            # with their coverages, through the active mask
+            rescue, cov2 = rescue_rows(
+                planes, rel_dp_ref(*planes, cov, P)[0], P, max_m)
+            if bool(rescue.any()):
+                err2, _, _ = _compare_dp(tag + " rescue pass", planes, cov2,
+                                         P, active=rescue)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err2)
+            n_res2 = _compare_rel_only(tag, fb_d, ib_d, P, R, max_m)
+            say(f"kernel == plain: {tag}: {n} rows ({n_ok} unflagged), "
+                f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}")
+            if fx == "medium":
+                ms = _time_cuda(lambda: kernels.rel_dp(*planes, cov, P), 20)
+                t0 = time.perf_counter()
+                rel_dp_ref(*planes, cov, P)
+                torch.cuda.synchronize()
+                plain = (time.perf_counter() - t0) * 1e3
+                rec["ms"].append(ms)
+                rec["plain_ms"].append(plain)
+                bnd = _bound_ms(planes, cov, P)
+                rec["bound"].append(bnd)
+                stage = _time_cuda(lambda: rel_only(fb_d, ib_d, P, R, max_m,
+                                                    impl="cuda"), 10)
+                longest = int(planes[7].max())
+                say(f"  time per launch: kernel {ms:.3f} ms "
+                    f"({ms * 1e3 / max(longest - 1, 1):.2f} us per step of "
+                    f"the longest row, m={longest}), plain torch "
+                    f"{plain:.1f} ms, bound {bnd['ms']:.6f} ms "
+                    f"({bnd['by']}; bytes {bnd['bytes_ms']:.6f} ms with "
+                    f"{bnd['records']} distinct table records, operations "
+                    f"{bnd['ops_ms']:.6f} ms for {bnd['steps']} steps); "
+                    f"whole rel_only stage (glue + 2 launches) {stage:.3f} "
+                    f"ms per chunk")
+        if fx == "branch/search9" and not n_res2:
+            fail("branch/search9 pack rescued no row")
+    return rec
+
+
+# --------------------------------------------------------------------- 4
+def phase_e2e():
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import classify_file_torch
+    from classpro_tpu_torch.io.classfile import write_class
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        for fx in ("tiny", "medium"):
+            d = os.path.join(FIX, fx)
+            out = os.path.join(tmp, fx + ".class")
+            st: dict = {}
+            t0 = time.time()
+            write_class(out, classify_file_torch(
+                os.path.join(d, "reads.fasta.gz"), os.path.join(d, "reads"),
+                device="cuda", stats_out=st))
+            wall = time.time() - t0
+            with gzip.open(os.path.join(d, "golden.class.gz"), "rb") as f:
+                want = f.read()
+            with open(out, "rb") as f:
+                got = f.read()
+            if got != want:
+                fail(f"e2e {fx}: .class differs from golden.class.gz")
+            say(f"e2e {fx}: byte-identical to golden ({len(got)} bytes, "
+                f"{wall:.2f} s incl. set-up, guard_flagged "
+                f"{st['guard_flagged']})")
+        launches = dict(kernels.LAUNCHES)
+        for k, n in launches.items():
+            if n <= 0:
+                fail(f"main path launched kernel {k} no time")
+        say(f"e2e launches: {launches}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- 5
+def _clock(obj, name: str, acc: dict):
+    """Wrap obj.name to add its wall seconds to acc[name]; returns an
+    undo callable."""
+    f = getattr(obj, name)
+
+    def g(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return f(*a, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(obj, name, g)
+    return lambda: setattr(obj, name, f)
+
+
+def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
+                 sort_window: int = 8):
+    """Steady stream: ``repeats`` timed runs of ``passes`` passes over
+    medium after one warm-up pass; the last run also records the DP
+    kernel's device time (CUDA events around each launch) and where the
+    main thread's time goes."""
+    from classpro_tpu_torch import engine as engine_mod
+    from classpro_tpu_torch import kernels
+
+    gm, seqs, profs = _model("medium")
+    gold = golden_classes("medium")
+    kmers_pass = sum(len(c) - c.count("N") for c in gold[:len(seqs)])
+    eng = engine_mod.TorchEngine(gm, batch_size=batch_size,
+                                 device="cuda")
+    B = 200                                  # input chunks, as the CLI
+    spans = [(lo, min(lo + B, len(seqs))) for lo in range(0, len(seqs), B)]
+
+    def run(n):
+        chunks = ((seqs[lo:hi], profs[lo:hi])
+                  for _ in range(n) for lo, hi in spans)
+        t0 = time.perf_counter()
+        for k, res in enumerate(eng.classify_stream(
+                chunks, sort_window=sort_window)):
+            lo, hi = spans[k % len(spans)]
+            if res != gold[lo:hi]:
+                fail(f"stream chunk {k} differs from the golden")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(1)                                   # warm-up pass
+    rates = [passes * kmers_pass / run(passes) for _ in range(repeats - 1)]
+
+    # the recorded run: DP events per launch kind, host time by stage
+    events: dict = {"main": [], "rescue": []}
+    launch = kernels.rel_dp
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*a, **kw)
+        e1.record()
+        events["main" if kw.get("active") is None else "rescue"].append(
+            (e0, e1))
+        return out
+
+    acc: dict = {}
+    undo = [_clock(eng, n, acc) for n in ("_stage", "_pack_st", "_submit",
+                                          "_finish", "_exact_guard")]
+    undo += [_clock(eng.wall, "finish_batch", acc)]
+    undo += [_clock(engine_mod, n, acc)
+             for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
+    torch.cuda.reset_peak_memory_stats()
+    l0 = kernels.LAUNCHES["rel_dp"]
+    g0, c0 = eng.guard_flagged, eng.chunks_done
+    kernels.rel_dp = timed
+    try:
+        wall = run(passes)
+    finally:
+        kernels.rel_dp = launch
+        for u in undo:
+            u()
+    rates.append(passes * kmers_pass / wall)
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
+    dp_ms = sum(ms["main"]) + sum(ms["rescue"])
+    launches = kernels.LAUNCHES["rel_dp"] - l0
+    chunks = eng.chunks_done - c0
+    host = {
+        "wall_stage_cpp": acc["_stage"], "pack_rel_cpp": acc["_pack_st"],
+        "enqueue_h2d_dp_d2h": acc["_submit"] - acc["_stage"]
+        - acc["_pack_st"],
+        "wait_device": acc["_finish"] - acc["unpack_out"]
+        - acc["demote_host"] - acc["reconcile_fwbw"] - acc["_exact_guard"]
+        - acc["finish_batch"],
+        "demote_reconcile_guard": acc["unpack_out"] + acc["demote_host"]
+        + acc["reconcile_fwbw"] + acc["_exact_guard"],
+        "finish_batch_cpp": acc["finish_batch"],
+        "other": wall - acc["_submit"] - acc["_finish"]}
+    res = {
+        "batch_size": batch_size, "sort_window": sort_window,
+        "passes": passes, "reads": passes * len(seqs),
+        "kmers": passes * kmers_pass, "kmers_per_s_runs": rates,
+        "kmers_per_s": statistics.median(rates), "wall_s": wall,
+        "device_chunks": chunks, "dp_launches": launches,
+        "launches_per_device_chunk": launches / max(chunks, 1),
+        "dp_ms_per_launch": dp_ms / max(launches, 1),
+        "dp_ms_per_main_launch": sum(ms["main"]) / max(len(ms["main"]), 1),
+        "dp_ms_per_rescue_launch":
+            sum(ms["rescue"]) / max(len(ms["rescue"]), 1),
+        "dp_busy_share": dp_ms / 1e3 / wall,
+        "host_s": host,
+        "guard_flagged": eng.guard_flagged - g0,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    say(f"stream: {res['kmers_per_s'] / 1e6:.2f} M k-mers/s (median of "
+        f"{repeats} runs of {passes} passes of medium, {res['reads']} "
+        f"reads each), DP kernel {res['dp_ms_per_main_launch']:.3f} ms per "
+        f"main launch + {res['dp_ms_per_rescue_launch']:.3f} ms per rescue "
+        f"launch, {res['launches_per_device_chunk']:.2f} launches/chunk, "
+        f"guard_flagged {res['guard_flagged']}")
+    return res
+
+
+# ---------------------------------------------------------------------
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="build,kernel,e2e,stream",
+                    help="comma-separated subset (the probe always runs)")
+    ap.add_argument("--passes", type=int, default=40,
+                    help="steady-stream passes over medium")
+    ap.add_argument("--batch-size", type=int, default=200,
+                    help="steady stream: reads per device chunk")
+    ap.add_argument("--sort-window", type=int, default=8,
+                    help="steady stream: classify_stream's sort_window")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    # 1. probe
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(HERE, "classpro_tpu_torch")) \
+            or not os.path.isdir(FIX):
+        print("chip_smoke: run from a checkout of the repository "
+              "(classpro_tpu_torch/ and tests/fixtures/ not found)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    say(f"probe: {kind}, {torch.cuda.device_count()} device(s), torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}")
+    say(f"card: {smi}")
+    t_all = time.time()
+
+    if "build" in phases:
+        phase_build()
+    krec = phase_kernel() if "kernel" in phases else None
+    launches = phase_e2e() if "e2e" in phases else None
+    srec = (phase_stream(args.passes, batch_size=args.batch_size,
+                         sort_window=args.sort_window)
+            if "stream" in phases else None)
+    if srec is not None:
+        say(json.dumps({"stream": srec, "card": smi}))
+    if krec is not None and launches is not None:
+        k = len(krec["ms"]) - 1              # the medium shape timed last
+        say(json.dumps({"kernels": [{
+            "name": "rel_dp", "route": "cuda",
+            "source": "classpro_tpu_torch/csrc/rel_dp.cu",
+            "replaces": "classpro_tpu/tpu/rel_dev2.py:636",
+            "launches": launches["rel_dp"],
+            "max_abs_err": krec["max_abs_err"],
+            "ms": krec["ms"][k], "plain_ms": krec["plain_ms"][k],
+            "bound_ms": krec["bound"][k]["ms"],
+            "bound_by": krec["bound"][k]["by"],
+            "library_ms": None}]}))
+    say(smi)
+    say(f"chip_smoke: all phases passed in {time.time() - t_all:.1f} s")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

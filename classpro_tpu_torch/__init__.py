@@ -1,0 +1,23 @@
+"""classpro_tpu_torch — the PyTorch/CUDA port of classpro_tpu.
+
+Same classification (Error / Haploid / Diplo / Repeat per k-mer of every
+HiFi read, from FASTK count profiles), with the reliable-interval DP as a
+hand-written CUDA kernel for Hopper (``csrc/rel_dp.cu``).  The package
+imports torch, numpy and scipy and nothing of ``classpro_tpu``; the
+numpy-only modules it needs are its own copies.
+
+Layout
+------
+- ``device``     : device selection (CUDA unless the caller asks for CPU)
+- ``io``, ``estimation``, ``numerics``, ``constants``, ``tables``,
+  ``native``     : host data plane (copies; C++ via csrc/classpro_host.cpp)
+- ``skellam``    : log-Skellam interpolation tables + the plain torch lookup
+- ``params``     : device-resident DP parameters (``RelParams``)
+- ``rel_ref``    : plain torch reliable-interval DP (the kernel's yardstick)
+- ``kernels``    : nvcc/g++ builds and the ctypes wrapper of ``rel_dp.cu``
+- ``rel``        : per-chunk glue around the DP (``rel_only``) + host steps
+- ``engine``     : ``TorchEngine`` streaming classifier
+- ``cli``        : ``python -m classpro_tpu_torch.cli classify``
+"""
+
+__version__ = "0.1.0"
