@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (classpro_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA card; about a minute
+    python3 chip_smoke.py            # needs one CUDA card; a few minutes
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
-2. build   - nvcc builds csrc/rel_dp.cu for sm_90a (printing -Xptxas -v)
-             while g++ builds the C++ host library, both from the checkout.
+2. build   - nvcc builds csrc/rel_dp.cu and csrc/unrel.cu for sm_90a
+             (printing -Xptxas -v) while g++ builds the C++ host library,
+             all three at once, from the checkout.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets) and a pack whose rows the
@@ -20,18 +21,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              events) and the plain version at the medium shapes.
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
-             golden.class.gz; the kernel's launch count is reset just before
-             and read just after, and must be > 0.
+             golden.class.gz; the launch counts are reset just before and
+             read just after, and the DP kernel's must be > 0.
 5. stream  - steady stream: --passes passes over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
              pipeline), every chunk checked against the golden; prints
              k-mers/s, DP-kernel time per launch (CUDA events), launches
              per chunk, guard_flagged and max_memory_allocated.
+6. alldev  - the all-device path (alldev.classify_batch): on every chunk
+             pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
+             against its plain version (unrel_ref) on the card, asgn and
+             margins bit-equal, and the whole classify_batch with the
+             kernels against it with the plain versions, outputs and flags
+             equal; times each.  Then TorchEngine(alldev=True) over tiny
+             and medium writes the golden bytes (launch counts reset just
+             before and read after: both kernels > 0), and a timed alldev
+             stream of --alldev-passes passes over medium, 3 runs.
 
-It prints one {"kernels": [...]} line and one {"stream": {...}} line, the
-card's name and power limit, and, as its last line,
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-It imports nothing of JAX or of the JAX package.
+It prints one {"kernels": [...]} line, {"stream": {...}} and
+{"alldev_stream": {...}} lines, the card's name and power limit, and, as
+its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures")
 EPS = 1e-5          # REL_MARGIN_EPS
+DEV = "cuda"        # the alldev phases' device
 MARGIN_TOL = 1e-9   # absolute tolerance on finite margins
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 (non-tensor) op/s
 PEAK_BYTES = 3.35e12
@@ -63,6 +74,16 @@ PEAK_F64 = 34e12
 # score table, special cases, argmaxes with margins, dh ratios and
 # register counts ~250; log/exp/sqrt/floor and compares count as one.
 OPS_PER_STEP = 700
+# f64 operations of one active relaxation step, read off unrel_row.cuh
+# step(): 25 plane reads (+0.0), the R-binomial term ~17, four coverage
+# interpolations ~28, four Skellam drifts (lambda 4 + lookup ~50 each)
+# ~216, the side combinations ~34, argmax and margin ~20; the neighbour
+# search is counted apart, as the JAX program's 4 masked reductions over
+# the row (4 x max_n compare-selects per step).
+OPS_PER_UNREL_STEP = 360
+# f64 / int operations per DP-plane cell of the K4 glue (reversals,
+# log-factorial lookups, E emission, rescue predicate, pack)
+OPS_PER_K4_CELL = 30
 
 
 def fail(msg: str) -> None:
@@ -93,27 +114,32 @@ def phase_build():
     from classpro_tpu_torch import kernels, native
 
     t0 = time.time()
-    box: dict = {}
+    jobs = {"host": lambda: native.get_lib(force=True)}
+    for name in kernels.SOURCES:
+        jobs[name] = (lambda n=name: kernels.build("cuda", n, force=True))
+    secs: dict = {}
+    errs: dict = {}
 
-    def host():
+    def run(key):
         try:
-            native.get_lib(force=True)
-            box["host_s"] = time.time() - t0
+            jobs[key]()
+            secs[key] = time.time() - t0
         except BaseException as e:    # re-raised on the main thread
-            box["err"] = e
+            errs[key] = e
 
-    th = threading.Thread(target=host)
-    th.start()
-    kernels.build("cuda", force=True)
-    cuda_s = time.time() - t0
-    th.join()
-    if "err" in box:
-        raise box["err"]
-    for line in kernels.BUILD_LOG["cuda"].splitlines():
-        if "ptxas" in line or "bytes stack frame" in line:
-            say(f"  {line.strip()}")
-    say(f"build: nvcc rel_dp.cu {cuda_s:.1f} s, g++ host library "
-        f"{box['host_s']:.1f} s (in parallel)")
+    threads = [threading.Thread(target=run, args=(k,)) for k in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for e in errs.values():
+        raise e
+    for name in kernels.SOURCES:
+        for line in kernels.BUILD_LOG[(name, "cuda")].splitlines():
+            if "ptxas" in line or "bytes stack frame" in line:
+                say(f"  {line.strip()}")
+        say(f"build: nvcc {kernels.SOURCES[name][0]} {secs[name]:.1f} s")
+    say(f"build: g++ host library {secs['host']:.1f} s (all three at once)")
 
 
 # --------------------------------------------------------------------- 3
@@ -244,6 +270,17 @@ def _bound_ms(planes, cov, P) -> dict:
             "steps": steps}
 
 
+def _k4_bound(fb, ib, R: int, max_m: int) -> dict:
+    """Least time for the K4 glue of one chunk: its two blobs read once
+    and its packed result (2R, max_m+5) written once, against
+    OPS_PER_K4_CELL operations per DP-plane cell."""
+    nbytes = fb.nbytes + ib.nbytes + 2 * R * (max_m + 5)
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = 2 * R * max_m * OPS_PER_K4_CELL / PEAK_F64 * 1e3
+    return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o
+            else "operations", "bytes": nbytes}
+
+
 def phase_kernel():
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.engine import TorchEngine
@@ -288,6 +325,7 @@ def phase_kernel():
                 rec["bound"].append(bnd)
                 stage = _time_cuda(lambda: rel_only(fb_d, ib_d, P, R, max_m,
                                                     impl="cuda"), 10)
+                k4 = _k4_bound(fb, ib, R, max_m)
                 longest = int(planes[7].max())
                 say(f"  time per launch: kernel {ms:.3f} ms "
                     f"({ms * 1e3 / max(longest - 1, 1):.2f} us per step of "
@@ -297,7 +335,8 @@ def phase_kernel():
                     f"{bnd['records']} distinct table records, operations "
                     f"{bnd['ops_ms']:.6f} ms for {bnd['steps']} steps); "
                     f"whole rel_only stage (glue + 2 launches) {stage:.3f} "
-                    f"ms per chunk")
+                    f"ms per chunk; K4 glue bound {k4['ms']:.6f} ms "
+                    f"({k4['by']}, {k4['bytes']} B)")
         if fx == "branch/search9" and not n_res2:
             fail("branch/search9 pack rescued no row")
     return rec
@@ -332,9 +371,8 @@ def phase_e2e():
                 f"{wall:.2f} s incl. set-up, guard_flagged "
                 f"{st['guard_flagged']})")
         launches = dict(kernels.LAUNCHES)
-        for k, n in launches.items():
-            if n <= 0:
-                fail(f"main path launched kernel {k} no time")
+        if launches["rel_dp"] <= 0:
+            fail("main path launched kernel rel_dp no time")
         say(f"e2e launches: {launches}")
         return launches
     finally:
@@ -461,13 +499,316 @@ def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
     return res
 
 
+# --------------------------------------------------------------------- 6
+def _alldev_packs(eng, seqs, profs, B=200):
+    """(fblob, iblob, dims) of every chunk, as TorchEngine(alldev=True)
+    packs them."""
+    from classpro_tpu_torch.pack import pack_chunk
+
+    out = []
+    for lo in range(0, len(seqs), B):
+        st = eng._stage(seqs[lo:lo + B], profs[lo:lo + B])
+        slab, slot, n_out = st["slab"], st["slot"], st["n_out"]
+        rows = [r for r in range(len(st["g"])) if n_out[r] > 0]
+        ivs = [slab[r * slot: r * slot + int(n_out[r])]
+               for r in range(len(st["g"]))]
+        fb, ib, dims, _ = pack_chunk(
+            rows, ivs, [len(st["profiles"][i]) for i in st["g"]])
+        out.append((fb, ib, dims))
+    return out
+
+
+def _unrel_bound(args, P, max_n: int) -> dict:
+    """Least time for both sweeps over these inputs: each live interval's
+    planes (P13, packL/R, the two step indices, live, is_rel, asgn) read
+    once, n read once, the outputs written once, lf_small once, and the
+    distinct 40-byte Skellam records and 8-byte binomial tails the active
+    steps read, once each (counted off the plain version on the same
+    inputs), against OPS_PER_UNREL_STEP + 4 x max_n operations per active
+    step."""
+    from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
+
+    gathers: dict = {}
+    unrel_sweeps_ref(*args, P, gathers=gathers)
+    sk = torch.cat(gathers["skellam"]) if gathers["skellam"] else \
+        torch.zeros(0)
+    bt = torch.cat(gathers["btg"]) if gathers["btg"] else torch.zeros(0)
+    records = int(torch.unique(sk).numel())
+    tails = int(torch.unique(bt).numel())
+    steps = sk.numel() // 4
+    live = int(args[7].sum())
+    B = args[1].shape[0]
+    nbytes = (live * (13 * 8 + 2 * 3 * 8 + 2 * 4 + 1 + 1 + 4) + B * 4
+              + B * max_n + B * 8 + records * 40 + tails * 8
+              + P.lf_small.numel() * 8)
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = steps * (OPS_PER_UNREL_STEP + 4 * max_n) / PEAK_F64 * 1e3
+    return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o
+            else "operations", "bytes_ms": t_b, "ops_ms": t_o,
+            "records": records, "tails": tails, "steps": steps,
+            "bytes": nbytes, "ops": steps * (OPS_PER_UNREL_STEP + 4 * max_n)}
+
+
+def _k6(U, asgn8, rescue, P, dims):
+    """K6 alone: demotions, reconciliation, relaxation planes."""
+    from classpro_tpu_torch import alldev
+
+    Bn, max_n, R2, max_m = dims
+    rel2 = alldev.demote_rows(U, asgn8, rescue, P)
+    rel_out = alldev.reconcile_dev(rel2, U["m"], U["bcnt"], U["ecnt"],
+                                   U["fwd"], R2 // 2, max_m)
+    return alldev.sweep_inputs(U, rel_out, P, Bn, max_n)
+
+
+def _k6_bound(fb, ib, dims) -> dict:
+    """Least time for K6 of one chunk: the DP rows (int8) and the blob
+    planes it reads, once (the whole blobs, a slight over-count), and its
+    outputs written once (P13, packL/R f64 and the int32 assignment rows)."""
+    Bn, max_n, R2, max_m = dims
+    nbytes = (fb.nbytes + ib.nbytes + R2 * max_m
+              + Bn * max_n * (13 + 6) * 8 + Bn * max_n * 4)
+    return {"ms": nbytes / PEAK_BYTES * 1e3, "by": "bytes",
+            "bytes": nbytes}
+
+
+def phase_alldev():
+    """Sweep kernel vs plain and classify_batch kernels vs plain on every
+    medium chunk, with times and bounds; returns the record."""
+    from classpro_tpu_torch import alldev, kernels
+    from classpro_tpu_torch import rel as rel_mod
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
+
+    dev = torch.device(DEV)
+    gm, seqs, profs = _model("medium")
+    eng = TorchEngine(gm, device=dev, alldev=True)
+    PP = eng.PP
+    rec = {"max_abs_err": 0.0}
+    for k, (fb, ib, dims) in enumerate(_alldev_packs(eng, seqs, profs)):
+        Bn, max_n, R2, max_m = dims
+        tag = f"medium alldev chunk {k} (Bn={Bn}, max_n={max_n}, " \
+              f"R2={R2}, max_m={max_m})"
+        fb_d = torch.from_numpy(fb).to(dev)
+        ib_d = torch.from_numpy(ib).to(dev)
+        U = alldev.unpack(fb_d, ib_d, *dims)
+        planes = alldev.dp_planes(U, PP.rel)
+        asgn8, _mm, rescue = rel_mod.rel_pipeline(planes, PP.rel, max_m,
+                                                  "cuda")
+        args = _k6(U, asgn8, rescue, PP.rel, dims)
+        a_k, m_k = kernels.unrel_sweeps(*args, PP.unrel)
+        a_r, m_r = unrel_sweeps_ref(*args, PP.unrel)
+        torch.cuda.synchronize()
+        if not torch.equal(a_k, a_r):
+            fail(f"{tag}: sweep asgn differs on "
+                 f"{int((a_k != a_r).any(1).sum())} row(s)")
+        if not torch.equal(m_k.view(torch.int64), m_r.view(torch.int64)):
+            fin = torch.isfinite(m_k) & torch.isfinite(m_r)
+            fail(f"{tag}: sweep margins differ (finite max |err| "
+                 f"{float((m_k[fin] - m_r[fin]).abs().max()):.3e})")
+        # the whole program with the kernels against the plain versions
+        o_k, f_k = alldev.classify_batch(fb_d, ib_d, PP, *dims, impl="cuda")
+        t0 = time.perf_counter()
+        o_r, f_r = alldev.classify_batch(fb_d, ib_d, PP, *dims, impl="ref")
+        torch.cuda.synchronize()
+        k7_plain = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(o_k, o_r) and torch.equal(f_k, f_r)):
+            fail(f"{tag}: classify_batch with the kernels differs from "
+                 f"the plain versions")
+        changed = int((a_r.to(torch.int32) != args[1]).sum())
+        say(f"kernel == plain: {tag}: sweeps bit-equal on {Bn} rows "
+            f"({changed} intervals decided by the sweeps), classify_batch "
+            f"equal ({int(f_k.sum())} flagged)")
+        ms = _time_cuda(lambda: kernels.unrel_sweeps(*args, PP.unrel), 5)
+        t0 = time.perf_counter()
+        unrel_sweeps_ref(*args, PP.unrel)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
+        k7 = _time_cuda(lambda: alldev.classify_batch(fb_d, ib_d, PP, *dims,
+                                                      impl="cuda"), 5)
+        bnd = _unrel_bound(args, PP.unrel, max_n)
+        k6b = _k6_bound(fb, ib, dims)
+        dpb = _bound_ms(planes, PP.rel.gcov[None, :].expand(
+            R2, 4).contiguous(), PP.rel)
+        k7b_bytes = fb.nbytes + ib.nbytes + Bn * max_n + Bn \
+            + dpb["records"] * 40 + bnd["records"] * 40 + bnd["tails"] * 8
+        k7b_ops = dpb["steps"] * OPS_PER_STEP + bnd["ops"]
+        k7b = max(k7b_bytes / PEAK_BYTES, k7b_ops / PEAK_F64) * 1e3
+        longest = int(args[7].sum(1).max())
+        rec.update(ms=ms, plain_ms=plain, bound=bnd, k6_ms=k6, k6_bound=k6b,
+                   k7_ms=k7, k7_plain_ms=k7_plain, k7_bound_ms=k7b,
+                   k7_bound_by="bytes" if k7b_bytes / PEAK_BYTES
+                   >= k7b_ops / PEAK_F64 else "operations")
+        say(f"  sweep kernel {ms:.3f} ms per launch ({ms * 1e3 / max(2 * longest, 1):.2f} "
+            f"us per step of the longest row, {longest} live steps per "
+            f"sweep), plain torch {plain:.1f} ms, bound {bnd['ms']:.6f} ms "
+            f"({bnd['by']}; bytes {bnd['bytes_ms']:.6f} ms with "
+            f"{bnd['records']} Skellam records and {bnd['tails']} tails, "
+            f"operations {bnd['ops_ms']:.6f} ms for {bnd['steps']} active "
+            f"steps); K6 glue {k6:.3f} ms (bound {k6b['ms']:.6f} ms, "
+            f"bytes); classify_batch {k7:.3f} ms per chunk, plain "
+            f"{k7_plain:.1f} ms, bound {k7b:.6f} ms ({rec['k7_bound_by']})")
+    return rec
+
+
+def _read_records(fx: str):
+    from classpro_tpu_torch.io.fastx import read_fastx
+
+    return list(read_fastx(os.path.join(FIX, fx, "reads.fasta.gz")))
+
+
+def phase_alldev_e2e():
+    """TorchEngine(alldev=True) over tiny and medium: golden bytes; both
+    kernels launched by that run."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.io.classfile import class_header
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    for fx in ("tiny", "medium"):
+        gm, seqs, profs = _model(fx)
+        reads = _read_records(fx)
+        t0 = time.time()
+        eng = TorchEngine(gm, device=DEV, alldev=True)
+        chunks = [(seqs[lo:lo + 200], profs[lo:lo + 200])
+                  for lo in range(0, len(seqs), 200)]
+        classes = [c for out in eng.classify_stream(iter(chunks),
+                                                    sort_window=8)
+                   for c in out]
+        text = "".join(f"{class_header(r.name, r.comment)}\n{r.seq}\n+\n"
+                       f"{c}\n" for r, c in zip(reads, classes)).encode()
+        with gzip.open(os.path.join(FIX, fx, "golden.class.gz"), "rb") as f:
+            if text != f.read():
+                fail(f"alldev e2e {fx}: .class differs from golden.class.gz")
+        say(f"alldev e2e {fx}: byte-identical to golden ({len(text)} bytes, "
+            f"{time.time() - t0:.2f} s incl. set-up, guard_flagged "
+            f"{eng.guard_flagged})")
+    launches = dict(kernels.LAUNCHES)
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"alldev path launched kernel {k} no time")
+    say(f"alldev e2e launches: {launches}")
+    return launches
+
+
+def phase_alldev_stream(passes: int, repeats: int = 3):
+    """The alldev stream over medium: per run, k-mers/s, the sweep
+    kernel's ms per launch (CUDA events), launches per chunk, the K4 + K6
+    glue's device ms per chunk (classify_batch's span less its kernels')
+    and max_memory_allocated."""
+    from classpro_tpu_torch import alldev, kernels
+    from classpro_tpu_torch import engine as engine_mod
+
+    gm, seqs, profs = _model("medium")
+    gold = golden_classes("medium")
+    kmers_pass = sum(len(c) - c.count("N") for c in gold[:len(seqs)])
+    eng = engine_mod.TorchEngine(gm, device=DEV, alldev=True)
+    spans = [(lo, min(lo + 200, len(seqs))) for lo in range(0, len(seqs), 200)]
+
+    def run(n):
+        chunks = ((seqs[lo:hi], profs[lo:hi])
+                  for _ in range(n) for lo, hi in spans)
+        t0 = time.perf_counter()
+        for k, res in enumerate(eng.classify_stream(chunks, sort_window=8)):
+            lo, hi = spans[k % len(spans)]
+            if res != gold[lo:hi]:
+                fail(f"alldev stream chunk {k} differs from the golden")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def timed(fn, acc, host=None):
+        def g(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            if host is not None:
+                host["classify_batch"] = host.get("classify_batch", 0.0) \
+                    + time.perf_counter() - t
+            acc.append((e0, e1))
+            return out
+        return g
+
+    run(1)                                   # warm-up pass
+    runs = []
+    for _ in range(repeats):
+        ev: dict = {"rel_dp": [], "unrel_sweeps": [], "classify_batch": []}
+        orig = (kernels.rel_dp, kernels.unrel_sweeps, alldev.classify_batch)
+        acc: dict = {}
+        kernels.rel_dp = timed(orig[0], ev["rel_dp"])
+        kernels.unrel_sweeps = timed(orig[1], ev["unrel_sweeps"])
+        alldev.classify_batch = timed(orig[2], ev["classify_batch"], acc)
+        undo = [_clock(eng, n, acc) for n in ("_stage", "_submit", "_finish",
+                                              "_exact_full")]
+        undo += [_clock(engine_mod, n, acc)
+                 for n in ("pack_chunk", "expand_asgn")]
+        torch.cuda.reset_peak_memory_stats()
+        c0, g0 = eng.chunks_done, eng.guard_flagged
+        try:
+            wall = run(passes)
+        finally:
+            kernels.rel_dp, kernels.unrel_sweeps, alldev.classify_batch = orig
+            for u in undo:
+                u()
+        a = lambda k: acc.get(k, 0.0)
+        host = {"wall_stage_cpp": a("_stage"),
+                "pack_chunk_numpy": a("pack_chunk"),
+                "classify_batch_enqueue": a("classify_batch"),
+                "pin_h2d_d2h_other_enqueue": a("_submit") - a("_stage")
+                - a("pack_chunk") - a("classify_batch"),
+                "wait_device": a("_finish") - a("expand_asgn")
+                - a("_exact_full"),
+                "expand_asgn_numpy": a("expand_asgn"),
+                "exact_guard": a("_exact_full"),
+                "other": wall - a("_submit") - a("_finish")}
+        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
+        chunks = len(ms["classify_batch"])
+        glue = (sum(ms["classify_batch"]) - sum(ms["rel_dp"])
+                - sum(ms["unrel_sweeps"]))
+        r = {"kmers_per_s": passes * kmers_pass / wall, "wall_s": wall,
+             "device_chunks": chunks, "engine_chunks": eng.chunks_done - c0,
+             "unrel_ms_per_launch": sum(ms["unrel_sweeps"])
+             / max(len(ms["unrel_sweeps"]), 1),
+             "unrel_launches_per_chunk": len(ms["unrel_sweeps"])
+             / max(chunks, 1),
+             "rel_dp_ms_per_launch": sum(ms["rel_dp"])
+             / max(len(ms["rel_dp"]), 1),
+             "rel_dp_launches_per_chunk": len(ms["rel_dp"]) / max(chunks, 1),
+             "glue_k4_k6_ms_per_chunk": glue / max(chunks, 1),
+             "classify_batch_ms_per_chunk": sum(ms["classify_batch"])
+             / max(chunks, 1),
+             "device_busy_share": sum(ms["classify_batch"]) / 1e3 / wall,
+             "guard_flagged": eng.guard_flagged - g0,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "host_s": host}
+        runs.append(r)
+        say(f"alldev stream run {len(runs)}: {r['kmers_per_s'] / 1e6:.2f} M "
+            f"k-mers/s ({passes} passes of medium), sweep kernel "
+            f"{r['unrel_ms_per_launch']:.3f} ms per launch, "
+            f"{r['unrel_launches_per_chunk']:.2f} launches/chunk, DP kernel "
+            f"{r['rel_dp_ms_per_launch']:.3f} ms x "
+            f"{r['rel_dp_launches_per_chunk']:.2f}/chunk, K4+K6 glue "
+            f"{r['glue_k4_k6_ms_per_chunk']:.3f} ms/chunk, classify_batch "
+            f"{r['classify_batch_ms_per_chunk']:.3f} ms/chunk, "
+            f"guard_flagged {r['guard_flagged']}, max_memory_allocated "
+            f"{r['max_memory_allocated']}; main thread s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    return {"passes": passes, "runs": runs,
+            "kmers_per_s": statistics.median(r["kmers_per_s"] for r in runs)}
+
+
 # ---------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernel,e2e,stream",
+    ap.add_argument("--phases", default="build,kernel,e2e,stream,alldev",
                     help="comma-separated subset (the probe always runs)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium")
+    ap.add_argument("--alldev-passes", type=int, default=10,
+                    help="alldev-stream passes over medium")
     ap.add_argument("--batch-size", type=int, default=200,
                     help="steady stream: reads per device chunk")
     ap.add_argument("--sort-window", type=int, default=8,
@@ -502,11 +843,21 @@ def main(argv=None) -> int:
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
                          sort_window=args.sort_window)
             if "stream" in phases else None)
+    arec = alaunch = asrec = None
+    if "alldev" in phases:
+        arec = phase_alldev()
+        alaunch = phase_alldev_e2e()
+        asrec = phase_alldev_stream(args.alldev_passes)
     if srec is not None:
         say(json.dumps({"stream": srec, "card": smi}))
+    if asrec is not None:
+        say(json.dumps({"alldev_stream": asrec, "alldev": {
+            k: v for k, v in arec.items() if k != "bound"},
+            "unrel_bound": arec["bound"], "card": smi}))
+    kern = []
     if krec is not None and launches is not None:
         k = len(krec["ms"]) - 1              # the medium shape timed last
-        say(json.dumps({"kernels": [{
+        kern.append({
             "name": "rel_dp", "route": "cuda",
             "source": "classpro_tpu_torch/csrc/rel_dp.cu",
             "replaces": "classpro_tpu/tpu/rel_dev2.py:636",
@@ -515,7 +866,19 @@ def main(argv=None) -> int:
             "ms": krec["ms"][k], "plain_ms": krec["plain_ms"][k],
             "bound_ms": krec["bound"][k]["ms"],
             "bound_by": krec["bound"][k]["by"],
-            "library_ms": None}]}))
+            "library_ms": None})
+    if arec is not None:
+        kern.append({
+            "name": "unrel_sweeps", "route": "cuda",
+            "source": "classpro_tpu_torch/csrc/unrel.cu",
+            "replaces": "classpro_tpu/tpu/unrel_dev2.py:67",
+            "launches": alaunch["unrel_sweeps"],
+            "max_abs_err": arec["max_abs_err"],
+            "ms": arec["ms"], "plain_ms": arec["plain_ms"],
+            "bound_ms": arec["bound"]["ms"], "bound_by": arec["bound"]["by"],
+            "library_ms": None})
+    if kern:
+        say(json.dumps({"kernels": kern}))
     say(smi)
     say(f"chip_smoke: all phases passed in {time.time() - t_all:.1f} s")
     say(json.dumps({"ok": True, "device": {

@@ -10,6 +10,14 @@ Stage split:
             demotion, reconciliation and the exactness guard follow on
             the host.
 
+``TorchEngine(alldev=True)`` takes the all-device path instead (the JAX
+package's ``_chunk_alldev``): after the C++ wall stage, each chunk is
+packed by ``pack.pack_chunk`` and classified whole by
+``alldev.classify_batch`` (DP, demotions, reconciliation and both
+relaxation sweeps, the last as the kernel csrc/unrel.cu); the host
+expands the assignments into class strings, and each read the device
+flags is re-decided whole, exactly, by the C++ host plane.
+
 The production entry is ``classify_stream``: a depth-3 software pipeline
 in which chunk k+1's host stages overlap chunk k's device work.  On a
 card each chunk's blobs go up from pinned host memory on the engine's
@@ -35,17 +43,11 @@ from classpro_tpu_torch.io.classfile import ClassRecord, class_header
 from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
 from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall
-from classpro_tpu_torch.params import build_rel_params
+from classpro_tpu_torch.pack import _bucket, expand_asgn, pack_chunk
+from classpro_tpu_torch.params import (PipelineParams, build_rel_params,
+                                       build_unrel_params)
 from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
                                     reconcile_fwbw, rel_only, unpack_out)
-
-
-def _bucket(x: int, lo: int = 8) -> int:
-    """Round up to the next power of two (bounds the shapes seen)."""
-    b = lo
-    while b < x:
-        b *= 2
-    return b
 
 
 _M_LADDER = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
@@ -94,7 +96,8 @@ def _prefetch_iter(chunks, depth: int):
 
 class TorchEngine:
     def __init__(self, gm: GlobalModel, batch_size: int = 200,
-                 threads: int = 0, verbose: bool = False, device=None):
+                 threads: int = 0, verbose: bool = False, device=None,
+                 alldev: bool = False):
         self.device = resolve_device(device)
         self.gm = gm
         self.batch_size = batch_size
@@ -103,6 +106,10 @@ class TorchEngine:
         # the C++ host plane; a failed native build raises (no fallback)
         self.wall = NativeWall(gm)
         self.P = build_rel_params(gm, self.device)
+        # the all-device path's parameters (the relaxation tables share
+        # the DP's Skellam table)
+        self.PP = (PipelineParams(self.P, build_unrel_params(gm, self.P))
+                   if alldev else None)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         # exactness-guard telemetry: reads recomputed by the exact
@@ -242,6 +249,8 @@ class TorchEngine:
         enqueued without waiting for it."""
         st = self._stage(seqs, profiles)
         self.chunks_done += 1
+        if self.PP is not None:
+            return self._submit_alldev(st)
         if "_plens" not in st:
             return st
         R, max_m = st["_R"], st["_mm"]
@@ -263,6 +272,80 @@ class TorchEngine:
             done.record(self.stream)
         st.update(out=host, done=done)
         return st
+
+    def _submit_alldev(self, st):
+        """Pack the staged chunk's reads that have intervals and enqueue
+        classify_batch on them (the JAX package's _dispatch)."""
+        from classpro_tpu_torch.alldev import classify_batch
+
+        if "g" not in st:
+            return st
+        g, slab, slot, n_out = st["g"], st["slab"], st["slot"], st["n_out"]
+        rows = [r for r in range(len(g)) if n_out[r] > 0]
+        if not rows:
+            return st
+        ivs = [slab[r * slot: r * slot + int(n_out[r])] for r in range(len(g))]
+        plens = [len(st["profiles"][i]) for i in g]
+        fb, ib, dims, st["meta"] = pack_chunk(rows, ivs, plens)
+        if self.stream is None:
+            out, flags = classify_batch(torch.from_numpy(fb),
+                                        torch.from_numpy(ib), self.PP, *dims)
+            st["un"] = torch.cat([out.view(torch.uint8),
+                                  flags.to(torch.uint8)[:, None]], dim=1)
+            return st
+        fb_h = torch.from_numpy(fb).pin_memory()
+        ib_h = torch.from_numpy(ib).pin_memory()
+        with torch.cuda.stream(self.stream):
+            out, flags = classify_batch(
+                fb_h.to(self.device, non_blocking=True),
+                ib_h.to(self.device, non_blocking=True), self.PP, *dims)
+            res = torch.cat([out.view(torch.uint8),
+                             flags.to(torch.uint8)[:, None]], dim=1)
+            host = torch.empty(res.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(res, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        st.update(un=host, done=done)
+        return st
+
+    def _finish_alldev(self, st) -> list[str]:
+        """Class strings of an all-device chunk, in g order: expand the
+        interval assignments, re-decide the flagged reads exactly."""
+        g = st["g"]
+        res_g = [""] * len(g)
+        if "meta" in st:
+            if "done" in st:
+                st["done"].synchronize()
+            buf = st["un"].numpy()
+            out, flags = buf[:, :-1].view(np.int8), buf[:, -1] != 0
+            expand_asgn(out, st["meta"], res_g, self.gm.kmer)
+            for p, r in enumerate(st["meta"][0]):
+                if flags[p]:
+                    self.guard_flagged += 1
+                    res_g[r] = self._exact_full(st, r)
+        return res_g
+
+    def _exact_full(self, st, r: int) -> str:
+        """Whole-read exact classification of staged read ``r`` (the
+        all-device path's guard): the C++ exact rel oracle on its rel
+        records, then the C++ relaxation and expansion of that read
+        alone."""
+        slab, slot = st["slab"], st["slot"]
+        n_out = st["n_out"][r:r + 1]
+        n_rel = st["n_rel"][r:r + 1]
+        recs = slab[r * slot: (r + 1) * slot]
+        rel_recs = recs[: int(n_out[0])]
+        rel_recs = rel_recs[rel_recs["is_rel"] != 0]
+        rel_out = None
+        if n_rel[0] > 0:
+            plen = len(st["profiles"][st["g"][r]])
+            rel_out = self.wall.exact_rel(rel_recs, plen)[None, :]
+        out_off = np.array([0, len(st["seqs"][st["g"][r]])], np.int64)
+        buf = self.wall.finish_batch(recs, slot, n_out, n_rel, rel_out,
+                                     max(len(rel_recs), 1), out_off,
+                                     threads=1)
+        return str(memoryview(buf), "ascii")
 
     def _exact_guard(self, st, rel_out) -> None:
         """Host-exact recompute of flagged rows (in place)."""
@@ -304,7 +387,11 @@ class TorchEngine:
         class expansion."""
         seqs = st["seqs"]
         res = [""] * len(seqs)
-        if "g" in st:
+        if "g" in st and self.PP is not None:
+            for i, c in zip(st["g"], self._finish_alldev(st)):
+                res[i] = c
+            self.wall.release_slab(st["slab"])
+        elif "g" in st:
             g, slab, slot = st["g"], st["slab"], st["slot"]
             n_out, n_rel = st["n_out"], st["n_rel"]
             rel_out = None

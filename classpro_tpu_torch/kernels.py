@@ -1,16 +1,18 @@
-"""Build and bind the reliable-interval DP kernel (csrc/rel_dp.cu).
+"""Build and bind the hand-written CUDA kernels (csrc/).
 
-``rel_dp`` is the wrapper the main path calls: on a CUDA tensor it
-launches the sm_90a kernel (one thread per DP row, see rel_dp.cu) on the
-current stream and counts the launch in ``LAUNCHES``; on a CPU tensor it
-runs the plain torch version (rel_ref.rel_dp_ref).  There is no fallback
-between the two: a failed nvcc build or a refused launch raises.
+``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP) and
+``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) are the
+wrappers the paths call: on CUDA tensors they launch the sm_90a kernel
+(one thread per row) on the current stream and count the launch in
+``LAUNCHES``; on CPU tensors they run the plain torch version (rel_ref,
+unrel_ref).  There is no fallback between the two: a failed nvcc build
+or a refused launch raises.
 
-The kernel is compiled at first use with nvcc into ``_build/`` (plain C
-interface, loaded with ctypes), never at import.  ``rel_dp_host`` runs the
-same per-row body compiled by g++ (rel_dp_row.cuh under -x c++); it is
-the CPU tests' window onto the kernel's arithmetic and never runs on the
-main path.
+Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
+interface, loaded with ctypes), never at import.  ``rel_dp_host`` and
+``unrel_sweeps_host`` run the same per-row bodies compiled by g++ (the
+headers under -x c++); they are the CPU tests' window onto the kernels'
+arithmetic and never run on a path.
 """
 
 from __future__ import annotations
@@ -22,13 +24,16 @@ import threading
 
 import torch
 
-from classpro_tpu_torch.params import RelParams
+from classpro_tpu_torch.params import RelParams, UnrelParams
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_CU = os.path.join(_CSRC, "rel_dp.cu")
-_DEPS = (_CU, os.path.join(_CSRC, "rel_dp_row.cuh"))
 _BUILD = os.path.join(_HERE, "_build")
+# kernel -> (source, headers it includes)
+SOURCES = {
+    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh",)),
+    "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rel_dp_row.cuh")),
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
@@ -36,19 +41,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
               "-x", "c++"]
 
-# launches of the CUDA kernel (plain-version calls on the CPU do not count)
-LAUNCHES = {"rel_dp": 0}
-# nvcc's output of the last build in this process (the -Xptxas -v lines)
+# launches of the CUDA kernels (plain-version calls on the CPU do not count)
+LAUNCHES = {"rel_dp": 0, "unrel_sweeps": 0}
+# compiler output of the last build in this process, by (kernel, kind)
+# (nvcc's -Xptxas -v lines)
 BUILD_LOG: dict = {}
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 _PTR = ctypes.c_void_p
-# rel_dp.cu RD_ARGS_DECL
-_ARGTYPES = ([_PTR] * 17 + [ctypes.c_int, ctypes.c_int, _PTR, _PTR,
-                            ctypes.c_int, ctypes.c_double,
-                            ctypes.c_longlong] + [ctypes.c_double] * 4)
+_I = ctypes.c_int
+_D = ctypes.c_double
+_LL = ctypes.c_longlong
+# C argument lists: rel_dp.cu RD_ARGS_DECL, unrel.cu UR_ARGS_DECL
+_ARGTYPES = {
+    "rel_dp": [_PTR] * 17 + [_I, _I, _PTR, _PTR, _I, _D, _LL] + [_D] * 4,
+    "unrel_sweeps": ([_PTR] * 11 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
+                     + [_D] * 5 + [_LL] * 3),
+}
+_ENTRY = {("rel_dp", "cuda"): "rel_dp_launch", ("rel_dp", "host"): "rel_dp_host",
+          ("unrel_sweeps", "cuda"): "unrel_launch",
+          ("unrel_sweeps", "host"): "unrel_host"}
 
 
 def _nvcc() -> str:
@@ -57,12 +71,14 @@ def _nvcc() -> str:
     return cand if os.path.exists(cand) else "nvcc"
 
 
-def _stale(so: str) -> bool:
+def _stale(so: str, name: str) -> bool:
+    src, hdrs = SOURCES[name]
+    deps = [os.path.join(_CSRC, f) for f in (src,) + hdrs]
     return not os.path.exists(so) or any(
-        os.path.getmtime(d) > os.path.getmtime(so) for d in _DEPS)
+        os.path.getmtime(d) > os.path.getmtime(so) for d in deps)
 
 
-def _compile(cmd: list, so: str, key: str) -> None:
+def _compile(cmd: list, so: str, key) -> None:
     """Run one compiler command into a private name, then rename (test
     workers never load a half-written library); raise on failure."""
     os.makedirs(_BUILD, exist_ok=True)
@@ -75,32 +91,49 @@ def _compile(cmd: list, so: str, key: str) -> None:
     os.replace(tmp, so)
 
 
-def build(kind: str = "cuda", force: bool = False) -> str:
-    """Compile the kernel (``cuda``: nvcc for sm_90a) or the host test
-    shim (``host``: g++) if its sources changed; returns the .so path."""
+def build(kind: str = "cuda", name: str = "rel_dp",
+          force: bool = False) -> str:
+    """Compile kernel ``name`` (``cuda``: nvcc for sm_90a) or its host
+    test shim (``host``: g++) if its sources changed; returns the .so
+    path."""
+    src = os.path.join(_CSRC, SOURCES[name][0])
+    stem = os.path.splitext(SOURCES[name][0])[0]
     if kind == "cuda":
-        so = os.path.join(_BUILD, "librel_dp_cuda.so")
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", _CSRC, _CU]
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", _CSRC, src]
     elif kind == "host":
-        so = os.path.join(_BUILD, "librel_dp_host.so")
-        cmd = ["g++"] + HOST_FLAGS + ["-I", _CSRC, _CU]
+        cmd = ["g++"] + HOST_FLAGS + ["-I", _CSRC, src]
     else:
         raise ValueError(kind)
-    if force or _stale(so):
-        _compile(cmd, so, kind)
+    so = os.path.join(_BUILD, f"lib{stem}_{kind}.so")
+    if force or _stale(so, name):
+        _compile(cmd, so, (name, kind))
     return so
 
 
-def _lib(kind: str):
+def _fn(name: str, kind: str):
+    """The loaded C entry point of kernel ``name`` (built first)."""
     with _lock:
-        lib = _libs.get(kind)
-        if lib is None:
-            lib = ctypes.CDLL(build(kind))
-            fn = lib.rel_dp_launch if kind == "cuda" else lib.rel_dp_host
+        fn = _libs.get((name, kind))
+        if fn is None:
+            lib = ctypes.CDLL(build(kind, name))
+            fn = getattr(lib, _ENTRY[(name, kind)])
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES + ([_PTR] if kind == "cuda" else [])
-            _libs[kind] = lib
-        return lib
+            fn.argtypes = _ARGTYPES[name] + ([_PTR] if kind == "cuda"
+                                             else [])
+            _libs[(name, kind)] = fn
+        return fn
+
+
+def _launch(name: str, device, args) -> None:
+    """Launch kernel ``name`` on the current stream of ``device``; raise
+    if the launch was refused, count it otherwise."""
+    fn = _fn(name, "cuda")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
 
 
 def _check(planes, cov, active, device):
@@ -162,7 +195,8 @@ def _args(planes, cov, P: RelParams, active, R2, M):
 
 def rel_dp(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd,
            cov, P: RelParams, active=None):
-    """One merged-direction DP pass (rel_ref.rel_dp_ref's contract):
+    """One merged-direction DP pass (rel_ref.rel_dp_ref's contract; the
+    kernel replaces rel_dev2.rel_dp_pass2, rel_dev2.py:636-787):
     returns (asgn int8 (R2, max_m), dp f64 (R2, 4), margin f64 (R2,)).
     ``active`` (bool (R2,)) limits the pass to those rows; the others'
     outputs are left unwritten.  CUDA tensors launch the kernel on the
@@ -176,13 +210,7 @@ def rel_dp(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd,
         raise ValueError(f"no kernel for device {bpos.device}")
     R2, M = _check(planes, cov, active, bpos.device)
     args, keep = _args(planes, cov, P, active, R2, M)
-    lib = _lib("cuda")
-    stream = torch.cuda.current_stream(bpos.device).cuda_stream
-    with torch.cuda.device(bpos.device):
-        err = lib.rel_dp_launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"rel_dp kernel launch failed: CUDA error {err}")
-    LAUNCHES["rel_dp"] += 1
+    _launch("rel_dp", bpos.device, args)
     return keep[0], keep[1], keep[2]
 
 
@@ -195,6 +223,76 @@ def rel_dp_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
     cov = cov.contiguous()
     R2, M = _check(planes, cov, active, torch.device("cpu"))
     args, keep = _args(planes, cov, P, active, R2, M)
-    if _lib("host").rel_dp_host(*args) != 0:
+    if _fn("rel_dp", "host")(*args) != 0:
         raise RuntimeError("host shim failed")
     return keep[0], keep[1], keep[2]
+
+
+_UNREL_IN = (("is_rel", torch.bool, ()), ("asgn", torch.int32, ()),
+             ("P13", torch.float64, (13,)), ("packL", torch.float64, (3,)),
+             ("packR", torch.float64, (3,)), ("idx_desc", torch.int32, ()),
+             ("idx_asc", torch.int32, ()), ("live", torch.bool, ()))
+
+
+def _unrel_args(ins, n, P: UnrelParams, device):
+    """Checks of the sweep inputs; outputs and the flat C argument list
+    (UR_ARGS_DECL)."""
+    if ins[1].dim() != 2:
+        raise ValueError("asgn must be (B, N)")
+    B, N = ins[1].shape
+    for (name, dt, tail), t in zip(_UNREL_IN, ins):
+        if t.dtype != dt or tuple(t.shape) != (B, N) + tail:
+            raise ValueError(f"{name}: want {dt} {(B, N) + tail}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if n.dtype != torch.int32 or tuple(n.shape) != (B,):
+        raise ValueError(f"n: want torch.int32 ({B},), got {n.dtype} "
+                         f"{tuple(n.shape)}")
+    for t in list(ins) + [n, P.tab, P.lf_small, P.btg_flat]:
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, kernel on {device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if P.btg_flat.numel() != P.n_cap * P.n_cap:
+        raise ValueError("btg_flat must hold n_cap * n_cap entries")
+    asgn = torch.empty((B, N), dtype=torch.int8, device=device)
+    mm = torch.empty((B,), dtype=torch.float64, device=device)
+    args = ([t.data_ptr() for t in ins] + [n.data_ptr(), asgn.data_ptr(),
+                                           mm.data_ptr(), B, N]
+            + [P.tab.data_ptr(), P.lf_small.data_ptr(),
+               int(P.lf_small.shape[0]), P.btg_flat.data_ptr(),
+               int(P.n_cap), float(P.read_len), float(P.r_logp),
+               float(P.log_1m_pe_mean), float(P.log_pe_mean),
+               float(P.dr_ratio), int(P.cov_r), int(P.cov_h),
+               int(P.cov_d)])
+    return args, asgn, mm
+
+
+def unrel_sweeps(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live,
+                 n, P: UnrelParams):
+    """Both relaxation sweeps (unrel_ref.unrel_sweeps_ref's contract; the
+    kernel replaces unrel_dev2.unrel_sweeps2, unrel_dev2.py:67-283):
+    returns (asgn int8 (B, N), min decision margin f64 (B,)).  CUDA
+    tensors launch the kernel on the current stream; CPU tensors run the
+    plain torch version."""
+    ins = (is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live)
+    if asgn.device.type == "cpu":
+        from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
+
+        return unrel_sweeps_ref(*ins, n, P)
+    if asgn.device.type != "cuda":
+        raise ValueError(f"no kernel for device {asgn.device}")
+    args, out, mm = _unrel_args(ins, n, P, asgn.device)
+    _launch("unrel_sweeps", asgn.device, args)
+    return out, mm
+
+
+def unrel_sweeps_host(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc,
+                      live, n, P: UnrelParams):
+    """The sweep kernel's per-row body compiled by g++ and run on CPU
+    tensors (test-only; same contract as ``unrel_sweeps``)."""
+    ins = tuple(t.contiguous() for t in (is_rel, asgn, P13, packL, packR,
+                                         idx_desc, idx_asc, live))
+    args, out, mm = _unrel_args(ins, n.contiguous(), P, torch.device("cpu"))
+    if _fn("unrel_sweeps", "host")(*args) != 0:
+        raise RuntimeError("host shim failed")
+    return out, mm

@@ -1,11 +1,14 @@
-"""Device-resident parameters of the reliable-interval DP.
+"""Device-resident parameters of the DP and of the relaxation sweeps.
 
 ``RelParams`` is the port's counterpart of the JAX package's
 ``RelOnlyParams`` (``PipelineParams.rel`` + ``.gcov``): the packed
 Skellam table, the log-factorial tables, the model scalars and the global
-coverages.  ``build_rel_params`` builds it from a ``GlobalModel``;
-``rel_params_from_numpy`` carries a JAX parameter set over, given as
-numpy arrays and Python scalars.
+coverages.  ``UnrelParams`` is the counterpart of ``UnrelParams2`` (the
+relaxation sweeps' binomial tails and scalars); it shares the packed
+table and ``lf_small`` with a ``RelParams``, so the 94.6 MB table sits on
+the device once.  ``PipelineParams`` holds both, for the all-device path.
+``build_*`` build them from a ``GlobalModel``; ``*_from_numpy`` carry a
+JAX parameter set over, given as numpy arrays and Python scalars.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from classpro_tpu_torch.estimation import GlobalModel
 
-REPEAT = 1
+REPEAT, HAPLO, DIPLO = 1, 2, 3
 
 
 @dataclasses.dataclass
@@ -76,3 +79,66 @@ def rel_params_from_numpy(d: dict, device) -> RelParams:
         log_1m_pe_mean=float(d["log_1m_pe_mean"]),
         log_pe_mean=float(d["log_pe_mean"]), dr_ratio=float(d["dr_ratio"]),
         gcov=torch.tensor(np.asarray(d["gcov"], np.int64), device=device))
+
+
+@dataclasses.dataclass
+class UnrelParams:
+    tab: torch.Tensor        # the RelParams' packed Skellam table
+    lf_small: torch.Tensor   # the RelParams' logfact head
+    btg_flat: torch.Tensor   # (n_cap*n_cap,) f64 log binomial tail, erate 0.1
+    n_cap: int
+    read_len: float
+    r_logp: float
+    log_1m_pe_mean: float
+    log_pe_mean: float
+    dr_ratio: float
+    cov_r: int
+    cov_h: int
+    cov_d: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.tab.device
+
+
+@dataclasses.dataclass
+class PipelineParams:
+    """The all-device path's parameters (device_pipeline.PipelineParams;
+    the global coverages live in ``rel.gcov``)."""
+    rel: RelParams
+    unrel: UnrelParams
+
+
+def build_unrel_params(gm: GlobalModel, rel: RelParams) -> UnrelParams:
+    """UnrelParams for ``gm`` on ``rel``'s device, sharing its table
+    (device_pipeline.build_pipeline_params, unrel part)."""
+    from classpro_tpu_torch.tables import build_tables
+
+    dt = build_tables(gm)
+    d = gm.defaults
+    return UnrelParams(
+        tab=rel.tab, lf_small=rel.lf_small,
+        btg_flat=_f64(dt.btg_log()[dt.unrel_idx].reshape(-1), rel.device),
+        n_cap=int(dt.n_cap), read_len=float(gm.read_len),
+        r_logp=float(d.r_logp), log_1m_pe_mean=math.log(1 - d.pe_mean),
+        log_pe_mean=math.log(d.pe_mean), dr_ratio=float(gm.dr_ratio),
+        cov_r=int(gm.cov[REPEAT]), cov_h=int(gm.cov[HAPLO]),
+        cov_d=int(gm.cov[DIPLO]))
+
+
+def build_pipeline_params(gm: GlobalModel, device) -> PipelineParams:
+    rel = build_rel_params(gm, device)
+    return PipelineParams(rel=rel, unrel=build_unrel_params(gm, rel))
+
+
+def unrel_params_from_numpy(d: dict, rel: RelParams) -> UnrelParams:
+    """Carry a JAX ``UnrelParams2`` over: ``d`` holds its fields as numpy
+    arrays / Python scalars (``ps`` and ``lf_small`` are taken from
+    ``rel``, which carried the same arrays over)."""
+    return UnrelParams(
+        tab=rel.tab, lf_small=rel.lf_small,
+        btg_flat=_f64(d["btg_flat"], rel.device), n_cap=int(d["n_cap"]),
+        read_len=float(d["read_len"]), r_logp=float(d["r_logp"]),
+        log_1m_pe_mean=float(d["log_1m_pe_mean"]),
+        log_pe_mean=float(d["log_pe_mean"]), dr_ratio=float(d["dr_ratio"]),
+        cov_r=int(d["cov_r"]), cov_h=int(d["cov_h"]), cov_d=int(d["cov_d"]))

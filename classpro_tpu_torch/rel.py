@@ -46,6 +46,18 @@ def _dp(impl, planes, cov, P, active=None):
     raise ValueError(f"unknown DP impl {impl!r}")
 
 
+def e_emission(bcnt, ecnt, lf_bcnt, lf_ecnt, pe_rel, P: RelParams):
+    """The DP's E emission plane (data-only, shared by the main and
+    rescue passes): max(Poisson(bcnt) + Poisson(ecnt) at the E coverage
+    + e_po_base, the wall's own error log-probability)."""
+    covEf = P.gcov[ERROR].to(torch.float64)
+    lce = torch.log(covEf)
+    return torch.maximum(
+        (bcnt.to(torch.float64) * lce - covEf - lf_bcnt)
+        + (ecnt.to(torch.float64) * lce - covEf - lf_ecnt) + P.e_po_base,
+        pe_rel)
+
+
 def rel_planes(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
                R: int, max_m: int):
     """Both scan directions from the forward-order blobs:
@@ -80,13 +92,7 @@ def rel_planes(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
     epos = torch.cat([e - 1, rev(b)])
     pe_rel = torch.cat([pe, rev(pe)])
 
-    # E emission (data-only, shared by the main and rescue passes)
-    covEf = P.gcov[ERROR].to(torch.float64)
-    lce = torch.log(covEf)
-    logpE = torch.maximum(
-        (bcnt.to(torch.float64) * lce - covEf - lf_bcnt)
-        + (ecnt.to(torch.float64) * lce - covEf - lf_ecnt) + P.e_po_base,
-        pe_rel)
+    logpE = e_emission(bcnt, ecnt, lf_bcnt, lf_ecnt, pe_rel, P)
     fwd = torch.cat([torch.ones(R, dtype=torch.bool, device=iblob.device),
                      torch.zeros(R, dtype=torch.bool, device=iblob.device)])
     planes = (bpos, bcnt, epos, ecnt, torch.cat([max_cc, rev(max_cc)]),
