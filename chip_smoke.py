@@ -37,9 +37,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              and medium writes the golden bytes (launch counts reset just
              before and read after: both kernels > 0), and a timed alldev
              stream of --alldev-passes passes over medium, 3 runs.
+7. shard   - the parallel layer (K8) and the rest of classify's surface:
+             (a) psum_histogram in a NCCL world of one rank equals its
+             input (medium's partial instance histogram), the all-reduce
+             timed with CUDA events, estimate_distributed == the .hist
+             model; (b) the shard driver (run_process) with one process
+             and with 4 in-process shards + the checked merge writes the
+             tiny and medium goldens, and --resume after a truncated and
+             a deleted shard recomputes only those two; (c)
+             sharded_classify of 4 distinct medium read groups over
+             cuda:{i % cards} equals one classify_batch per shard, its
+             unflagged reads the C++ exact path, both kernels launched;
+             (d) TorchEngine(devices=...) (every card, or cuda:0 twice on
+             one card) writes the medium golden on both paths; (e)
+             classify -s on tiny FASTX and on the tiny .dam fixture, and
+             --stats-json, byte-equal to the fixtures; (f) with two or
+             more cards, two NCCL ranks as processes of the driver; with
+             one card it prints that (f) did not run.
 
-It prints one {"kernels": [...]} line, {"stream": {...}} and
-{"alldev_stream": {...}} lines, the card's name and power limit, and, as
+It prints one {"kernels": [...]} line, {"stream": {...}},
+{"alldev_stream": {...}} and {"shard": {...}} lines, the card's name and
+power limit, and, as
 its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  It imports nothing of JAX or of the JAX package.
 """
@@ -800,10 +818,394 @@ def phase_alldev_stream(passes: int, repeats: int = 3):
             "kmers_per_s": statistics.median(r["kmers_per_s"] for r in runs)}
 
 
+# --------------------------------------------------------------------- 7
+# the --stats-json keys of the JAX package's classify (cli.py:287-294 and
+# engine.py:1035-1042)
+STATS_KEYS = {"wall_s", "kmers", "reads", "stream_wall_s", "chunks",
+              "absorbed_chunks", "guard_flagged", "min_margin", "shapes"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _reset_launches() -> None:
+    from classpro_tpu_torch import kernels
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def _gold_bytes(fx: str) -> bytes:
+    with gzip.open(os.path.join(FIX, fx, "golden.class.gz"), "rb") as f:
+        return f.read()
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _k8(rec: dict) -> None:
+    """(a) K8 in a NCCL world of one rank: psum_histogram of medium's
+    partial instance histogram is its input; the all-reduce timed with
+    CUDA events; estimate_distributed gives the .hist model."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+    from classpro_tpu_torch.parallel import driver, mesh
+
+    root = os.path.join(FIX, "medium", "reads")
+    hist = load_histogram(root)
+    P = open_profiles(root)
+    profs = [P.fetch(i) for i in range(P.nreads)]
+    part = driver.partial_instance_hist(profs, hist.low, hist.high)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        n0 = mesh.LAUNCHES["all_reduce"]
+        got = mesh.psum_histogram(part)
+        if got.dtype != np.int64 or not np.array_equal(got, part):
+            fail("K8: psum_histogram in a NCCL world of one != its input")
+        t = torch.from_numpy(part).to("cuda")
+        ms = _time_cuda(lambda: dist.all_reduce(t, op=dist.ReduceOp.SUM),
+                        20)
+        if not torch.equal(t.cpu(), torch.from_numpy(part)):
+            fail("K8: all_reduce in a world of one changed its tensor")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mesh.psum_histogram(part)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        gm = driver.estimate_distributed(profs, kmer=hist.kmer,
+                                         low=hist.low, high=hist.high)
+        calls = mesh.LAUNCHES["all_reduce"] - n0
+    finally:
+        dist.destroy_process_group()
+    ref = build_global_model(load_histogram(root))
+    if not ((gm.cov == ref.cov).all() and gm.dr_ratio == ref.dr_ratio):
+        fail(f"K8: estimate_distributed cov {gm.cov} dr {gm.dr_ratio} != "
+             f".hist model cov {ref.cov} dr {ref.dr_ratio}")
+    nbytes = 2 * part.nbytes          # the input read once, the sum written
+    rec.update(k8_all_reduce_ms=ms, k8_psum_histogram_ms=host_ms,
+               k8_bytes=part.nbytes, k8_bound_ms=nbytes / PEAK_BYTES * 1e3,
+               k8_bound_by="bytes", k8_psum_calls=calls, k8_world=1,
+               k8_backend="nccl")
+    say(f"shard (a) K8: NCCL all_reduce of {part.nbytes} B int64 in a "
+        f"world of 1: {ms:.4f} ms (CUDA events, 20 reps), bound "
+        f"{rec['k8_bound_ms']:.6f} ms (bytes); psum_histogram with its "
+        f"copies {host_ms:.3f} ms; estimate_distributed == .hist model "
+        f"(cov {gm.cov.tolist()}, dr_ratio {gm.dr_ratio})")
+
+
+def _driver(rec: dict, tmp: str) -> None:
+    """(b) The shard driver on the card: one process, 4 shards + merge,
+    and the 4-shard resume, against the goldens."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.parallel.driver import (merge_shards,
+                                                    run_process, shard_range,
+                                                    shard_records)
+
+    def src(fx):
+        return (os.path.join(FIX, fx, "reads.fasta.gz"),
+                os.path.join(FIX, fx, "reads"))
+
+    secs: dict = {}
+    _reset_launches()
+    for fx in ("tiny", "medium"):
+        s, fk = src(fx)
+        out = os.path.join(tmp, f"{fx}.single.class")
+        t0 = time.perf_counter()
+        run_process(s, fk, out, device="cuda")
+        secs[f"{fx}_single_s"] = time.perf_counter() - t0
+        if _read(out) != _gold_bytes(fx):
+            fail(f"driver nproc=1 {fx}: .class differs from the golden")
+    launches = dict(kernels.LAUNCHES)
+    if launches["rel_dp"] <= 0:
+        fail("driver path launched kernel rel_dp no time")
+
+    def four(fx, out, resume=False):
+        s, fk = src(fx)
+        t0 = time.perf_counter()
+        for pid in range(4):
+            run_process(s, fk, out, nproc=4, pid=pid, device="cuda",
+                        resume=resume, _skip_init=True)
+        return time.perf_counter() - t0
+
+    def merge(fx, out):
+        from classpro_tpu_torch.io.fastk import open_profiles
+
+        n = open_profiles(src(fx)[1]).nreads
+        want = [e - b for b, e in (shard_range(n, 4, p) for p in range(4))]
+        t0 = time.perf_counter()
+        merge_shards(out, 4, want)
+        secs[f"{fx}_merge_s"] = time.perf_counter() - t0
+        if _read(out) != _gold_bytes(fx):
+            fail(f"driver 4 shards {fx}: merged .class differs from golden")
+        return want
+
+    for fx in ("tiny", "medium"):
+        out = os.path.join(tmp, f"{fx}.four.class")
+        secs[f"{fx}_four_shards_s"] = four(fx, out)
+        merge(fx, out)
+    # resume: shard 1 truncated mid-record, shard 2 deleted
+    out = os.path.join(tmp, "medium.resume.class")
+    four("medium", out)
+    with open(out + ".1", "r+b") as f:
+        f.truncate(os.path.getsize(out + ".1") - 37)
+    os.remove(out + ".2")
+    st = {p: os.stat(f"{out}.{p}") for p in (0, 3)}
+    secs["medium_resume_s"] = four("medium", out, resume=True)
+    for p in (0, 3):
+        s2 = os.stat(f"{out}.{p}")
+        if (s2.st_ino, s2.st_mtime_ns) != (st[p].st_ino, st[p].st_mtime_ns):
+            fail(f"resume rewrote the complete shard {p}")
+    want = merge("medium", out)
+    if any(shard_records(f"{out}.{p}") != -1 for p in range(4)):
+        fail("merge left shard files behind")
+    rec.update(driver_s=secs, driver_launches=launches,
+               medium_shard_reads=want)
+    say(f"shard (b) driver: nproc=1 and 4 shards + merge write the tiny "
+        f"and medium goldens; resume after truncate/delete recomputed "
+        f"shards 1, 2 only; seconds {json.dumps(secs)}; launches "
+        f"{launches}")
+
+
+def _exact_classes(wall, seq: str, recs, plen: int) -> str:
+    """The C++ exact path of one read (exact_rel + finish_batch), as the
+    all-device guard re-decides a flagged read."""
+    import numpy as np
+
+    rel_recs = recs[recs["is_rel"] != 0]
+    rel_out = (wall.exact_rel(rel_recs, plen)[None, :] if len(rel_recs)
+               else None)
+    buf = wall.finish_batch(
+        np.ascontiguousarray(recs), len(recs),
+        np.array([len(recs)], np.int32), np.array([len(rel_recs)], np.int32),
+        rel_out, max(len(rel_recs), 1), np.array([0, len(seq)], np.int64),
+        threads=1)
+    return str(memoryview(buf), "ascii")
+
+
+def _sharded(rec: dict, devices: list) -> None:
+    """(c) sharded_classify of 4 distinct medium read groups (every
+    fourth read in order of interval count, one common dims)."""
+    import numpy as np
+
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.alldev import classify_batch
+    from classpro_tpu_torch.native import NativeWall
+    from classpro_tpu_torch.pack import expand_asgn, pack_chunk
+    from classpro_tpu_torch.params import build_replicas
+    from classpro_tpu_torch.parallel.mesh import sharded_classify
+
+    gm, seqs, profs = _model("medium")
+    gold = golden_classes("medium")
+    wall = NativeWall(gm)
+    slab, n_out, n_rel, slot = wall.wall_stage_slab(
+        [s.encode("ascii") for s in seqs], profs)
+    ivs = [slab[i * slot: i * slot + int(n_out[i])].copy()
+           for i in range(len(seqs))]
+    plens = [len(p) for p in profs]
+    order = sorted((i for i in range(len(seqs)) if n_out[i] > 0),
+                   key=lambda i: (int(n_out[i]), int(n_rel[i])))
+    groups = [sorted(order[d::4]) for d in range(4)]
+    packs = [pack_chunk(g, ivs, plens) for g in groups]
+    dims = packs[0][2]
+    if any(p[2] != dims for p in packs):
+        fail(f"sharded: groups differ in dims {[p[2] for p in packs]}")
+    fbs = np.stack([p[0] for p in packs])
+    ibs = np.stack([p[1] for p in packs])
+    PPs = build_replicas(gm, devices, alldev=True)
+    sharded_classify(devices, fbs, ibs, PPs, dims)      # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out, flags = sharded_classify(devices, fbs, ibs, PPs, dims)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    if launches["rel_dp"] <= 0 or launches["unrel_sweeps"] <= 0:
+        fail(f"sharded_classify launches {launches}: a kernel ran no time")
+    checked = 0
+    for d, (g, (fb, ib, _, meta)) in enumerate(zip(groups, packs)):
+        dev = torch.device(devices[d])
+        o, f = classify_batch(torch.from_numpy(fb).to(dev),
+                              torch.from_numpy(ib).to(dev), PPs[dev], *dims)
+        if not (np.array_equal(out[d], o.cpu().numpy())
+                and np.array_equal(flags[d], f.cpu().numpy())):
+            fail(f"sharded: shard {d} != a single classify_batch on it")
+        res = [None] * len(seqs)
+        expand_asgn(out[d], meta, res, gm.kmer)
+        for r, i in enumerate(g):
+            if flags[d][r]:
+                continue
+            want = _exact_classes(wall, seqs[i], ivs[i], plens[i])
+            if res[i] != want or want != gold[i]:
+                fail(f"sharded: shard {d} read {i} != the C++ exact path")
+            checked += 1
+    rec.update(sharded_devices=[str(d) for d in devices],
+               sharded_dims=list(dims), sharded_ms=ms,
+               sharded_launches=launches, sharded_reads_checked=checked,
+               sharded_flagged=int(flags.sum()))
+    say(f"shard (c) sharded_classify over {devices}: 4 shards at dims "
+        f"{dims} == one classify_batch each; {checked} unflagged reads == "
+        f"the C++ exact path, {int(flags.sum())} flagged; {ms:.2f} ms for "
+        f"the 4 shards; launches {launches}")
+
+
+def _round_robin(rec: dict, devices: list) -> None:
+    """(d) TorchEngine(devices=...) on medium, both paths: the golden
+    bytes, every kernel of the path launched."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import TorchEngine
+
+    gm, seqs, profs = _model("medium")
+    gold = golden_classes("medium")
+    chunks = [(seqs[lo:lo + 200], profs[lo:lo + 200])
+              for lo in range(0, len(seqs), 200)]
+    out = {}
+    for alldev in (False, True):
+        eng = TorchEngine(gm, devices=devices, alldev=alldev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = [c for r in eng.classify_stream(iter(chunks), sort_window=8)
+               for c in r]
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        tag = "alldev" if alldev else "main"
+        if got != gold[:len(seqs)]:
+            fail(f"round robin ({tag}) over {devices} differs from golden")
+        need = ("rel_dp", "unrel_sweeps") if alldev else ("rel_dp",)
+        if any(launches[k] <= 0 for k in need):
+            fail(f"round robin ({tag}) launches {launches}")
+        out[tag] = {"s": wall, "launches": launches,
+                    "chunks_dealt": eng._rr, "replicas": len(eng._on)}
+    rec.update(round_robin_devices=[str(d) for d in devices],
+               round_robin=out)
+    say(f"shard (d) round robin over {devices}: medium golden on the main "
+        f"path and on alldev; {json.dumps(out)}")
+
+
+def _cli(rec: dict, tmp: str) -> None:
+    """(e) classify -s on tiny FASTX and on the tiny .dam fixture, with
+    --stats-json, on the card."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.cli import main as cli_main
+    from classpro_tpu_torch.io.fastk import open_profiles
+
+    tiny = os.path.join(FIX, "tiny")
+    K = open_profiles(os.path.join(tiny, "reads")).kmer
+    out = os.path.join(tmp, "cli.class")
+    stats = os.path.join(tmp, "stats.json")
+    _reset_launches()
+    if cli_main(["classify", "-s", os.path.join(tiny, "reads.fasta.gz"),
+                 "-N", os.path.join(tiny, "reads"), "-o", out,
+                 "--stats-json", stats]) != 0:
+        fail("classify -s on tiny FASTX failed")
+    if _read(out) != _gold_bytes("tiny"):
+        fail("classify -s: .class differs from the golden")
+    with gzip.open(os.path.join(tiny, "golden.seeds.gz"), "rt") as f:
+        gseeds = f.read().splitlines()
+    with open(out + ".seeds") as f:
+        labels = [ln[K - 1:] for ln in f.read().splitlines()[1::2]]
+    if labels[:len(gseeds)] != gseeds:
+        fail("classify -s: .seeds labels differ from golden.seeds.gz")
+    with open(stats) as f:
+        st = json.load(f)
+    if set(st) != STATS_KEYS:
+        fail(f"--stats-json keys {sorted(st)} != the JAX keys "
+             f"{sorted(STATS_KEYS)}")
+    dam_dir = os.path.join(tmp, "dam")
+    os.makedirs(dam_dir)
+    for fn in ("reads.dam", ".reads.idx", ".reads.bps", ".reads.hdr"):
+        shutil.copy(os.path.join(tiny, "dam", fn), dam_dir)
+    if cli_main(["classify", "-s", os.path.join(dam_dir, "reads.dam"),
+                 "-N", os.path.join(tiny, "reads")]) != 0:
+        fail("classify -s on the tiny .dam failed")
+    if _read(os.path.join(dam_dir, "reads.class")) != _gold_bytes("tiny"):
+        fail("classify -s .dam: .class differs from the golden")
+    for fn in (".reads.class.anno", ".reads.class.data", ".reads.rep.anno",
+               ".reads.rep.data"):
+        if _read(os.path.join(dam_dir, fn)) != \
+                _read(os.path.join(tiny, "dam", fn)):
+            fail(f"classify -s .dam: {fn} differs from the fixture")
+    rec.update(cli_stats=st, cli_launches=dict(kernels.LAUNCHES))
+    say(f"shard (e) CLI: classify -s on tiny FASTX (.class, .seeds) and on "
+        f"the tiny .dam (.class + 4 track files) byte-equal; --stats-json "
+        f"{json.dumps(st)}")
+
+
+def _multi_card(rec: dict, tmp: str) -> None:
+    """(f) Two NCCL ranks as real processes (the driver's main), merged
+    output == the golden.  Needs two cards."""
+    src = os.path.join(FIX, "tiny", "reads.fasta.gz")
+    out = os.path.join(tmp, "nccl.class")
+    port = _free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "classpro_tpu_torch.parallel.driver", src,
+         "-N", os.path.join(FIX, "tiny", "reads"), "-o", out, "--nproc", "2",
+         "--pid", str(p), "--coord", f"127.0.0.1:{port}"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for p in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_so, se) in zip(procs, res):
+        if p.returncode != 0:
+            fail(f"NCCL driver rank failed:\n{se.decode()[-2000:]}")
+    if _read(out) != _gold_bytes("tiny"):
+        fail("NCCL 2-rank driver: merged .class differs from the golden")
+    rec["nccl_two_ranks_s"] = time.perf_counter() - t0
+    say(f"shard (f) two NCCL ranks on two cards: merged tiny golden in "
+        f"{rec['nccl_two_ranks_s']:.2f} s")
+
+
+def phase_shard() -> dict:
+    """K8 and the parallel layer on the card: (a) the NCCL all-reduce,
+    (b) the shard driver with merge and resume, (c) sharded_classify,
+    (d) round robin, (e) the CLI's -s/.dam/--stats-json, (f) two ranks
+    and distinct cards when the machine has two or more."""
+    # every group of this run is on this host
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i % n}" for i in range(4)]
+    rr = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
+    rec: dict = {"cards": n}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        _k8(rec)
+        _driver(rec, tmp)
+        _sharded(rec, devices)
+        _round_robin(rec, rr)
+        _cli(rec, tmp)
+        if n >= 2:
+            _multi_card(rec, tmp)
+            rec["multi_card"] = "run"
+        else:
+            rec["multi_card"] = ("NOT RUN: one card; NCCL cannot put two "
+                                 "ranks on one GPU, and round robin over "
+                                 "distinct cards needs two")
+            say(f"shard (f) {rec['multi_card']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 # ---------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernel,e2e,stream,alldev",
+    ap.add_argument("--phases",
+                    default="build,kernel,e2e,stream,alldev,shard",
                     help="comma-separated subset (the probe always runs)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium")
@@ -848,6 +1250,7 @@ def main(argv=None) -> int:
         arec = phase_alldev()
         alaunch = phase_alldev_e2e()
         asrec = phase_alldev_stream(args.alldev_passes)
+    shrec = phase_shard() if "shard" in phases else None
     if srec is not None:
         say(json.dumps({"stream": srec, "card": smi}))
     if asrec is not None:
@@ -877,6 +1280,8 @@ def main(argv=None) -> int:
             "ms": arec["ms"], "plain_ms": arec["plain_ms"],
             "bound_ms": arec["bound"]["ms"], "bound_by": arec["bound"]["by"],
             "library_ms": None})
+    if shrec is not None:
+        say(json.dumps({"shard": shrec, "card": smi}))
     if kern:
         say(json.dumps({"kernels": kern}))
     say(smi)

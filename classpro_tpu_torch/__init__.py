@@ -22,8 +22,11 @@ Layout
 - ``pack``       : the all-device path's blob packing and class expansion
 - ``alldev``     : ``classify_batch``, the all-device program of a chunk
 - ``engine``     : ``TorchEngine`` streaming classifier (``alldev=True``
-  takes the all-device path)
-- ``cli``        : ``python -m classpro_tpu_torch.cli classify``
+  takes the all-device path, ``devices=[...]`` round-robins chunks)
+- ``parallel``   : ``mesh`` (the histogram all-reduce, K8, and
+  ``sharded_classify``) and ``driver`` (the multi-process shard driver)
+- ``cli``        : ``python -m classpro_tpu_torch.cli classify`` (FASTX or
+  DAZZ input, ``-s`` seeds)
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,9 @@ The counterpart of the JAX package's ``device_pipeline.classify_batch_dev``
 (device_pipeline.py:672-705) and its helpers: the DP with the no-H rescue
 (K1-K4, the kernel csrc/rel_dp.cu), the post-rescue demotions, the fw/bw
 reconciliation and the relaxation planes (K6, torch ops once per chunk),
-then both relaxation sweeps (K5, the kernel csrc/unrel.cu).  The multi-GPU
-path will run ``classify_batch`` once per card.
+then both relaxation sweeps (K5, the kernel csrc/unrel.cu).
+``parallel.mesh.sharded_classify`` runs it once per read shard, each on
+its own device.
 
 Blob layouts (pack.pack_chunk builds them):
 

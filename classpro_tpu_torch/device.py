@@ -20,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def canonical_device(device=None) -> torch.device:
+    """``resolve_device`` with the card's index filled in (``cuda`` ->
+    ``cuda:<current device>``), so that one card has one name in a
+    device list."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

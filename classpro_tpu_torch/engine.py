@@ -25,7 +25,9 @@ CUDA stream, the DP runs on that stream, the packed result comes back
 into a pinned buffer, and an event recorded after the copy is what
 ``_finish`` waits on.  ``classify_chunk`` is the synchronous
 single-chunk form.  Interval arrays are padded to bucketed shapes
-(``_bucket``, ``_bucket_m``).
+(``_bucket``, ``_bucket_m``).  ``TorchEngine(devices=[...])`` deals whole
+chunks round robin over several devices, each with its own tables,
+stream and events (``_enqueue``).
 """
 
 from __future__ import annotations
@@ -37,15 +39,14 @@ import numpy as np
 import torch
 
 from classpro_tpu_torch.constants import DEFAULTS
-from classpro_tpu_torch.device import resolve_device
+from classpro_tpu_torch.device import canonical_device, resolve_device
 from classpro_tpu_torch.estimation import GlobalModel, build_global_model
 from classpro_tpu_torch.io.classfile import ClassRecord, class_header
 from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
 from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall
 from classpro_tpu_torch.pack import _bucket, expand_asgn, pack_chunk
-from classpro_tpu_torch.params import (PipelineParams, build_rel_params,
-                                       build_unrel_params)
+from classpro_tpu_torch.params import build_replicas
 from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
                                     reconcile_fwbw, rel_only, unpack_out)
 
@@ -63,6 +64,23 @@ def _bucket_m(x: int) -> int:
     while b < x:
         b *= 2
     return b
+
+
+def local_devices(n: int, device=None) -> list | None:
+    """The device list of ``--devices n``: ``cuda:0`` .. ``cuda:n-1``, or
+    None for n = 0 (the single ``device``).  Raises when fewer than n
+    cards exist, or when ``device`` is not CUDA: a silently smaller run
+    would hide the device count."""
+    if n <= 0:
+        return None
+    if resolve_device(device).type != "cuda":
+        raise ValueError("--devices round-robins over CUDA cards; it "
+                         "needs --device cuda")
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"--devices {n}: only {have} CUDA device(s) "
+                         f"present")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _prefetch_iter(chunks, depth: int):
@@ -95,28 +113,65 @@ def _prefetch_iter(chunks, depth: int):
 
 
 class TorchEngine:
+    """``devices`` (a list, which may repeat a device) round-robins whole
+    chunks over those devices (the JAX package's ``TpuEngine(devices=)``):
+    each distinct device holds its own replica of the tables and its own
+    CUDA stream, each chunk runs entirely on the device it was dealt, and
+    no chunk talks to another.  ``None`` is the single ``device``."""
+
     def __init__(self, gm: GlobalModel, batch_size: int = 200,
                  threads: int = 0, verbose: bool = False, device=None,
-                 alldev: bool = False):
-        self.device = resolve_device(device)
+                 alldev: bool = False, devices=None):
+        if devices:
+            self.devices = [canonical_device(d) for d in devices]
+            self.device = self.devices[0]
+        else:
+            self.devices = None
+            self.device = canonical_device(device)
         self.gm = gm
         self.batch_size = batch_size
         self.threads = threads      # host-side C++ worker count (-T)
         self.verbose = verbose
         # the C++ host plane; a failed native build raises (no fallback)
         self.wall = NativeWall(gm)
-        self.P = build_rel_params(gm, self.device)
-        # the all-device path's parameters (the relaxation tables share
-        # the DP's Skellam table)
-        self.PP = (PipelineParams(self.P, build_unrel_params(gm, self.P))
-                   if alldev else None)
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+        # per distinct device: (RelParams, the all-device path's
+        # PipelineParams or None, CUDA stream or None); each replica holds
+        # the 94.6 MB Skellam table, shared by its DP and sweep tables
+        self._on: dict = {}
+        for dev, rep in build_replicas(gm, self.devices or [self.device],
+                                       alldev).items():
+            P, PP = (rep.rel, rep) if alldev else (rep, None)
+            stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            self._on[dev] = (P, PP, stream)
+        self.P, self.PP, _ = self._on[self.device]
+        self._rr = 0
+        # the (R, max_m) buckets the device ran, in first-use order
+        self.shapes: dict = {}
         # exactness-guard telemetry: reads recomputed by the exact
         # oracle, and the smallest positive decision margin observed
         self.guard_flagged = 0
         self.guard_min_margin = float("inf")
         self.chunks_done = 0
+
+    def _next_device(self) -> torch.device:
+        """The device of the next chunk (round robin over ``devices``)."""
+        if not self.devices:
+            return self.device
+        dev = self.devices[self._rr % len(self.devices)]
+        self._rr += 1
+        return dev
+
+    def stats(self) -> dict:
+        """Stream telemetry (the JAX engine's --stats-json keys): chunks,
+        the exactness guard's flag count and smallest positive margin,
+        the (R, max_m) buckets run, and absorbed_chunks, always 0 (the
+        port has no shape absorption)."""
+        return dict(
+            chunks=self.chunks_done, absorbed_chunks=0,
+            guard_flagged=int(self.guard_flagged),
+            min_margin=(None if self.guard_min_margin == float("inf")
+                        else float(self.guard_min_margin)),
+            shapes=[list(k) for k in self.shapes])
 
     # ------------------------------------------------------------------
     def classify_chunk(self, seqs: list[str],
@@ -142,10 +197,14 @@ class TorchEngine:
             return
         if prefetch > 0:
             chunks = _prefetch_iter(chunks, prefetch)
+        # depth 3 covers one device (host k+1 || device k || finish
+        # k-1); with N round-robin devices ~2 chunks stay in flight per
+        # device, as in the JAX engine
+        depth = max(3, 2 * len(self.devices) + 1) if self.devices else 3
         pending: collections.deque = collections.deque()
         for seqs, profiles in chunks:
             pending.append(self._submit(seqs, profiles))
-            if len(pending) >= 3:
+            if len(pending) >= depth:
                 yield self._finish(pending.popleft())
         while pending:
             yield self._finish(pending.popleft())
@@ -255,23 +314,9 @@ class TorchEngine:
             return st
         R, max_m = st["_R"], st["_mm"]
         fb, ib = self._pack_st(st, R, max_m)
-        if self.stream is None:
-            st["out"] = rel_only(torch.from_numpy(fb), torch.from_numpy(ib),
-                                 self.P, R, max_m)
-            return st
-        fb_h = torch.from_numpy(fb).pin_memory()
-        ib_h = torch.from_numpy(ib).pin_memory()
-        with torch.cuda.stream(self.stream):
-            fb_d = fb_h.to(self.device, non_blocking=True)
-            ib_d = ib_h.to(self.device, non_blocking=True)
-            out = rel_only(fb_d, ib_d, self.P, R, max_m)
-            host = torch.empty(out.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        st.update(out=host, done=done)
-        return st
+        self.shapes[(R, max_m)] = None
+        return self._enqueue(st, fb, ib, "out", lambda f, i, P, PP:
+                             rel_only(f, i, P, R, max_m))
 
     def _submit_alldev(self, st):
         """Pack the staged chunk's reads that have intervals and enqueue
@@ -287,26 +332,38 @@ class TorchEngine:
         ivs = [slab[r * slot: r * slot + int(n_out[r])] for r in range(len(g))]
         plens = [len(st["profiles"][i]) for i in g]
         fb, ib, dims, st["meta"] = pack_chunk(rows, ivs, plens)
-        if self.stream is None:
-            out, flags = classify_batch(torch.from_numpy(fb),
-                                        torch.from_numpy(ib), self.PP, *dims)
-            st["un"] = torch.cat([out.view(torch.uint8),
-                                  flags.to(torch.uint8)[:, None]], dim=1)
+        self.shapes[(dims[2] // 2, dims[3])] = None
+
+        def run(f, i, P, PP):
+            out, flags = classify_batch(f, i, PP, *dims)
+            return torch.cat([out.view(torch.uint8),
+                              flags.to(torch.uint8)[:, None]], dim=1)
+
+        return self._enqueue(st, fb, ib, "un", run)
+
+    def _enqueue(self, st, fb, ib, key: str, run):
+        """Deal the chunk to the next device and run ``run(fblob, iblob,
+        P, PP)`` (-> uint8 tensor) there with that device's tables; the
+        result lands in ``st[key]``.  On a card the blobs go up from
+        pinned host memory on the device's own stream, the result comes
+        back into a pinned buffer, and the event recorded after that copy
+        (``st["done"]``) is what _finish waits on."""
+        dev = st["dev"] = self._next_device()
+        P, PP, stream = self._on[dev]
+        if stream is None:
+            st[key] = run(torch.from_numpy(fb), torch.from_numpy(ib), P, PP)
             return st
         fb_h = torch.from_numpy(fb).pin_memory()
         ib_h = torch.from_numpy(ib).pin_memory()
-        with torch.cuda.stream(self.stream):
-            out, flags = classify_batch(
-                fb_h.to(self.device, non_blocking=True),
-                ib_h.to(self.device, non_blocking=True), self.PP, *dims)
-            res = torch.cat([out.view(torch.uint8),
-                             flags.to(torch.uint8)[:, None]], dim=1)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            res = run(fb_h.to(dev, non_blocking=True),
+                      ib_h.to(dev, non_blocking=True), P, PP)
             host = torch.empty(res.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(res, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self.stream)
-        st.update(un=host, done=done)
+            done.record(stream)
+        st.update({key: host, "done": done})
         return st
 
     def _finish_alldev(self, st) -> list[str]:
@@ -428,10 +485,12 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
                         read_len: int = 20000, model_path: str | None = None,
                         batch_size: int = 200, threads: int = 0,
                         verbose: bool = False, device=None,
-                        stats_out: dict | None = None
+                        devices: int = 0, stats_out: dict | None = None
                         ) -> Iterator[ClassRecord]:
     """Classify a FASTX file against its FASTK root; yields one
-    ClassRecord per read, in input order.  Set-up (model, engine, device
+    ClassRecord per read, in input order.  ``devices`` > 0 round-robins
+    the chunks over ``cuda:0`` .. ``cuda:devices-1`` (``local_devices``:
+    raises when fewer cards exist).  Set-up (model, engine, device
     tables) runs eagerly at call time; the stream is the returned
     generator."""
     hist = load_histogram(fastk_root)
@@ -442,7 +501,8 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
         raise ValueError(f"{fastk_root}: .hist k-mer size ({gm.kmer}) != "
                          f".prof k-mer size ({P.kmer})")
     eng = TorchEngine(gm, batch_size=batch_size, threads=threads,
-                      verbose=verbose, device=device)
+                      verbose=verbose, device=device,
+                      devices=local_devices(devices, device))
     recs: list = []
     K = gm.kmer
 
@@ -482,11 +542,6 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
                 yield ClassRecord(class_header(rec.name, rec.comment),
                                   rec.seq, cls)
         if stats_out is not None:
-            stats_out.update(
-                stream_wall_s=_time.time() - t0,
-                chunks=eng.chunks_done,
-                guard_flagged=int(eng.guard_flagged),
-                min_margin=(None if eng.guard_min_margin == float("inf")
-                            else float(eng.guard_min_margin)))
+            stats_out.update(stream_wall_s=_time.time() - t0, **eng.stats())
 
     return stream()

@@ -10,12 +10,24 @@ import gzip
 import io
 from typing import Iterator, NamedTuple, Sequence
 
+# FASTX extensions, in the reference's probe order (ClassPro.h:326)
+FASTX_EXTS = (".fastq", ".fasta", ".fq", ".fa",
+              ".fastq.gz", ".fasta.gz", ".fq.gz", ".fa.gz")
+
 
 class FastxRecord(NamedTuple):
     name: str
     comment: str
     seq: str
     qual: str | None
+
+
+def root_of(source: str) -> str:
+    """``source`` without its FASTX extension."""
+    for ext in FASTX_EXTS:
+        if source.endswith(ext):
+            return source[: -len(ext)]
+    return source
 
 
 def _open(path: str):

@@ -111,8 +111,53 @@ def get_lib(force: bool = False):
             ctypes.c_double, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.cp_seed_ws_new.restype = ctypes.c_void_p
+        lib.cp_seed_ws_new.argtypes = []
+        lib.cp_seed_ws_free.restype = None
+        lib.cp_seed_ws_free.argtypes = [ctypes.c_void_p]
+        lib.cp_find_seeds.restype = ctypes.c_int
+        lib.cp_find_seeds.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         return lib
+
+
+class NativeSeedWorkspace:
+    """C++ seed selection (csrc/classpro_host.cpp cp_find_seeds, a port
+    of the reference's seed.c): one workspace reused across consecutive
+    reads, with the reference's stale-slot semantics (a -T1 worker)."""
+
+    def __init__(self):
+        self.lib = get_lib()
+        self._ws = self.lib.cp_seed_ws_new()
+        self._rep = np.empty(2 * 4096, np.int32)
+
+    def close(self) -> None:
+        if self._ws:
+            self.lib.cp_seed_ws_free(self._ws)
+            self._ws = None
+
+    __del__ = close
+
+    def find_seeds(self, seq: str, classes: str, profile: np.ndarray,
+                   K: int) -> tuple[str, list[tuple[int, int]]]:
+        """Seed labels of one read (one character per profile position)
+        and its repeat intervals [(b, e), ...]; ``classes`` is the read's
+        class string from position K-1 on."""
+        plen = len(profile)
+        if plen <= 0:
+            return "", []
+        prof = np.ascontiguousarray(profile, np.uint16)
+        out = ctypes.create_string_buffer(plen)
+        n = self.lib.cp_find_seeds(
+            self._ws, seq.encode("ascii"), classes.encode("ascii"),
+            prof.ctypes.data, plen, K, out,
+            self._rep.ctypes.data, len(self._rep) // 2)
+        rints = [(int(self._rep[2 * i]), int(self._rep[2 * i + 1]))
+                 for i in range(min(n, len(self._rep) // 2))]
+        return out.raw.decode("ascii"), rints
 
 
 class NativeWall:

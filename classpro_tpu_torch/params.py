@@ -131,6 +131,19 @@ def build_pipeline_params(gm: GlobalModel, device) -> PipelineParams:
     return PipelineParams(rel=rel, unrel=build_unrel_params(gm, rel))
 
 
+def build_replicas(gm: GlobalModel, devices, alldev: bool) -> dict:
+    """One replica of the tables per distinct device of ``devices`` (a
+    list that may repeat a device), keyed by ``canonical_device``: the
+    ``PipelineParams`` when ``alldev``, else the ``RelParams``.  Each
+    replica holds the 94.6 MB Skellam table, as the JAX mesh replicates
+    it on every device."""
+    from classpro_tpu_torch.device import canonical_device
+
+    build = build_pipeline_params if alldev else build_rel_params
+    return {d: build(gm, d)
+            for d in dict.fromkeys(canonical_device(x) for x in devices)}
+
+
 def unrel_params_from_numpy(d: dict, rel: RelParams) -> UnrelParams:
     """Carry a JAX ``UnrelParams2`` over: ``d`` holds its fields as numpy
     arrays / Python scalars (``ps`` and ``lf_small`` are taken from

@@ -88,7 +88,8 @@ def test_regression_reads(fx, rid):
 
 def test_classify_file_and_cli_tiny(tmp_path):
     """classify_file_torch (the entry point) and the CLI write the tiny
-    golden byte for byte; the CLI refuses what later slices carry."""
+    golden byte for byte; the CLI refuses --server (a later slice), a bad
+    -T and an input it cannot open."""
     from classpro_tpu_torch.cli import main
 
     want = gzip.decompress((FIX / "tiny" / "golden.class.gz").read_bytes())
@@ -98,12 +99,11 @@ def test_classify_file_and_cli_tiny(tmp_path):
                "--device", "cpu", "-T", "2"])
     assert rc == 0 and out.read_bytes() == want
 
-    for extra in (["-s"], ["--server", str(tmp_path / "sock")]):
+    for extra in (["--server", str(tmp_path / "sock")], ["-T", "0"]):
         assert main(["classify", str(FIX / "tiny" / "reads.fasta.gz"),
                      "--device", "cpu"] + extra) == 1
-    dam = tmp_path / "reads.dam"
-    dam.write_bytes(b"")
-    assert main(["classify", str(dam), "--device", "cpu"]) == 1
+    assert main(["classify", str(tmp_path / "nothing.dam"),
+                 "--device", "cpu"]) == 1
     assert main(["classify", str(tmp_path / "nothing.fasta"),
                  "--device", "cpu"]) == 1
 
@@ -111,7 +111,7 @@ def test_classify_file_and_cli_tiny(tmp_path):
 def test_cli_refusal_names_the_later_slice(capsys):
     from classpro_tpu_torch.cli import main
 
-    assert main(["classify", "x.fasta", "-s"]) == 1
+    assert main(["classify", "x.fasta", "--server", "sock"]) == 1
     assert "later slice" in capsys.readouterr().err
 
 
