@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
 2. build   - nvcc builds csrc/rel_dp.cu and csrc/unrel.cu for sm_90a
              (printing -Xptxas -v) while g++ builds the C++ host library,
-             all three at once, from the checkout.
+             all three at once, from the checkout; rel_dp_kernel's
+             registers, stack and spill bytes are parsed from the log, and
+             a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets) and a pack whose rows the
@@ -18,7 +20,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              is >= 1e-5, finite margins within 1e-9, the inf / 1e-30
              margin patterns equal, rescue equal, risky equal except where
              the margin lies within 1e-9 of 1e-5.  Times the kernel (CUDA
-             events) and the plain version at the medium shapes.
+             events; us per step of the longest row) and the plain version
+             at the medium shapes, with the launch geometry.
+   k1profile (only when named) - K1 built with its per-phase clocks
+             against the production kernel bit for bit, both timed in
+             turns, and the clock sums per step.
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
              golden.class.gz; the launch counts are reset just before and
@@ -55,7 +61,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              more cards, two NCCL ranks as processes of the driver; with
              one card it prints that (f) did not run.
 
-It prints one {"kernels": [...]} line, {"stream": {...}},
+It prints one {"kernels": [...]} line (K1's with its registers, stack and
+spill bytes and launch geometry), {"stream": {...}},
 {"alldev_stream": {...}} and {"shard": {...}} lines, the card's name and
 power limit, and, as
 its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -158,6 +165,40 @@ def phase_build():
                 say(f"  {line.strip()}")
         say(f"build: nvcc {kernels.SOURCES[name][0]} {secs[name]:.1f} s")
     say(f"build: g++ host library {secs['host']:.1f} s (all three at once)")
+    res = ptxas_resources(kernels.BUILD_LOG[("rel_dp", "cuda")],
+                          "rel_dp_kernel")
+    say(f"build: rel_dp_kernel {json.dumps(res)}")
+    if res["stack_bytes"] or res["spill_store_bytes"] \
+            or res["spill_load_bytes"]:
+        fail(f"rel_dp_kernel keeps a stack or spills: {res}")
+    return res
+
+
+def ptxas_resources(log: str, kernel: str) -> dict:
+    """Registers, stack bytes and spill bytes of entry function ``kernel``
+    from nvcc's -Xptxas -v output."""
+    import re
+
+    res: dict = {}
+    inside = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            res.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res["registers"] = int(m[1])
+    if set(res) != {"stack_bytes", "spill_store_bytes", "spill_load_bytes",
+                    "registers"}:
+        fail(f"no -Xptxas -v resources for {kernel} in the build log")
+    return res
 
 
 # --------------------------------------------------------------------- 3
@@ -345,6 +386,9 @@ def phase_kernel():
                                                     impl="cuda"), 10)
                 k4 = _k4_bound(fb, ib, R, max_m)
                 longest = int(planes[7].max())
+                rec["us_per_step"] = ms * 1e3 / max(longest - 1, 1)
+                rec["geometry"] = kernels.rel_dp_geometry(2 * R, max_m)
+                say(f"  launch geometry {json.dumps(rec['geometry'])}")
                 say(f"  time per launch: kernel {ms:.3f} ms "
                     f"({ms * 1e3 / max(longest - 1, 1):.2f} us per step of "
                     f"the longest row, m={longest}), plain torch "
@@ -357,6 +401,69 @@ def phase_kernel():
                     f"({k4['by']}, {k4['bytes']} B)")
         if fx == "branch/search9" and not n_res2:
             fail("branch/search9 pack rescued no row")
+    return rec
+
+
+# --------------------------------------------------------- 3b (opt-in)
+K1_PARTS = ("A", "exchange1", "B1", "exchange2", "B2", "exchange3", "C")
+
+
+def phase_k1profile() -> dict:
+    """K1's per-phase clocks at the medium shapes (opt-in: --phases
+    k1profile).  Builds rel_dp.cu once more with -DRD_PHASE_CLOCKS; holds
+    that build's outputs to the production kernel's bit for bit; times the
+    two in turns (CUDA events over 20 launches per chunk, ctypes launches
+    without the wrapper) and reads the clock sums (cycles per step of the
+    warp's loop, lane 0 of each row)."""
+    import ctypes
+
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.rel import rel_planes
+
+    lib = ctypes.CDLL(kernels.build("cuda", "rel_dp", True, clocks=True))
+    res = ptxas_resources(kernels.BUILD_LOG[("rel_dp", "cuda_clocks")],
+                          "rel_dp_kernel")
+    fns = {"plain": kernels._fn("rel_dp", "cuda"), "clocks": lib.rel_dp_launch}
+    fns["clocks"].restype = ctypes.c_int
+    fns["clocks"].argtypes = kernels._ARGTYPES["rel_dp"] + [ctypes.c_void_p]
+    clocks = lib.rel_dp_phase_clocks
+    clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dev = torch.device("cuda")
+    gm, seqs, profs = _model("medium")
+    eng = TorchEngine(gm, device=dev)
+    P = eng.P
+    stream = torch.cuda.current_stream().cuda_stream
+    rec: dict = {"clocks_build": res, "ms": {"plain": [], "clocks": []},
+                 "cycles_per_step": []}
+    bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t
+    for k, (fb, ib, R, max_m) in enumerate(_packs(eng, seqs, profs)):
+        planes = rel_planes(torch.from_numpy(fb).to(dev),
+                            torch.from_numpy(ib).to(dev), P, R, max_m)
+        cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+        want = [t.clone() for t in kernels.rel_dp(*planes, cov, P)]
+        args, keep = kernels._args(planes, cov, P, None, 2 * R, max_m)
+        out = (ctypes.c_ulonglong * (len(K1_PARTS) + 1))()
+        clocks(None, 1)
+        if fns["clocks"](*args, stream) != 0:
+            fail("k1profile: the clocked build did not launch")
+        torch.cuda.synchronize()
+        clocks(ctypes.cast(out, ctypes.c_void_p), 0)
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(keep[:3], want)):
+            fail(f"k1profile: the clocked build differs from the production "
+                 f"kernel on medium chunk {k}")
+        n = max(out[len(K1_PARTS)], 1)
+        rec["cycles_per_step"].append(
+            {p: out[j] / n for j, p in enumerate(K1_PARTS)})
+        for v in ("plain", "clocks", "clocks", "plain"):
+            rec["ms"][v].append(_time_cuda(lambda: fns[v](*args, stream), 20))
+        say(f"k1profile: medium chunk {k}: production "
+            f"{rec['ms']['plain'][-2]:.4f}, {rec['ms']['plain'][-1]:.4f} ms; "
+            f"clocked {rec['ms']['clocks'][-2]:.4f}, "
+            f"{rec['ms']['clocks'][-1]:.4f} ms; cycles per step: "
+            + json.dumps({p: round(c, 1) for p, c in
+                          rec["cycles_per_step"][-1].items()}))
     return rec
 
 
@@ -414,6 +521,36 @@ def _clock(obj, name: str, acc: dict):
     return lambda: setattr(obj, name, f)
 
 
+# the ``active`` pointer's place in the DP kernel's C arguments
+# (kernels._args: the ten planes, cov, active)
+_ACTIVE_ARG = 11
+
+
+def _launch_events(sink):
+    """Record CUDA events on the launch stream just before and just after
+    each kernel launch (inside kernels._launch, so they hold the launch
+    and the kernel, not the wrapper's checks and allocations); the pair
+    goes to the list ``sink(name, args)``.  Returns the undo."""
+    from classpro_tpu_torch import kernels
+
+    orig = kernels._launch
+
+    def launch(name, device, args):
+        stream = torch.cuda.current_stream(device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(stream)
+        orig(name, device, args)
+        e1.record(stream)
+        sink(name, args).append((e0, e1))
+
+    kernels._launch = launch
+
+    def undo():
+        kernels._launch = orig
+    return undo
+
+
 def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
                  sort_window: int = 8):
     """Steady stream: ``repeats`` timed runs of ``passes`` passes over
@@ -448,18 +585,6 @@ def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
 
     # the recorded run: DP events per launch kind, host time by stage
     events: dict = {"main": [], "rescue": []}
-    launch = kernels.rel_dp
-
-    def timed(*a, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(*a, **kw)
-        e1.record()
-        events["main" if kw.get("active") is None else "rescue"].append(
-            (e0, e1))
-        return out
-
     acc: dict = {}
     undo = [_clock(eng, n, acc) for n in ("_stage", "_pack_st", "_submit",
                                           "_finish", "_exact_guard")]
@@ -469,11 +594,12 @@ def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
     torch.cuda.reset_peak_memory_stats()
     l0 = kernels.LAUNCHES["rel_dp"]
     g0, c0 = eng.guard_flagged, eng.chunks_done
-    kernels.rel_dp = timed
+    undo.append(_launch_events(
+        lambda name, args: events["main" if args[_ACTIVE_ARG] is None
+                                  else "rescue"]))
     try:
         wall = run(passes)
     finally:
-        kernels.rel_dp = launch
         for u in undo:
             u()
     rates.append(passes * kmers_pass / wall)
@@ -754,13 +880,12 @@ def phase_alldev_stream(passes: int, repeats: int = 3):
     runs = []
     for _ in range(repeats):
         ev: dict = {"rel_dp": [], "unrel_sweeps": [], "classify_batch": []}
-        orig = (kernels.rel_dp, kernels.unrel_sweeps, alldev.classify_batch)
+        orig = alldev.classify_batch
         acc: dict = {}
-        kernels.rel_dp = timed(orig[0], ev["rel_dp"])
-        kernels.unrel_sweeps = timed(orig[1], ev["unrel_sweeps"])
-        alldev.classify_batch = timed(orig[2], ev["classify_batch"], acc)
-        undo = [_clock(eng, n, acc) for n in ("_stage", "_submit", "_finish",
-                                              "_exact_full")]
+        alldev.classify_batch = timed(orig, ev["classify_batch"], acc)
+        undo = [_launch_events(lambda name, args: ev[name])]
+        undo += [_clock(eng, n, acc) for n in ("_stage", "_submit", "_finish",
+                                               "_exact_full")]
         undo += [_clock(engine_mod, n, acc)
                  for n in ("pack_chunk", "expand_asgn")]
         torch.cuda.reset_peak_memory_stats()
@@ -768,7 +893,7 @@ def phase_alldev_stream(passes: int, repeats: int = 3):
         try:
             wall = run(passes)
         finally:
-            kernels.rel_dp, kernels.unrel_sweeps, alldev.classify_batch = orig
+            alldev.classify_batch = orig
             for u in undo:
                 u()
         a = lambda k: acc.get(k, 0.0)
@@ -1206,7 +1331,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernel,e2e,stream,alldev,shard",
-                    help="comma-separated subset (the probe always runs)")
+                    help="comma-separated subset (the probe always runs; "
+                    "k1profile, K1's phase clocks, only when "
+                    "named)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium")
     ap.add_argument("--alldev-passes", type=int, default=10,
@@ -1238,9 +1365,10 @@ def main(argv=None) -> int:
     say(f"card: {smi}")
     t_all = time.time()
 
-    if "build" in phases:
-        phase_build()
+    brec = phase_build() if "build" in phases else None
     krec = phase_kernel() if "kernel" in phases else None
+    if "k1profile" in phases:
+        say(json.dumps({"k1_profile": phase_k1profile(), "card": smi}))
     launches = phase_e2e() if "e2e" in phases else None
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
                          sort_window=args.sort_window)
@@ -1269,7 +1397,8 @@ def main(argv=None) -> int:
             "ms": krec["ms"][k], "plain_ms": krec["plain_ms"][k],
             "bound_ms": krec["bound"][k]["ms"],
             "bound_by": krec["bound"][k]["by"],
-            "library_ms": None})
+            "library_ms": None, "us_per_step": krec["us_per_step"],
+            **(brec or {}), **krec["geometry"]})
     if arec is not None:
         kern.append({
             "name": "unrel_sweeps", "route": "cuda",

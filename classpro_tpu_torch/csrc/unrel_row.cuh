@@ -8,7 +8,7 @@
 // with _unrel_lane's step_fn (:157-279), class_unrel.c:248-300.  Semantics
 // follow the JAX code line for line; classpro_tpu_torch/unrel_ref.py is
 // the plain torch version.  The log-Skellam lookup is rd::skellam, the
-// same function the DP kernel (rel_dp_row.cuh) inlines.
+// same function the DP kernel (rel_dp_row.cuh) inlines (rd_math.cuh).
 //
 // Numerics (built with --fmad=false / -ffp-contract=off, never fast
 // math): every expression keeps the JAX code's operation order; maxima
@@ -20,7 +20,7 @@
 
 #pragma once
 
-#include "rel_dp_row.cuh"
+#include "rd_math.cuh"
 
 namespace ur {
 

@@ -3,10 +3,10 @@
 ``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP) and
 ``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) are the
 wrappers the paths call: on CUDA tensors they launch the sm_90a kernel
-(one thread per row) on the current stream and count the launch in
-``LAUNCHES``; on CPU tensors they run the plain torch version (rel_ref,
-unrel_ref).  There is no fallback between the two: a failed nvcc build
-or a refused launch raises.
+(eight lanes per DP row; one thread per sweep row) on the current
+stream and count the launch in ``LAUNCHES``; on CPU tensors they run the
+plain torch version (rel_ref, unrel_ref).  There is no fallback between
+the two: a failed nvcc build or a refused launch raises.
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
 interface, loaded with ctypes), never at import.  ``rel_dp_host`` and
@@ -31,8 +31,8 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 # kernel -> (source, headers it includes)
 SOURCES = {
-    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh",)),
-    "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rel_dp_row.cuh")),
+    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rd_math.cuh")),
+    "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh")),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -91,22 +91,26 @@ def _compile(cmd: list, so: str, key) -> None:
     os.replace(tmp, so)
 
 
-def build(kind: str = "cuda", name: str = "rel_dp",
-          force: bool = False) -> str:
+def build(kind: str = "cuda", name: str = "rel_dp", force: bool = False,
+          clocks: bool = False) -> str:
     """Compile kernel ``name`` (``cuda``: nvcc for sm_90a) or its host
     test shim (``host``: g++) if its sources changed; returns the .so
-    path."""
+    path.  ``clocks`` builds the DP kernel with -DRD_PHASE_CLOCKS (its
+    per-phase clock sums, rel_dp_row.cuh) into a library of its own,
+    which no path loads (chip_smoke.py --phases k1profile reads it)."""
     src = os.path.join(_CSRC, SOURCES[name][0])
     stem = os.path.splitext(SOURCES[name][0])[0]
+    flags = ["-DRD_PHASE_CLOCKS"] if clocks else []
     if kind == "cuda":
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", _CSRC, src]
+        cmd = [_nvcc()] + NVCC_FLAGS + flags + ["-I", _CSRC, src]
     elif kind == "host":
-        cmd = ["g++"] + HOST_FLAGS + ["-I", _CSRC, src]
+        cmd = ["g++"] + HOST_FLAGS + flags + ["-I", _CSRC, src]
     else:
         raise ValueError(kind)
-    so = os.path.join(_BUILD, f"lib{stem}_{kind}.so")
+    tag = "_clocks" if clocks else ""
+    so = os.path.join(_BUILD, f"lib{stem}_{kind}{tag}.so")
     if force or _stale(so, name):
-        _compile(cmd, so, (name, kind))
+        _compile(cmd, so, (name, kind + tag))
     return so
 
 
@@ -122,6 +126,23 @@ def _fn(name: str, kind: str):
                                              else [])
             _libs[(name, kind)] = fn
         return fn
+
+
+def rel_dp_geometry(R2: int, max_m: int, kind: str = "cuda") -> dict:
+    """The DP kernel's launch geometry for (R2, max_m), as rel_dp.cu
+    computes it: lanes per row, rows per warp, threads per block, blocks
+    and shared bytes per block (0 when the backpointers use the global
+    scratch)."""
+    with _lock:
+        lib = ctypes.CDLL(build(kind, "rel_dp"))
+    fn = lib.rel_dp_geometry
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, _I, _PTR]
+    out = (ctypes.c_int * 5)()
+    fn(R2, max_m, ctypes.cast(out, _PTR))
+    keys = ("lanes_per_row", "rows_per_warp", "threads_per_block", "blocks",
+            "smem_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def _launch(name: str, device, args) -> None:
@@ -216,8 +237,9 @@ def rel_dp(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd,
 
 def rel_dp_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
                 fwd, cov, P: RelParams, active=None):
-    """The kernel's per-row body compiled by g++ and run on CPU tensors
-    (test-only; same contract as ``rel_dp``)."""
+    """The kernel's warp body compiled by g++ and run on CPU tensors, a
+    warp's 32 lanes phase by phase (test-only; same contract as
+    ``rel_dp``)."""
     planes = tuple(t.contiguous() for t in (bpos, bcnt, epos, ecnt, max_cc,
                                              lf_bcnt, logpE, m, plen, fwd))
     cov = cov.contiguous()

@@ -231,6 +231,153 @@ def test_ref_reports_the_table_records_it_reads():
     assert int(idx.min()) >= 0 and int(idx.max()) < P.tab.shape[0] * P.tab.shape[1]
 
 
+# Layouts the kernel's eight lanes per row, four rows per warp, find
+# risky: R2 not a multiple of 4 or 8 (a warp with lanes past the last
+# row), active masks with holes in every warp, rows of m = 1 and 2 beside
+# rows of max_m in one warp (lanes stepping on, predicated, after their row
+# ended), rows longer than 128 steps, and rows whose backpointers no
+# longer fit the block's shared memory (max_m > 2458 on the card).
+RAGGED = ("r97", "r101", "holes", "short_beside_long", "long_rows",
+          "global_scratch")
+
+
+def _ragged(case):
+    """(planes, cov, active) of one ragged layout, made with numpy."""
+    R2, max_m = {"r97": (97, 24), "r101": (101, 24), "holes": (96, 24),
+                 "short_beside_long": (64, 40), "long_rows": (40, 160),
+                 "global_scratch": (8, 2600)}[case]
+    planes, cov = _random_planes(7 + RAGGED.index(case), R2=R2, max_m=max_m)
+    rng = np.random.default_rng(RAGGED.index(case))
+    active = None
+    if case == "holes":
+        act = rng.random(R2) < 0.6
+        for g in range(R2 // 4):
+            act[4 * g + g % 4] = False          # a hole in every warp
+            act[4 * g + (g + 2) % 4] = True     # and a live row
+        active = torch.from_numpy(act)
+    if case in ("short_beside_long", "global_scratch"):
+        m = np.tile([1, max_m, 2, max_m, 1, 2, max_m, 3], R2 // 8)
+        planes = planes[:7] + (torch.from_numpy(m).to(torch.int64),) \
+            + planes[8:]
+    return planes, cov, active
+
+
+def _tiny_params(device):
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram
+    from classpro_tpu_torch.params import build_rel_params
+
+    root = FIX / "tiny" / "reads"
+    return build_rel_params(build_global_model(load_histogram(str(root))),
+                            device)
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_shim_matches_ref_on_ragged_warps(case):
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    P = _tiny_params("cpu")
+    planes, cov, active = _ragged(case)
+    want = rel_dp_ref(*planes, cov, P)
+    rows = active if active is not None else None
+    _assert_dp_close(kernels.rel_dp_host(*planes, cov, P, active=active),
+                     want, rows=rows)
+
+
+# rd::sat_i64 (csrc/rd_math.cuh, shared by K1 and K5) is XLA's float ->
+# int64 cast: toward zero, saturating, NaN -> 0.  On the card it is the
+# hardware conversion (__double2ll_rz), in the shim the portable form;
+# both are held to that rule where they could differ: NaN of either sign,
+# +-inf, +-2^63 and beyond, the largest doubles inside the range, -0.0.
+_SAT_PROBE = r"""
+#include "rd_math.cuh"
+#ifdef __CUDACC__
+__global__ void sat_kernel(const double* x, long long* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = rd::sat_i64(x[i]);
+}
+extern "C" int sat_probe(const double* x, long long* y, int n) {
+  sat_kernel<<<(n + 63) / 64, 64>>>(x, y, n);
+  return (int)cudaDeviceSynchronize();
+}
+#else
+extern "C" int sat_probe(const double* x, long long* y, int n) {
+  for (int i = 0; i < n; ++i) y[i] = rd::sat_i64(x[i]);
+  return 0;
+}
+#endif
+"""
+_SAT_BITS = (0x7ff8000000000000, 0xfff8000000000000, 0x7ff0000000000001,
+             0xfff0000000000001)           # NaNs: quiet, negative, payloads
+
+
+def _sat_inputs():
+    x = np.array([math.inf, -math.inf, 2.0 ** 63, -2.0 ** 63,
+                  2.0 ** 63 + 2048, -2.0 ** 63 - 2048, 2.0 ** 63 - 1024,
+                  -2.0 ** 63 + 1024, 1e300, -1e300, 0.0, -0.0, 1.9999,
+                  -1.9999, 123456789.75, -(2.0 ** 53) - 2.0, 4.9e-324],
+                 dtype=np.float64)
+    nans = np.array(_SAT_BITS, dtype=np.uint64).view(np.float64)
+    return np.concatenate([x, nans])
+
+
+def _xla_cast(x):
+    if math.isnan(x):
+        return 0
+    if x >= 2.0 ** 63:
+        return 2 ** 63 - 1
+    if x < -2.0 ** 63:
+        return -2 ** 63
+    return int(x)                           # toward zero
+
+
+@pytest.mark.parametrize("kind", ["host", pytest.param("cuda",
+                                                       marks=pytest.mark.gpu)])
+def test_sat_i64_is_the_xla_cast(kind, tmp_path):
+    import ctypes
+    import subprocess
+
+    from classpro_tpu_torch import kernels
+
+    if kind == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src = tmp_path / "sat_probe.cu"
+    src.write_text(_SAT_PROBE)
+    so = tmp_path / f"libsat_{kind}.so"
+    cmd = ([kernels._nvcc()] + kernels.NVCC_FLAGS if kind == "cuda"
+           else ["g++"] + kernels.HOST_FLAGS)
+    subprocess.run(cmd + ["-I", kernels._CSRC, str(src), "-o", str(so)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).sat_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    x = torch.from_numpy(_sat_inputs()).to(kind if kind == "cuda" else "cpu")
+    y = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    assert fn(x.data_ptr(), y.data_ptr(), x.numel()) == 0
+    assert y.cpu().tolist() == [_xla_cast(v) for v in _sat_inputs().tolist()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RAGGED)
+def test_cuda_kernel_matches_ref_on_ragged_warps(case):
+    """The ragged layouts through the CUDA kernel on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    P = _tiny_params("cuda")
+    planes, cov, active = _ragged(case)
+    planes = tuple(p.cuda() for p in planes)
+    cov = cov.cuda()
+    want = tuple(t.cpu() for t in rel_dp_ref(*planes, cov, P))
+    got = kernels.rel_dp(*planes, cov, P,
+                         active=active.cuda() if active is not None else None)
+    torch.cuda.synchronize()
+    _assert_dp_close(tuple(t.cpu() for t in got), want, rows=active)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
 def test_cuda_kernel_matches_ref_on_card(seed):
