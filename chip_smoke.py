@@ -8,9 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
 2. build   - nvcc builds csrc/rel_dp.cu and csrc/unrel.cu for sm_90a
              (printing -Xptxas -v) while g++ builds the C++ host library,
-             all three at once, from the checkout; rel_dp_kernel's
-             registers, stack and spill bytes are parsed from the log, and
-             a stack or a spill fails the run.
+             all three at once, from the checkout; rel_dp_kernel's and
+             unrel_kernel's registers, stack and spill bytes are parsed
+             from the log, and a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets) and a pack whose rows the
@@ -22,9 +22,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              the margin lies within 1e-9 of 1e-5.  Times the kernel (CUDA
              events; us per step of the longest row) and the plain version
              at the medium shapes, with the launch geometry.
-   k1profile (only when named) - K1 built with its per-phase clocks
-             against the production kernel bit for bit, both timed in
-             turns, and the clock sums per step.
+   k1profile, k5profile (only when named) - K1 (medium chunks) or K5
+             (medium alldev chunks and the long-row chunk) built with its
+             per-phase clocks against the production kernel bit for bit,
+             both timed in turns, and the clock sums per step.
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
              golden.class.gz; the launch counts are reset just before and
@@ -39,7 +40,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              against its plain version (unrel_ref) on the card, asgn and
              margins bit-equal, and the whole classify_batch with the
              kernels against it with the plain versions, outputs and flags
-             equal; times each.  Then TorchEngine(alldev=True) over tiny
+             equal; times each (every chunk kept).  Then one synthetic
+             long-row chunk (the tests' random_sweep_inputs, 256 rows of
+             up to 1100 intervals: the rows' state in the global scratch)
+             through the sweep kernel, bit-equal and timed.  Then
+             TorchEngine(alldev=True) over tiny
              and medium writes the golden bytes (launch counts reset just
              before and read after: both kernels > 0), and a timed alldev
              stream of --alldev-passes passes over medium, 3 runs.
@@ -61,8 +66,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              more cards, two NCCL ranks as processes of the driver; with
              one card it prints that (f) did not run.
 
-It prints one {"kernels": [...]} line (K1's with its registers, stack and
-spill bytes and launch geometry), {"stream": {...}},
+It prints one {"kernels": [...]} line (each with its registers, stack and
+spill bytes, launch geometry and us per step), {"stream": {...}},
 {"alldev_stream": {...}} and {"shard": {...}} lines, the card's name and
 power limit, and, as
 its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -165,13 +170,16 @@ def phase_build():
                 say(f"  {line.strip()}")
         say(f"build: nvcc {kernels.SOURCES[name][0]} {secs[name]:.1f} s")
     say(f"build: g++ host library {secs['host']:.1f} s (all three at once)")
-    res = ptxas_resources(kernels.BUILD_LOG[("rel_dp", "cuda")],
-                          "rel_dp_kernel")
-    say(f"build: rel_dp_kernel {json.dumps(res)}")
-    if res["stack_bytes"] or res["spill_store_bytes"] \
-            or res["spill_load_bytes"]:
-        fail(f"rel_dp_kernel keeps a stack or spills: {res}")
-    return res
+    out = {}
+    for name, entry in (("rel_dp", "rel_dp_kernel"),
+                        ("unrel_sweeps", "unrel_kernel")):
+        res = ptxas_resources(kernels.BUILD_LOG[(name, "cuda")], entry)
+        say(f"build: {entry} {json.dumps(res)}")
+        if res["stack_bytes"] or res["spill_store_bytes"] \
+                or res["spill_load_bytes"]:
+            fail(f"{entry} keeps a stack or spills: {res}")
+        out[name] = res
+    return out
 
 
 def ptxas_resources(log: str, kernel: str) -> dict:
@@ -406,65 +414,98 @@ def phase_kernel():
 
 # --------------------------------------------------------- 3b (opt-in)
 K1_PARTS = ("A", "exchange1", "B1", "exchange2", "B2", "exchange3", "C")
+K5_PARTS = ("S", "exchangeA", "I", "exchangeB", "K", "exchangesCD_H", "D")
 
 
-def phase_k1profile() -> dict:
-    """K1's per-phase clocks at the medium shapes (opt-in: --phases
-    k1profile).  Builds rel_dp.cu once more with -DRD_PHASE_CLOCKS; holds
-    that build's outputs to the production kernel's bit for bit; times the
-    two in turns (CUDA events over 20 launches per chunk, ctypes launches
-    without the wrapper) and reads the clock sums (cycles per step of the
-    warp's loop, lane 0 of each row)."""
+def _clock_profile(name: str, entry: str, parts, cases) -> dict:
+    """A kernel's per-phase clocks (opt-in: --phases k1profile,
+    k5profile).  Builds kernel ``name`` once more with -DRD_PHASE_CLOCKS;
+    on each case (tag, C arguments, the tensors the launch writes, the
+    production kernel's outputs) holds that build's outputs to the
+    production kernel's bit for bit, times the two in turns (CUDA events
+    over 20 launches, ctypes launches without the wrapper) and reads the
+    clock sums (cycles per step of the warp's loop, lane 0 of each row)."""
     import ctypes
 
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch.engine import TorchEngine
-    from classpro_tpu_torch.rel import rel_planes
 
-    lib = ctypes.CDLL(kernels.build("cuda", "rel_dp", True, clocks=True))
-    res = ptxas_resources(kernels.BUILD_LOG[("rel_dp", "cuda_clocks")],
-                          "rel_dp_kernel")
-    fns = {"plain": kernels._fn("rel_dp", "cuda"), "clocks": lib.rel_dp_launch}
+    lib = ctypes.CDLL(kernels.build("cuda", name, True, clocks=True))
+    res = ptxas_resources(kernels.BUILD_LOG[(name, "cuda_clocks")], entry)
+    stem = kernels._ENTRY[(name, "cuda")].rsplit("_", 1)[0]
+    fns = {"plain": kernels._fn(name, "cuda"),
+           "clocks": getattr(lib, f"{stem}_launch")}
     fns["clocks"].restype = ctypes.c_int
-    fns["clocks"].argtypes = kernels._ARGTYPES["rel_dp"] + [ctypes.c_void_p]
-    clocks = lib.rel_dp_phase_clocks
+    fns["clocks"].argtypes = kernels._ARGTYPES[name] + [ctypes.c_void_p]
+    clocks = getattr(lib, f"{stem}_phase_clocks")
     clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    dev = torch.device("cuda")
-    gm, seqs, profs = _model("medium")
-    eng = TorchEngine(gm, device=dev)
-    P = eng.P
     stream = torch.cuda.current_stream().cuda_stream
     rec: dict = {"clocks_build": res, "ms": {"plain": [], "clocks": []},
                  "cycles_per_step": []}
     bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t
-    for k, (fb, ib, R, max_m) in enumerate(_packs(eng, seqs, profs)):
-        planes = rel_planes(torch.from_numpy(fb).to(dev),
-                            torch.from_numpy(ib).to(dev), P, R, max_m)
-        cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
-        want = [t.clone() for t in kernels.rel_dp(*planes, cov, P)]
-        args, keep = kernels._args(planes, cov, P, None, 2 * R, max_m)
-        out = (ctypes.c_ulonglong * (len(K1_PARTS) + 1))()
+    for tag, args, outs, want in cases:
+        out = (ctypes.c_ulonglong * (len(parts) + 1))()
         clocks(None, 1)
         if fns["clocks"](*args, stream) != 0:
-            fail("k1profile: the clocked build did not launch")
+            fail(f"{name} profile: the clocked build did not launch")
         torch.cuda.synchronize()
         clocks(ctypes.cast(out, ctypes.c_void_p), 0)
-        if not all(torch.equal(bits(a), bits(b))
-                   for a, b in zip(keep[:3], want)):
-            fail(f"k1profile: the clocked build differs from the production "
-                 f"kernel on medium chunk {k}")
-        n = max(out[len(K1_PARTS)], 1)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(outs, want)):
+            fail(f"{name} profile: the clocked build differs from the "
+                 f"production kernel on {tag}")
+        n = max(out[len(parts)], 1)
         rec["cycles_per_step"].append(
-            {p: out[j] / n for j, p in enumerate(K1_PARTS)})
+            {p: out[j] / n for j, p in enumerate(parts)})
         for v in ("plain", "clocks", "clocks", "plain"):
             rec["ms"][v].append(_time_cuda(lambda: fns[v](*args, stream), 20))
-        say(f"k1profile: medium chunk {k}: production "
+        say(f"{name} profile: {tag}: production "
             f"{rec['ms']['plain'][-2]:.4f}, {rec['ms']['plain'][-1]:.4f} ms; "
             f"clocked {rec['ms']['clocks'][-2]:.4f}, "
             f"{rec['ms']['clocks'][-1]:.4f} ms; cycles per step: "
             + json.dumps({p: round(c, 1) for p, c in
                           rec["cycles_per_step"][-1].items()}))
     return rec
+
+
+def phase_k1profile() -> dict:
+    """K1's per-phase clocks at the medium shapes."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.rel import rel_planes
+
+    dev = torch.device("cuda")
+    gm, seqs, profs = _model("medium")
+    eng = TorchEngine(gm, device=dev)
+    P = eng.P
+    cases, alive = [], []
+    for k, (fb, ib, R, max_m) in enumerate(_packs(eng, seqs, profs)):
+        planes = rel_planes(torch.from_numpy(fb).to(dev),
+                            torch.from_numpy(ib).to(dev), P, R, max_m)
+        cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+        want = [t.clone() for t in kernels.rel_dp(*planes, cov, P)]
+        args, keep = kernels._args(planes, cov, P, None, 2 * R, max_m)
+        cases.append((f"medium chunk {k}", args, keep[:3], want))
+        alive.append((planes, cov, keep))   # the launches read them
+    return _clock_profile("rel_dp", "rel_dp_kernel", K1_PARTS, cases)
+
+
+def phase_k5profile() -> dict:
+    """K5's per-phase clocks at the medium alldev shapes and on the
+    long-row chunk."""
+    from classpro_tpu_torch import kernels
+
+    chunks = list(_alldev_chunks())
+    PP = chunks[0]["PP"]
+    cases = [(f"medium alldev chunk {k}", c["args"])
+             for k, c in enumerate(chunks)]
+    cases.append(("long-row chunk", _long_row_chunk(chunks[0]["gm"])))
+    out, scratch = [], []
+    for tag, a in cases:
+        want = [t.clone() for t in kernels.unrel_sweeps(*a, PP.unrel)]
+        args, o, mm, sc = kernels._unrel_args(tuple(a[:8]), a[8], PP.unrel,
+                                              a[1].device, "cuda")
+        out.append((tag, args, (o, mm), want))
+        scratch.append(sc)          # the launches use it
+    return _clock_profile("unrel_sweeps", "unrel_kernel", K5_PARTS, out)
 
 
 # --------------------------------------------------------------------- 4
@@ -715,40 +756,116 @@ def _k6_bound(fb, ib, dims) -> dict:
             "bytes": nbytes}
 
 
-def phase_alldev():
-    """Sweep kernel vs plain and classify_batch kernels vs plain on every
-    medium chunk, with times and bounds; returns the record."""
-    from classpro_tpu_torch import alldev, kernels
+def _compare_sweeps(tag, args, P):
+    """Sweep kernel vs plain on the same card inputs, bit for bit; returns
+    the plain version's output and its ms (one call)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
+
+    a_k, m_k = kernels.unrel_sweeps(*args, P)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_r, m_r = unrel_sweeps_ref(*args, P)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(a_k, a_r):
+        fail(f"{tag}: sweep asgn differs on "
+             f"{int((a_k != a_r).any(1).sum())} row(s)")
+    if not torch.equal(m_k.view(torch.int64), m_r.view(torch.int64)):
+        fin = torch.isfinite(m_k) & torch.isfinite(m_r)
+        fail(f"{tag}: sweep margins differ (finite max |err| "
+             f"{float((m_k[fin] - m_r[fin]).abs().max()):.3e})")
+    return a_r, plain
+
+
+def _time_sweeps(args, P, max_n: int, plain: float) -> dict:
+    """The sweep kernel's ms per launch (CUDA events, 5 launches); us per
+    step of the longest row, counted as PR 2 counted it (both sweeps' live
+    steps) and as the kernel runs it (its active steps, the warp loop's
+    trip count); with the plain version's ms and the bound on these
+    inputs."""
+    from classpro_tpu_torch import kernels
+
+    ms = _time_cuda(lambda: kernels.unrel_sweeps(*args, P), 5)
+    bnd = _unrel_bound(args, P, max_n)
+    act = int(_active_steps(args).max())
+    live = 2 * int(args[7].sum(1).max())
+    return {"ms": ms, "plain_ms": plain, "bound": bnd,
+            "longest_live_steps": live, "longest_active_steps": act,
+            "us_per_step": ms * 1e3 / max(live, 1),
+            "us_per_active_step": ms * 1e3 / max(act, 1)}
+
+
+def _active_steps(args):
+    """Active steps per row (both sweeps): live, index in [0, N), not a
+    reliable interval fixed at H/D."""
+    is_rel, asgn, live, n = args[0], args[1], args[7], args[8]
+    N = asgn.shape[1]
+    cols = torch.arange(N, device=asgn.device)[None, :]
+    fixed = is_rel & (cols < n[:, None]) & ((asgn == 2) | (asgn == 3))
+    tot = 0
+    for xs in (args[5], args[6]):
+        ok = live & (xs >= 0) & (xs < N)
+        tot = tot + (ok & ~torch.gather(fixed, 1,
+                                        xs.clamp(0, N - 1).long())).sum(1)
+    return tot
+
+
+def _long_row_chunk(gm):
+    """256 synthetic rows of up to 1100 intervals (the tests'
+    random_sweep_inputs, numpy from seed 5) on the card."""
+    from classpro_tpu_torch.params import build_pipeline_params
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_unrel_shim import random_sweep_inputs
+
+    cpu = build_pipeline_params(gm, "cpu")
+    return [t.to(DEV) for t in random_sweep_inputs(5, cpu.rel, B=256,
+                                                   N=1100)]
+
+
+def _alldev_chunks():
+    """Every medium chunk as the all-device path runs it on the card, up
+    to the sweeps' inputs: a dict of the engine's params, the pack and its
+    dims, the unpacked planes, K1's outputs and the sweep arguments."""
+    from classpro_tpu_torch import alldev
     from classpro_tpu_torch import rel as rel_mod
     from classpro_tpu_torch.engine import TorchEngine
-    from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
 
     dev = torch.device(DEV)
     gm, seqs, profs = _model("medium")
     eng = TorchEngine(gm, device=dev, alldev=True)
     PP = eng.PP
-    rec = {"max_abs_err": 0.0}
-    for k, (fb, ib, dims) in enumerate(_alldev_packs(eng, seqs, profs)):
-        Bn, max_n, R2, max_m = dims
-        tag = f"medium alldev chunk {k} (Bn={Bn}, max_n={max_n}, " \
-              f"R2={R2}, max_m={max_m})"
+    for fb, ib, dims in _alldev_packs(eng, seqs, profs):
         fb_d = torch.from_numpy(fb).to(dev)
         ib_d = torch.from_numpy(ib).to(dev)
         U = alldev.unpack(fb_d, ib_d, *dims)
         planes = alldev.dp_planes(U, PP.rel)
-        asgn8, _mm, rescue = rel_mod.rel_pipeline(planes, PP.rel, max_m,
+        asgn8, _mm, rescue = rel_mod.rel_pipeline(planes, PP.rel, dims[3],
                                                   "cuda")
-        args = _k6(U, asgn8, rescue, PP.rel, dims)
-        a_k, m_k = kernels.unrel_sweeps(*args, PP.unrel)
-        a_r, m_r = unrel_sweeps_ref(*args, PP.unrel)
-        torch.cuda.synchronize()
-        if not torch.equal(a_k, a_r):
-            fail(f"{tag}: sweep asgn differs on "
-                 f"{int((a_k != a_r).any(1).sum())} row(s)")
-        if not torch.equal(m_k.view(torch.int64), m_r.view(torch.int64)):
-            fin = torch.isfinite(m_k) & torch.isfinite(m_r)
-            fail(f"{tag}: sweep margins differ (finite max |err| "
-                 f"{float((m_k[fin] - m_r[fin]).abs().max()):.3e})")
+        yield {"PP": PP, "gm": gm, "fb": fb, "ib": ib, "fb_d": fb_d,
+               "ib_d": ib_d, "dims": dims, "U": U, "planes": planes,
+               "asgn8": asgn8, "rescue": rescue,
+               "args": _k6(U, asgn8, rescue, PP.rel, dims)}
+
+
+def phase_alldev():
+    """Sweep kernel vs plain and classify_batch kernels vs plain on every
+    medium chunk, and the sweep kernel on a long-row chunk, with times and
+    bounds; returns the record."""
+    from classpro_tpu_torch import alldev, kernels
+
+    rec = {"max_abs_err": 0.0, "chunks": []}
+    for k, c in enumerate(_alldev_chunks()):
+        PP, fb, ib, fb_d, ib_d, dims = (c[x] for x in ("PP", "fb", "ib",
+                                                       "fb_d", "ib_d",
+                                                       "dims"))
+        U, planes, asgn8, rescue, args = (c[x] for x in (
+            "U", "planes", "asgn8", "rescue", "args"))
+        Bn, max_n, R2, max_m = dims
+        tag = f"medium alldev chunk {k} (Bn={Bn}, max_n={max_n}, " \
+              f"R2={R2}, max_m={max_m})"
+        a_r, plain = _compare_sweeps(tag, args, PP.unrel)
         # the whole program with the kernels against the plain versions
         o_k, f_k = alldev.classify_batch(fb_d, ib_d, PP, *dims, impl="cuda")
         t0 = time.perf_counter()
@@ -762,15 +879,11 @@ def phase_alldev():
         say(f"kernel == plain: {tag}: sweeps bit-equal on {Bn} rows "
             f"({changed} intervals decided by the sweeps), classify_batch "
             f"equal ({int(f_k.sum())} flagged)")
-        ms = _time_cuda(lambda: kernels.unrel_sweeps(*args, PP.unrel), 5)
-        t0 = time.perf_counter()
-        unrel_sweeps_ref(*args, PP.unrel)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
+        sw = _time_sweeps(args, PP.unrel, max_n, plain)
+        bnd = sw["bound"]
         k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
         k7 = _time_cuda(lambda: alldev.classify_batch(fb_d, ib_d, PP, *dims,
                                                       impl="cuda"), 5)
-        bnd = _unrel_bound(args, PP.unrel, max_n)
         k6b = _k6_bound(fb, ib, dims)
         dpb = _bound_ms(planes, PP.rel.gcov[None, :].expand(
             R2, 4).contiguous(), PP.rel)
@@ -778,20 +891,40 @@ def phase_alldev():
             + dpb["records"] * 40 + bnd["records"] * 40 + bnd["tails"] * 8
         k7b_ops = dpb["steps"] * OPS_PER_STEP + bnd["ops"]
         k7b = max(k7b_bytes / PEAK_BYTES, k7b_ops / PEAK_F64) * 1e3
-        longest = int(args[7].sum(1).max())
-        rec.update(ms=ms, plain_ms=plain, bound=bnd, k6_ms=k6, k6_bound=k6b,
-                   k7_ms=k7, k7_plain_ms=k7_plain, k7_bound_ms=k7b,
-                   k7_bound_by="bytes" if k7b_bytes / PEAK_BYTES
-                   >= k7b_ops / PEAK_F64 else "operations")
-        say(f"  sweep kernel {ms:.3f} ms per launch ({ms * 1e3 / max(2 * longest, 1):.2f} "
-            f"us per step of the longest row, {longest} live steps per "
-            f"sweep), plain torch {plain:.1f} ms, bound {bnd['ms']:.6f} ms "
+        ch = dict(sw, dims=list(dims), k6_ms=k6, k6_bound=k6b, k7_ms=k7,
+                  k7_plain_ms=k7_plain, k7_bound_ms=k7b,
+                  k7_bound_by="bytes" if k7b_bytes / PEAK_BYTES
+                  >= k7b_ops / PEAK_F64 else "operations")
+        rec["chunks"].append(ch)
+        say(f"  sweep kernel {sw['ms']:.3f} ms per launch "
+            f"({sw['us_per_step']:.2f} us per live step of the longest "
+            f"row, {sw['longest_live_steps']} live steps; "
+            f"{sw['us_per_active_step']:.2f} us per active step, "
+            f"{sw['longest_active_steps']}), plain torch "
+            f"{sw['plain_ms']:.1f} ms, bound {bnd['ms']:.6f} ms "
             f"({bnd['by']}; bytes {bnd['bytes_ms']:.6f} ms with "
             f"{bnd['records']} Skellam records and {bnd['tails']} tails, "
             f"operations {bnd['ops_ms']:.6f} ms for {bnd['steps']} active "
             f"steps); K6 glue {k6:.3f} ms (bound {k6b['ms']:.6f} ms, "
             f"bytes); classify_batch {k7:.3f} ms per chunk, plain "
-            f"{k7_plain:.1f} ms, bound {k7b:.6f} ms ({rec['k7_bound_by']})")
+            f"{k7_plain:.1f} ms, bound {k7b:.6f} ms ({ch['k7_bound_by']})")
+    rec["geometry"] = kernels.unrel_geometry(Bn, max_n)
+    # a long-row chunk: the rows' state in the global scratch
+    args = _long_row_chunk(c["gm"])
+    B, N = args[1].shape
+    _, plain = _compare_sweeps(f"long-row chunk (B={B}, N={N})", args,
+                               PP.unrel)
+    lr = _time_sweeps(args, PP.unrel, N, plain)
+    lr.update(B=B, N=N, geometry=kernels.unrel_geometry(B, N))
+    rec["long_row"] = lr
+    say(f"kernel == plain: long-row chunk (B={B}, N={N}, launch geometry "
+        f"{json.dumps(lr['geometry'])}): bit-equal; {lr['ms']:.3f} ms per "
+        f"launch ({lr['us_per_step']:.2f} us per live step, "
+        f"{lr['longest_live_steps']}; {lr['us_per_active_step']:.2f} us per "
+        f"active step, {lr['longest_active_steps']}), plain torch "
+        f"{lr['plain_ms']:.1f} ms, bound {lr['bound']['ms']:.6f} ms "
+        f"({lr['bound']['by']})")
+    say(f"  launch geometry at the medium shapes {json.dumps(rec['geometry'])}")
     return rec
 
 
@@ -1332,8 +1465,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernel,e2e,stream,alldev,shard",
                     help="comma-separated subset (the probe always runs; "
-                    "k1profile, K1's phase clocks, only when "
-                    "named)")
+                    "k1profile and k5profile, the kernels' phase "
+                    "clocks, only when named)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium")
     ap.add_argument("--alldev-passes", type=int, default=10,
@@ -1369,6 +1502,8 @@ def main(argv=None) -> int:
     krec = phase_kernel() if "kernel" in phases else None
     if "k1profile" in phases:
         say(json.dumps({"k1_profile": phase_k1profile(), "card": smi}))
+    if "k5profile" in phases:
+        say(json.dumps({"k5_profile": phase_k5profile(), "card": smi}))
     launches = phase_e2e() if "e2e" in phases else None
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
                          sort_window=args.sort_window)
@@ -1382,9 +1517,8 @@ def main(argv=None) -> int:
     if srec is not None:
         say(json.dumps({"stream": srec, "card": smi}))
     if asrec is not None:
-        say(json.dumps({"alldev_stream": asrec, "alldev": {
-            k: v for k, v in arec.items() if k != "bound"},
-            "unrel_bound": arec["bound"], "card": smi}))
+        say(json.dumps({"alldev_stream": asrec, "alldev": arec,
+                        "card": smi}))
     kern = []
     if krec is not None and launches is not None:
         k = len(krec["ms"]) - 1              # the medium shape timed last
@@ -1398,17 +1532,24 @@ def main(argv=None) -> int:
             "bound_ms": krec["bound"][k]["ms"],
             "bound_by": krec["bound"][k]["by"],
             "library_ms": None, "us_per_step": krec["us_per_step"],
-            **(brec or {}), **krec["geometry"]})
+            **(brec or {}).get("rel_dp", {}), **krec["geometry"]})
     if arec is not None:
+        ch = arec["chunks"][-1]              # the medium chunk timed last
         kern.append({
             "name": "unrel_sweeps", "route": "cuda",
             "source": "classpro_tpu_torch/csrc/unrel.cu",
             "replaces": "classpro_tpu/tpu/unrel_dev2.py:67",
             "launches": alaunch["unrel_sweeps"],
             "max_abs_err": arec["max_abs_err"],
-            "ms": arec["ms"], "plain_ms": arec["plain_ms"],
-            "bound_ms": arec["bound"]["ms"], "bound_by": arec["bound"]["by"],
-            "library_ms": None})
+            "ms": ch["ms"], "plain_ms": ch["plain_ms"],
+            "bound_ms": ch["bound"]["ms"], "bound_by": ch["bound"]["by"],
+            "library_ms": None, "us_per_step": ch["us_per_step"],
+            "us_per_active_step": ch["us_per_active_step"],
+            "ms_per_chunk": [c["ms"] for c in arec["chunks"]],
+            "long_row_ms": arec["long_row"]["ms"],
+            "long_row_us_per_active_step":
+                arec["long_row"]["us_per_active_step"],
+            **(brec or {}).get("unrel_sweeps", {}), **arec["geometry"]})
     if shrec is not None:
         say(json.dumps({"shard": shrec, "card": smi}))
     if kern:

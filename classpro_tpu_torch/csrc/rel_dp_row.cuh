@@ -40,6 +40,7 @@
 #pragma once
 
 #include "rd_math.cuh"
+#include "warp_lanes.cuh"
 
 namespace rd {
 
@@ -47,7 +48,6 @@ namespace rd {
 // the groups mirror each other and split phase A's two Skellam lookups.
 constexpr int CELLS = 4;
 constexpr int LANES = 2 * CELLS;   // lanes per DP row
-constexpr int WARP = 32;
 constexpr int ROWS_PER_WARP = WARP / LANES;
 constexpr double LOG_QUARTER = -1.3862943611198906;  // log(0.25)
 
@@ -171,72 +171,6 @@ RD_FN T pick4(const T x[4], int c) {
   return v;
 }
 
-// ---- the lane exchange: out[l] = v[src[l]] over the warp's lanes.  On
-// the card each thread is one lane (NL == 1) and this is a shuffle; in the
-// host shim one thread holds all 32 lanes and reads the array.
-template <int NL, class T>
-RD_FN void xchg(const T (&v)[NL], const int (&src)[NL], T (&out)[NL]) {
-#ifdef __CUDA_ARCH__
-  out[0] = __shfl_sync(0xffffffffu, v[0], src[0]);
-#else
-  for (int l = 0; l < NL; ++l) out[l] = v[src[l]];
-#endif
-}
-
-template <int NL>
-RD_FN int warp_max(const int (&v)[NL]) {
-#ifdef __CUDA_ARCH__
-  return (int)__reduce_max_sync(0xffffffffu, (unsigned)v[0]);
-#else
-  int mx = 0;
-  for (int l = 0; l < NL; ++l) mx = v[l] > mx ? v[l] : mx;
-  return mx;
-#endif
-}
-
-RD_FN void warp_sync() {
-#ifdef __CUDA_ARCH__
-  __syncwarp();
-#endif
-}
-
-// bit k = v of lane k of this lane's row
-template <int NL>
-RD_FN void row_bits(const bool (&v)[NL], const int (&wl)[NL],
-                    unsigned (&out)[NL]) {
-#ifdef __CUDA_ARCH__
-  out[0] = (__ballot_sync(0xffffffffu, v[0]) >> (wl[0] & ~(CELLS - 1))) & 0xfu;
-#else
-  for (int l = 0; l < NL; ++l) {
-    const int b0 = wl[l] & ~(CELLS - 1);
-    out[l] = 0;
-    for (int k = 0; k < CELLS; ++k) out[l] |= (v[b0 + k] ? 1u : 0u) << k;
-  }
-#endif
-}
-
-// out[l][k] = v of lane k of lane l's row
-template <int NL, class T>
-RD_FN void gather4(const T (&v)[NL], const int (&wl)[NL], T (&out)[NL][4]) {
-  RD_UNROLL
-  for (int k = 0; k < 4; ++k) {
-    int src[NL];
-    T o[NL];
-    for (int l = 0; l < NL; ++l) src[l] = (wl[l] & ~(CELLS - 1)) + k;
-    xchg<NL>(v, src, o);
-    for (int l = 0; l < NL; ++l) out[l][k] = o[l];
-  }
-}
-
-// out[l] = v of lane k of lane l's row
-template <int NL, class T>
-RD_FN void from_lane(const T (&v)[NL], const int (&wl)[NL], int k,
-                     T (&out)[NL]) {
-  int src[NL];
-  for (int l = 0; l < NL; ++l) src[l] = (wl[l] & ~(CELLS - 1)) + k;
-  xchg<NL>(v, src, out);
-}
-
 // The row's 4 x 4 matrix, lane c holding row c, transposed: out[l][k] =
 // row[k][c_l].  Round r: lane c sends its entry (c - r) & 3 and takes lane
 // (c + r) & 3's, which is that lane's entry c.
@@ -264,32 +198,6 @@ RD_FN void transpose4(const double (&row)[NL][4], const int (&wl)[NL],
     for (int k = 0; k < 4; ++k) out[l][k] = pick4(rot[l], (k - c) & 3);
   }
 }
-
-// Phase clocks, only in a build with -DRD_PHASE_CLOCKS (chip_smoke.py
-// --phases k1profile): lane 0 of every row adds the cycles of each part of
-// its warp's steps (A, exchange 1, B1, exchange 2, B2, exchange 3, C)
-// into rd_phase_clocks[0..6] and the steps into [7].
-constexpr int NPART = 7;
-#if defined(RD_PHASE_CLOCKS) && defined(__CUDACC__)
-__device__ unsigned long long rd_phase_clocks[NPART + 1];
-#endif
-#if defined(RD_PHASE_CLOCKS) && defined(__CUDA_ARCH__)
-#define RD_CLOCKS long long rd_acc[NPART] = {0}, rd_t[NPART + 1]
-#define RD_MARK(k) rd_t[k] = clock64()
-#define RD_ADD_STEP                                                   \
-  for (int k = 0; k < NPART; ++k) rd_acc[k] += rd_t[k + 1] - rd_t[k]
-#define RD_FLUSH(lane0, steps)                                        \
-  if (lane0) {                                                        \
-    for (int k = 0; k < NPART; ++k)                                   \
-      atomicAdd(&rd_phase_clocks[k], (unsigned long long)rd_acc[k]);  \
-    atomicAdd(&rd_phase_clocks[NPART], (unsigned long long)(steps));  \
-  }
-#else
-#define RD_CLOCKS
-#define RD_MARK(k)
-#define RD_ADD_STEP
-#define RD_FLUSH(lane0, steps)
-#endif
 
 RD_FN StepIn load_step(const Args& a, int row, long long i) {
   const long long o = (long long)row * a.max_m + i;
@@ -725,6 +633,8 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   for (int l = 0; l < NL; ++l)
     if (1 < mw) nxt[l] = load_step(a, L[l].row, 1);
 
+  // phase clocks (warp_lanes.cuh), parts: A, exchange 1, B1, exchange 2,
+  // B2, exchange 3, C
   RD_CLOCKS;
   for (int i = 1; i < mw; ++i) {
     RD_MARK(0);
@@ -773,7 +683,7 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     RD_MARK(1);
     // exchange 1: the row maxima
     double mcs[NL][4];
-    gather4<NL>(mc, wl, mcs);
+    gather4<CELLS>(mc, wl, mcs);
     RD_MARK(2);
     RowB rb[NL];
     double m_or[NL], scH[NL], scD[NL], lpH[NL], lpD[NL], sc[NL][4];
@@ -797,25 +707,25 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     {
       double t4[NL][4], t1[NL];
       unsigned bits[NL];
-      gather4<NL>(m_or, wl, t4);
+      gather4<CELLS>(m_or, wl, t4);
       for (int l = 0; l < NL; ++l)
         for (int k = 0; k < 4; ++k) gx[l].m_or[k] = t4[l][k];
-      gather4<NL>(scH, wl, t4);
+      gather4<CELLS>(scH, wl, t4);
       for (int l = 0; l < NL; ++l)
         for (int k = 0; k < 4; ++k) gx[l].colH[k] = t4[l][k];
-      gather4<NL>(scD, wl, t4);
+      gather4<CELLS>(scD, wl, t4);
       for (int l = 0; l < NL; ++l)
         for (int k = 0; k < 4; ++k) gx[l].colD[k] = t4[l][k];
-      from_lane<NL>(lpH, wl, HAP, t1);
+      from_lane<CELLS>(lpH, wl, HAP, t1);
       for (int l = 0; l < NL; ++l) gx[l].lpHH = t1[l];
-      from_lane<NL>(lpD, wl, DIP, t1);
+      from_lane<CELLS>(lpD, wl, DIP, t1);
       for (int l = 0; l < NL; ++l) gx[l].lpDD = t1[l];
       transpose4<NL>(sc, wl, t4);
       for (int l = 0; l < NL; ++l)
         for (int k = 0; k < 4; ++k) gx[l].col[k] = t4[l][k];
-      row_bits<NL>(rep_s, wl, bits);
+      row_bits<CELLS>(rep_s, wl, bits);
       for (int l = 0; l < NL; ++l) gx[l].rep_s = bits[l];
-      row_bits<NL>(band, wl, bits);
+      row_bits<CELLS>(band, wl, bits);
       for (int l = 0; l < NL; ++l) gx[l].band = bits[l];
     }
     RD_MARK(4);
@@ -885,8 +795,8 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     dp[l] = L[l].dp;
     mm[l] = L[l].mmin;
   }
-  gather4<NL>(dp, wl, dpa);
-  gather4<NL>(mm, wl, mma);
+  gather4<CELLS>(dp, wl, dpa);
+  gather4<CELLS>(mm, wl, mma);
   warp_sync();   // the row's backpointers, written by its 4 lanes
   for (int l = 0; l < NL; ++l) {
     const Lane& x = L[l];

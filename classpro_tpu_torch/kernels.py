@@ -3,16 +3,17 @@
 ``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP) and
 ``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) are the
 wrappers the paths call: on CUDA tensors they launch the sm_90a kernel
-(eight lanes per DP row; one thread per sweep row) on the current
+(eight lanes per DP row; four lanes per sweep row) on the current
 stream and count the launch in ``LAUNCHES``; on CPU tensors they run the
 plain torch version (rel_ref, unrel_ref).  There is no fallback between
 the two: a failed nvcc build or a refused launch raises.
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
 interface, loaded with ctypes), never at import.  ``rel_dp_host`` and
-``unrel_sweeps_host`` run the same per-row bodies compiled by g++ (the
-headers under -x c++); they are the CPU tests' window onto the kernels'
-arithmetic and never run on a path.
+``unrel_sweeps_host`` run the same warp bodies compiled by g++ (the
+headers under -x c++, a warp's 32 lanes phase by phase); they are the CPU
+tests' window onto the kernels' arithmetic and lane exchanges and never
+run on a path.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 # kernel -> (source, headers it includes)
 SOURCES = {
-    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rd_math.cuh")),
-    "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh")),
+    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rd_math.cuh",
+                             "warp_lanes.cuh")),
+    "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh",
+                                  "warp_lanes.cuh")),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,7 +60,7 @@ _LL = ctypes.c_longlong
 # C argument lists: rel_dp.cu RD_ARGS_DECL, unrel.cu UR_ARGS_DECL
 _ARGTYPES = {
     "rel_dp": [_PTR] * 17 + [_I, _I, _PTR, _PTR, _I, _D, _LL] + [_D] * 4,
-    "unrel_sweeps": ([_PTR] * 11 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
+    "unrel_sweeps": ([_PTR] * 12 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
                      + [_D] * 5 + [_LL] * 3),
 }
 _ENTRY = {("rel_dp", "cuda"): "rel_dp_launch", ("rel_dp", "host"): "rel_dp_host",
@@ -114,18 +117,28 @@ def build(kind: str = "cuda", name: str = "rel_dp", force: bool = False,
     return so
 
 
-def _fn(name: str, kind: str):
-    """The loaded C entry point of kernel ``name`` (built first)."""
+def _entry(name: str, kind: str, entry: str, argtypes: list):
+    """The loaded C function ``entry`` of kernel ``name``'s library
+    (built first)."""
     with _lock:
-        fn = _libs.get((name, kind))
+        fn = _libs.get((name, kind, entry))
         if fn is None:
-            lib = ctypes.CDLL(build(kind, name))
-            fn = getattr(lib, _ENTRY[(name, kind)])
+            fn = getattr(ctypes.CDLL(build(kind, name)), entry)
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES[name] + ([_PTR] if kind == "cuda"
-                                             else [])
-            _libs[(name, kind)] = fn
+            fn.argtypes = argtypes
+            _libs[(name, kind, entry)] = fn
         return fn
+
+
+def _fn(name: str, kind: str):
+    """The loaded launch (``cuda``) or shim (``host``) entry of kernel
+    ``name``."""
+    return _entry(name, kind, _ENTRY[(name, kind)],
+                  _ARGTYPES[name] + ([_PTR] if kind == "cuda" else []))
+
+
+_GEO_KEYS = ("lanes_per_row", "rows_per_warp", "threads_per_block",
+             "blocks", "smem_bytes")
 
 
 def rel_dp_geometry(R2: int, max_m: int, kind: str = "cuda") -> dict:
@@ -133,16 +146,21 @@ def rel_dp_geometry(R2: int, max_m: int, kind: str = "cuda") -> dict:
     computes it: lanes per row, rows per warp, threads per block, blocks
     and shared bytes per block (0 when the backpointers use the global
     scratch)."""
-    with _lock:
-        lib = ctypes.CDLL(build(kind, "rel_dp"))
-    fn = lib.rel_dp_geometry
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_I, _I, _PTR]
     out = (ctypes.c_int * 5)()
-    fn(R2, max_m, ctypes.cast(out, _PTR))
-    keys = ("lanes_per_row", "rows_per_warp", "threads_per_block", "blocks",
-            "smem_bytes")
-    return dict(zip(keys, list(out)))
+    _entry("rel_dp", kind, "rel_dp_geometry", [_I, _I, _PTR])(
+        R2, max_m, ctypes.cast(out, _PTR))
+    return dict(zip(_GEO_KEYS, list(out)))
+
+
+def unrel_geometry(B: int, N: int, kind: str = "cuda") -> dict:
+    """The sweep kernel's launch geometry for (B, N), as unrel.cu computes
+    it: lanes per row, rows per warp, threads per block, blocks, shared
+    bytes per block (0 when the rows' state uses the global scratch) and
+    the bytes of one row's state."""
+    out = (ctypes.c_longlong * 6)()
+    _entry("unrel_sweeps", kind, "unrel_geometry", [_I, _I, _PTR])(
+        B, N, ctypes.cast(out, _PTR))
+    return dict(zip(_GEO_KEYS + ("row_bytes",), list(out)))
 
 
 def _launch(name: str, device, args) -> None:
@@ -256,9 +274,10 @@ _UNREL_IN = (("is_rel", torch.bool, ()), ("asgn", torch.int32, ()),
              ("idx_asc", torch.int32, ()), ("live", torch.bool, ()))
 
 
-def _unrel_args(ins, n, P: UnrelParams, device):
-    """Checks of the sweep inputs; outputs and the flat C argument list
-    (UR_ARGS_DECL)."""
+def _unrel_args(ins, n, P: UnrelParams, device, kind):
+    """Checks of the sweep inputs; outputs, the rows' scratch (the card
+    needs it only where they do not fit its shared memory; the shim
+    always) and the flat C argument list (UR_ARGS_DECL)."""
     if ins[1].dim() != 2:
         raise ValueError("asgn must be (B, N)")
     B, N = ins[1].shape
@@ -278,15 +297,21 @@ def _unrel_args(ins, n, P: UnrelParams, device):
         raise ValueError("btg_flat must hold n_cap * n_cap entries")
     asgn = torch.empty((B, N), dtype=torch.int8, device=device)
     mm = torch.empty((B,), dtype=torch.float64, device=device)
-    args = ([t.data_ptr() for t in ins] + [n.data_ptr(), asgn.data_ptr(),
-                                           mm.data_ptr(), B, N]
+    geo = unrel_geometry(B, N, kind)
+    scratch = None
+    if kind == "host" or geo["smem_bytes"] == 0:
+        scratch = torch.empty((max(B * geo["row_bytes"], 1),),
+                              dtype=torch.uint8, device=device)
+    args = ([t.data_ptr() for t in ins]
+            + [n.data_ptr(), asgn.data_ptr(), mm.data_ptr(),
+               scratch.data_ptr() if scratch is not None else None, B, N]
             + [P.tab.data_ptr(), P.lf_small.data_ptr(),
                int(P.lf_small.shape[0]), P.btg_flat.data_ptr(),
                int(P.n_cap), float(P.read_len), float(P.r_logp),
                float(P.log_1m_pe_mean), float(P.log_pe_mean),
                float(P.dr_ratio), int(P.cov_r), int(P.cov_h),
                int(P.cov_d)])
-    return args, asgn, mm
+    return args, asgn, mm, scratch
 
 
 def unrel_sweeps(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live,
@@ -303,18 +328,20 @@ def unrel_sweeps(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live,
         return unrel_sweeps_ref(*ins, n, P)
     if asgn.device.type != "cuda":
         raise ValueError(f"no kernel for device {asgn.device}")
-    args, out, mm = _unrel_args(ins, n, P, asgn.device)
+    args, out, mm, _scratch = _unrel_args(ins, n, P, asgn.device, "cuda")
     _launch("unrel_sweeps", asgn.device, args)
     return out, mm
 
 
 def unrel_sweeps_host(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc,
                       live, n, P: UnrelParams):
-    """The sweep kernel's per-row body compiled by g++ and run on CPU
-    tensors (test-only; same contract as ``unrel_sweeps``)."""
+    """The sweep kernel's warp body compiled by g++ and run on CPU tensors,
+    a warp's 32 lanes phase by phase (test-only; same contract as
+    ``unrel_sweeps``)."""
     ins = tuple(t.contiguous() for t in (is_rel, asgn, P13, packL, packR,
                                          idx_desc, idx_asc, live))
-    args, out, mm = _unrel_args(ins, n.contiguous(), P, torch.device("cpu"))
+    args, out, mm, _scratch = _unrel_args(ins, n.contiguous(), P,
+                                          torch.device("cpu"), "host")
     if _fn("unrel_sweeps", "host")(*args) != 0:
         raise RuntimeError("host shim failed")
     return out, mm

@@ -1,6 +1,6 @@
 """The relaxation sweeps: the port's plain torch version (unrel_ref)
 against the JAX package's ``unrel_sweeps2``, and the CUDA kernel's
-per-row body (csrc/unrel_row.cuh, built by g++ into
+warp body (csrc/unrel_row.cuh, built by g++ into
 kernels.unrel_sweeps_host) against the plain version (more of that, and
 the kernel on the card, in test_torch_unrel_shim.py).
 
@@ -29,7 +29,7 @@ import torch
 
 from test_torch_kernel_shim import _load
 from test_torch_rel import _jax_gm
-from test_torch_unrel_shim import (_torch_pp, assert_bit_equal,
+from test_torch_unrel_shim import (SWEEP_CASES, _torch_pp, assert_bit_equal,
                                   random_sweep_inputs)
 
 torch.set_num_threads(1)
@@ -124,6 +124,28 @@ def test_ref_and_shim_on_random_planes(seed):
     assert bool(torch.isnan(args[2]).any())
     assert int(args[4][..., 2].max()) * PP.unrel.dr_ratio \
         > PP.unrel.lf_small.numel()
+    want = unrel_sweeps_ref(*args, PP.unrel)
+    assert_close_to_jax(want, _jax_sweeps(args, pp))
+    assert_bit_equal(kernels.unrel_sweeps_host(*args, PP.unrel), want)
+
+
+@pytest.mark.parametrize("case", [c for c in SWEEP_CASES if c != "n1100"])
+def test_ref_and_shim_on_sweep_layouts(case):
+    """The plain version against JAX and the shim against the plain
+    version on the warp layouts of test_torch_unrel_shim.SWEEP_CASES (the
+    1100-column one against the plain version only, there).  A live step
+    whose index lies outside [0, N) runs in JAX on a zero record and
+    counts its margin; the port's contract leaves it out (chunks never
+    hold one), so here such indices become N - 1, a step past n."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
+
+    pp, PP = _jax_pp("tiny"), _torch_pp("tiny")
+    args = list(random_sweep_inputs(11 + SWEEP_CASES.index(case), PP.rel,
+                                    case=case))
+    N = args[1].shape[1]
+    for k in (5, 6):
+        args[k] = torch.where((args[k] < 0) | (args[k] >= N), N - 1, args[k])
     want = unrel_sweeps_ref(*args, PP.unrel)
     assert_close_to_jax(want, _jax_sweeps(args, pp))
     assert_bit_equal(kernels.unrel_sweeps_host(*args, PP.unrel), want)
