@@ -78,12 +78,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              on medium in this process (golden bytes; the Chrome trace
              must hold rel_dp_kernel events) and the card's busy share
              over the traced window.
+9. tools   - the port's dev tools on the card: (a) debug-read (cuda) on
+             read 0 of branch/psum0 (with its -c/-r) and of medium must
+             print every section and end in "RESULT: oracle == production";
+             (b) crafted fuzz datasets (devtools.fuzzgen), one GlobalModel
+             each, through TorchEngine's main path (K1) and all-device
+             path (K1, K5) in this process, against the port's exact
+             oracle (worker processes): the default generator at K = 16,
+             24, 32 and 40, --extreme, --cap, --ndense, a -M random model,
+             and a .dam with -s (its .class and four track files compared
+             with the oracle's too); every dataset must have 0 mismatching
+             reads on both paths, and both kernels' launch counts (reset
+             just before, read just after) must be > 0; (c)
+             devtools.profile_summary on the serve phase's trace.  Prints
+             the phase's seconds.
+   soak (only when named; --soak-gbp, default 0.05) - devtools.soak on
+             cuda at K = 28: the generator's seconds, classify wall, stream
+             wall, k-mers/s, RSS peak, guard_flagged and its rate, spot
+             parity against the exact oracle (0 mismatches), the two-shard
+             merge's byte equality and the served job's wall.
 
 It prints one {"kernels": [...]} line (each with its registers, stack and
 spill bytes, launch geometry and us per step), {"stream": {...}},
 {"alldev_stream": {...}}, {"shard": {...}} and {"serve": {...}} lines
 (ready_s, each job's wall_s and k-mers/s, table_uploads, launches, the
-trace's busy share), the card's name and power limit, and, as
+trace's busy share), {"tools": {...}} and {"soak": {...}} lines, the card's
+name and power limit, and, as
 its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  It imports nothing of JAX or of the JAX package.
 """
@@ -1496,37 +1516,13 @@ def _wait_ready(p, timeout: float) -> None:
              f"code {p.poll()})")
 
 
-def _trace_share(path: str) -> dict:
-    """From a torch.profiler Chrome trace: the DP kernel's events and the
-    card's busy share (union of its kernel, copy and set intervals over
-    the traced window, first to last event of any kind)."""
-    with open(path) as f:
-        evs = [e for e in json.load(f)["traceEvents"]
-               if e.get("ph") == "X" and "dur" in e]
-    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                 for e in evs
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, float("-inf")
-    for a, b in dev:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    lo = min(float(e["ts"]) for e in evs)
-    hi = max(float(e["ts"]) + float(e["dur"]) for e in evs)
-    k1 = [e for e in evs if e.get("cat") == "kernel"
-          and "rel_dp_kernel" in e.get("name", "")]
-    return {"events": len(evs), "device_events": len(dev),
-            "rel_dp_kernel_events": len(k1),
-            "rel_dp_kernel_us": sum(float(e["dur"]) for e in k1),
-            "window_us": hi - lo, "device_busy_us": busy,
-            "busy_share": busy / max(hi - lo, 1e-9)}
-
-
-def phase_serve() -> dict:
+def phase_serve(keep: str) -> dict:
     """The serve daemon on the card, through its real entry point, and
-    classify --warmup --torch-profile."""
+    classify --warmup --torch-profile (its trace copied into ``keep`` for
+    the tools phase)."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.cli import main as cli_main
+    from classpro_tpu_torch.devtools.profile_summary import trace_share
     from classpro_tpu_torch.serve import request
 
     tmp = tempfile.mkdtemp(prefix="cps")
@@ -1635,10 +1631,11 @@ def phase_serve() -> dict:
         traces = [f for f in os.listdir(tdir) if f.endswith(".json")]
         if len(traces) != 1:
             fail(f"--torch-profile wrote {traces}")
-        tr = _trace_share(os.path.join(tdir, traces[0]))
+        tr = trace_share(os.path.join(tdir, traces[0]))
         if tr["rel_dp_kernel_events"] <= 0:
             fail(f"the profiler trace holds no rel_dp_kernel event: {tr}")
         rec["trace"] = tr
+        rec["trace_path"] = shutil.copy(os.path.join(tdir, traces[0]), keep)
         say(f"serve: classify --warmup --torch-profile on medium: golden "
             f"bytes, {tr['rel_dp_kernel_events']} rel_dp_kernel events "
             f"({tr['rel_dp_kernel_us']:.1f} us), card busy "
@@ -1657,14 +1654,185 @@ def phase_serve() -> dict:
     return rec
 
 
+# --------------------------------------------------------------------- 9
+# the first seed of the tools phase's datasets (disjoint from the
+# committed corpus); each K takes the first seed from here that draws it
+TOOLS_SEED0 = 990000
+# sections every debug-read dump prints (the last one when it agrees)
+DEBUG_SECTIONS = ("oracle wall stage", "oracle rel DP", "oracle final",
+                  "production wall stage (C++)", "device DP",
+                  "production final", "RESULT: oracle == production")
+
+
+def _seed_for_k(K: int) -> int:
+    """The first seed from TOOLS_SEED0 whose fuzz dataset has k-mer size
+    K (fuzzgen.build draws K first from the seed's generator)."""
+    import numpy as np
+
+    s = TOOLS_SEED0
+    while int(np.random.default_rng(s).choice([16, 24, 32, 40])) != K:
+        s += 1
+    return s
+
+
+def _debug_reads() -> list:
+    """(a) debug-read on the card: read 0 of branch/psum0 with the
+    fixture's -c/-r, and read 0 of medium."""
+    import io
+
+    from classpro_tpu_torch.tools.debug_read import debug_read
+
+    out = []
+    for fx in ("branch/psum0", "medium"):
+        d = os.path.join(FIX, fx)
+        kw = {}
+        if os.path.exists(os.path.join(d, "args.json")):
+            with open(os.path.join(d, "args.json")) as f:
+                a = json.load(f)
+            kw = {"coverage": a["coverage"], "read_len": a["read_len"]}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        same = debug_read(os.path.join(d, "reads.fasta.gz"), 0, out=buf,
+                          device="cuda", **kw)
+        text = buf.getvalue()
+        missing = [x for x in DEBUG_SECTIONS if x not in text]
+        if not same or missing:
+            fail(f"debug-read {fx} read 0 on cuda: agrees {same}, missing "
+                 f"sections {missing}\n{text[-3000:]}")
+        out.append({"fixture": fx, "read": 0, **kw,
+                    "seconds": time.perf_counter() - t0,
+                    "device_dp": text.split("--- device DP")[1]
+                    .split("\n")[0].strip(" -")})
+    say(f"tools (a): debug-read on cuda, oracle == production, every "
+        f"section printed: {json.dumps(out)}")
+    return out
+
+
+def phase_tools(trace: str | None) -> dict:
+    """(a) debug-read on the card; (b) fuzz datasets (fuzzgen) in this
+    process, one GlobalModel each, through the main path and the
+    all-device path against the port's exact oracle (run in worker
+    processes meanwhile): the default generator at K = 16, 24, 32 and
+    40, --extreme, --cap, --ndense, a -M random model, and a .dam with
+    -s (its five outputs compared too); the kernels' launch counts reset
+    just before and read just after; (c) profile_summary on the serve
+    phase's trace."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.devtools import fuzzgen, gpu_parity
+    from classpro_tpu_torch.devtools import profile_summary
+
+    t_all = time.perf_counter()
+    rec: dict = {"debug_read": _debug_reads()}
+    tmp = tempfile.mkdtemp(prefix="cpt")
+    try:
+        names, specs = [], []
+
+        def add(name, seed, model=None, **kw):
+            d = os.path.join(tmp, name)
+            _K, fname = fuzzgen.build(seed, d, **kw)
+            if model:
+                fuzzgen.write_random_model(seed, os.path.join(d, model))
+            names.append({"dataset": name, "seed": seed})
+            specs.append((d, fname, model and os.path.join(d, model)))
+
+        for K in (16, 24, 32, 40):
+            add(f"random_k{K}", _seed_for_k(K))
+        add("extreme", TOOLS_SEED0, gen=fuzzgen.GENERATORS["extreme"])
+        add("cap", TOOLS_SEED0, gen=fuzzgen.GENERATORS["cap"])
+        add("ndense", TOOLS_SEED0, ndense=True)
+        add("model", TOOLS_SEED0, model="rand.model")
+        _reset_launches()
+        t0 = time.perf_counter()
+        dam = gpu_parity.check_dam(os.path.join(tmp, "dam"), "cuda",
+                                   seed=TOOLS_SEED0)
+        if dam["differing_files"]:
+            fail(f"tools (b): classify -s on the .dam differs from the "
+                 f"oracle: {dam}")
+        names.append({"dataset": "dam", "seed": TOOLS_SEED0})
+        specs.append((os.path.join(tmp, "dam", "oracle"), "reads.dam", None))
+        recs = gpu_parity.check_datasets(specs, "cuda", workers=4)
+        launches = dict(kernels.LAUNCHES)
+        rec["datasets_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for nm, r in zip(names, recs):
+        r.update(nm)
+        say(f"tools (b): {r['dataset']} (seed {r['seed']}) K={r['K']} "
+            f"{r['reads']} reads {r['kmers']} k-mers [{r['oracle']}]: "
+            + "; ".join(f"{p} {v['mismatches']} mismatches, guard_flagged "
+                        f"{v['guard_flagged']}, min_margin "
+                        f"{v['min_margin']}" for p, v in r["paths"].items()))
+    bad = [r["dataset"] for r in recs if not gpu_parity.dataset_ok(r)]
+    if bad:
+        fail(f"tools (b): mismatches against the exact oracle on {bad}")
+    if launches["rel_dp"] <= 0 or launches["unrel_sweeps"] <= 0:
+        fail(f"tools (b): a kernel of the path did not launch: {launches}")
+    say(f"tools (b): .dam -s K={dam['K']}: all {dam['files']} outputs "
+        f"byte-equal to the {dam['oracle']}'s; launches on the path "
+        f"{launches}")
+    rec.update(datasets=recs, dam=dam, launches=launches)
+    if trace is None:
+        say("tools (c): profile_summary NOT RUN (it reads the serve "
+            "phase's trace)")
+    else:
+        if profile_summary.main([trace, "10"]) != 0:
+            fail("tools (c): profile_summary failed")
+        sh = profile_summary.trace_share(trace)
+        if sh["device_events"] <= 0:
+            fail(f"tools (c): no device event in the trace: {sh}")
+        rec["trace_busy_share"] = sh["busy_share"]
+    rec["seconds"] = time.perf_counter() - t_all
+    say(f"tools: {rec['seconds']:.1f} s (debug-read "
+        f"{sum(x['seconds'] for x in rec['debug_read']):.1f} s, datasets "
+        f"{rec['datasets_s']:.1f} s)")
+    return rec
+
+
+def phase_soak(gbp: float) -> dict:
+    """A soak of ``gbp`` billion bases at K = 28 on the card
+    (devtools.soak): classify with its RSS sampled, the served job, spot
+    parity against the exact oracle, the two-shard merge."""
+    from classpro_tpu_torch.devtools import soak
+
+    d = tempfile.mkdtemp(prefix="cpsoak")
+    try:
+        res = soak.soak(d, "cuda", gbp=gbp, kmer=28)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    c, es, m = res["classify"], res["classify"]["engine_stats"], res["meta"]
+    say(f"soak: {gbp} Gbp, K={m['kmer']}, {m['n_reads']} reads, "
+        f"{m['n_kmers']} k-mers; generator {m['gen_seconds']} s; classify "
+        f"wall {c['wall_s']} s, stream wall {es['stream_wall_s']:.2f} s, "
+        f"{c['kmers_per_s'] / 1e6:.2f} M k-mers/s (stream "
+        f"{c['stream_kmers_per_s'] / 1e6:.2f}); RSS peak "
+        f"{c['rss_peak_mb']} MB; guard_flagged {es['guard_flagged']} "
+        f"({100 * c['guard_flag_rate']:.2f}% of reads), min_margin "
+        f"{es['min_margin']}; spot parity {res['spot_parity']}; merge "
+        f"equal {res['shard_merge']['merge_equal']}; served job "
+        f"{res['served']['job_wall_s']} s (ready "
+        f"{res['served']['server_warmup_s']} s, equal "
+        f"{res['served']['equal_to_fresh']})")
+    if not res["ok"]:
+        fail(f"soak: spot parity, the merge or the served job disagree: "
+             f"{res['spot_parity']}, {res['shard_merge']}, "
+             f"{res['served']['equal_to_fresh']}")
+    samples = c.pop("samples")
+    c["rss_mb_curve"] = [x["rss_mb"]
+                         for x in samples[:: max(1, len(samples) // 20)]]
+    return res
+
+
 # ---------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernel,e2e,stream,alldev,shard,serve",
+                    default="build,kernel,e2e,stream,alldev,shard,serve,"
+                            "tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile and k5profile, the kernels' phase "
-                    "clocks, only when named)")
+                    "clocks, and soak only when named)")
+    ap.add_argument("--soak-gbp", type=float, default=0.05,
+                    help="soak phase: dataset size in billions of bases")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium")
     ap.add_argument("--alldev-passes", type=int, default=10,
@@ -1712,7 +1880,14 @@ def main(argv=None) -> int:
         alaunch = phase_alldev_e2e()
         asrec = phase_alldev_stream(args.alldev_passes)
     shrec = phase_shard() if "shard" in phases else None
-    svrec = phase_serve() if "serve" in phases else None
+    keep = tempfile.mkdtemp(prefix="cpk")
+    try:
+        svrec = phase_serve(keep) if "serve" in phases else None
+        tlrec = (phase_tools(svrec and svrec["trace_path"])
+                 if "tools" in phases else None)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    skrec = phase_soak(args.soak_gbp) if "soak" in phases else None
     if srec is not None:
         say(json.dumps({"stream": srec, "card": smi}))
     if asrec is not None:
@@ -1753,6 +1928,10 @@ def main(argv=None) -> int:
         say(json.dumps({"shard": shrec, "card": smi}))
     if svrec is not None:
         say(json.dumps({"serve": svrec, "card": smi}))
+    if tlrec is not None:
+        say(json.dumps({"tools": tlrec, "card": smi}))
+    if skrec is not None:
+        say(json.dumps({"soak": skrec, "card": smi}))
     if kern:
         say(json.dumps({"kernels": kern}))
     say(smi)

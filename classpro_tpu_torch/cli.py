@@ -17,6 +17,8 @@ Subcommands mirror the JAX package's (and the reference tool family):
 * ``class2cns``  — k-mer/class dump or consensus consistency (class2cns.c)
 * ``show-seeds``, ``repdepanno`` — seed-track consumers of a classified
   DAZZ database (ShowSeeds.c, RepDepAnno.c)
+* ``debug-read`` — one read's oracle and production internals side by
+  side; exit 0 when they agree, 2 when they diverge
 * ``simulate``   — synthetic dataset generator
 """
 
@@ -60,7 +62,8 @@ def _check_classify_args(args) -> None:
 
 
 def _classify_db(args, stats: dict) -> str:
-    """DAZZ .db/.dam input: classify, write the .class file and the DAZZ
+    """DAZZ .db/.dam input: classify (on the device engine, or with
+    ``--engine exact`` on the oracle), write the .class file and the DAZZ
     .class/.rep tracks (ClassPro.c:289-304, io.c); returns the .class
     path."""
     import time
@@ -80,9 +83,20 @@ def _classify_db(args, stats: dict) -> str:
     gm = build_global_model(load_histogram(fk_root), coverage=args.coverage,
                             read_len=args.read_len, model_path=args.model)
     P = open_profiles(fk_root)
-    eng = TorchEngine(gm, threads=args.threads, verbose=args.verbose,
-                      device=args.device,
-                      devices=local_devices(args.devices, args.device))
+    if args.engine == "exact":
+        from classpro_tpu_torch.exact.pipeline import ReadClassifier
+
+        clf = ReadClassifier(gm)
+
+        def stream(chunks):
+            for seqs, profs in chunks:
+                yield [clf.classify(s, p) if len(p) else "N" * len(s)
+                       for s, p in zip(seqs, profs)]
+    else:
+        eng = TorchEngine(gm, threads=args.threads, verbose=args.verbose,
+                          device=args.device,
+                          devices=local_devices(args.devices, args.device))
+        stream = eng.classify_stream
     K = gm.kmer
     ctos = np.zeros(256, np.uint8)        # const.c stoc order E,R,H,D
     for code, ch in enumerate(b"ERHD"):
@@ -116,8 +130,7 @@ def _classify_db(args, stats: dict) -> str:
     t0 = time.time()
     try:
         with open(out, "w") as cf:
-            for (lo, hi), classes in zip(spans,
-                                         eng.classify_stream(chunk_iter())):
+            for (lo, hi), classes in zip(spans, stream(chunk_iter())):
                 seqs, profs = cache.pop(lo)
                 for j, i in enumerate(range(lo, hi)):
                     cf.write(f"{db.header(i)}\n{seqs[j]}\n+\n{classes[j]}\n")
@@ -135,7 +148,8 @@ def _classify_db(args, stats: dict) -> str:
         tw.close()
         rw.close()
         db.close()
-    stats.update(stream_wall_s=time.time() - t0, **eng.stats())
+    stats.update(stream_wall_s=time.time() - t0,
+                 **({} if args.engine == "exact" else eng.stats()))
     return out
 
 
@@ -332,6 +346,16 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return serve(args.socket, warmup_root=args.warmup_root,
                  warmup_shapes=shapes, verbose=args.verbose,
                  device=args.device)
+
+
+def cmd_debug_read(args: argparse.Namespace) -> int:
+    from classpro_tpu_torch.tools.debug_read import debug_read
+
+    same = debug_read(args.source, args.read_id,
+                      fastk_root=args.fastk_root, coverage=args.coverage,
+                      read_len=args.read_len, model_path=args.model,
+                      device=args.device)
+    return 0 if same else 2
 
 
 def cmd_classgs(args: argparse.Namespace) -> int:
@@ -560,6 +584,22 @@ def build_parser() -> argparse.ArgumentParser:
     rda.add_argument("fastk_root")
     rda.add_argument("db")
     rda.set_defaults(fn=cmd_repdepanno)
+
+    dr = sub.add_parser(
+        "debug-read",
+        help="single-read triage dump: oracle vs production internals "
+             "(the reference's compile-time DEBUG_SINGLE, ClassPro.h:11-13, "
+             "as a runtime command); exit 2 when they diverge")
+    dr.add_argument("source", help="reads (.fasta/.fastq[.gz])")
+    dr.add_argument("read_id", type=int)
+    dr.add_argument("-N", "--fastk-root")
+    dr.add_argument("-c", "--coverage", type=int, default=0)
+    dr.add_argument("-r", "--read-len", type=int, default=20000)
+    dr.add_argument("-M", "--model")
+    dr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the production half's device work runs "
+                         "(default cuda)")
+    dr.set_defaults(fn=cmd_debug_read)
 
     s = sub.add_parser("simulate", help="generate synthetic dataset")
     s.add_argument("outdir")

@@ -1,8 +1,9 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
 A fresh interpreter imports every module of classpro_tpu_torch (and
-chip_smoke.py) and must end with no ``jax*`` and no ``classpro_tpu`` /
-``classpro_tpu.*`` key in sys.modules.
+chip_smoke.py) and must end with no ``jax*``, no ``classpro_tpu`` /
+``classpro_tpu.*`` and no repo-root ``tools`` / ``tools.*`` key (those
+dev tools import the JAX package) in sys.modules.
 """
 import pathlib
 import subprocess
@@ -32,7 +33,7 @@ def test_port_imports_no_jax():
         + ["import chip_smoke",
            "bad = sorted(k for k in sys.modules if k == 'jax' or "
            "k.startswith(('jax.', 'jaxlib')) or k == 'classpro_tpu' or "
-           "k.startswith('classpro_tpu.'))",
+           "k.startswith(('classpro_tpu.', 'tools.')) or k == 'tools')",
            "print(bad)", "sys.exit(1 if bad else 0)"])
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=str(ROOT), timeout=300)
@@ -41,7 +42,7 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax_package():
     """No source of the port (nor chip_smoke.py) mentions an import of
-    jax or of classpro_tpu's modules."""
+    jax, of classpro_tpu's modules or of the repo-root tools."""
     srcs = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for p in srcs:
         for ln, line in enumerate(p.read_text().splitlines(), 1):
@@ -52,5 +53,5 @@ def test_port_sources_name_no_jax_package():
             names = words[1:2] if s.startswith("from ") else words[1:]
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib",
-                                               "classpro_tpu"), \
+                                               "classpro_tpu", "tools"), \
                     f"{p.name}:{ln}: {s}"
