@@ -6,22 +6,35 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
-2. build   - nvcc builds csrc/rel_dp.cu and csrc/unrel.cu for sm_90a
-             (printing -Xptxas -v) while g++ builds the C++ host library,
-             all three at once, from the checkout; rel_dp_kernel's and
-             unrel_kernel's registers, stack and spill bytes are parsed
-             from the log, and a stack or a spill fails the run.
+2. build   - nvcc builds csrc/rel_dp.cu, csrc/unrel.cu and csrc/glue.cu
+             (the four glue kernels) for sm_90a (printing -Xptxas -v)
+             while g++ builds the C++ host library, all four at once,
+             from the checkout; each entry function's registers, stack
+             and spill bytes (rel_dp_kernel, unrel_kernel,
+             rel_prep_main_kernel, rel_prep_alldev_kernel,
+             rel_rescue_kernel, rel_pack_kernel, rel_settle_kernel) are
+             parsed from the log, and a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
-             their natural (R, max_m) buckets) and a pack whose rows the
-             no-H rescue re-runs (branch/search9); then the whole per-chunk
-             stage (rel.rel_only) with the kernel against rel_only with the
-             plain DP.  Tolerance: asgn bit-equal on rows whose plain margin
-             is >= 1e-5, finite margins within 1e-9, the inf / 1e-30
-             margin patterns equal, rescue equal, risky equal except where
-             the margin lies within 1e-9 of 1e-5.  Times the kernel (CUDA
-             events; us per step of the longest row) and the plain version
-             at the medium shapes, with the launch geometry.
+             their natural (R, max_m) buckets), a pack whose rows the
+             no-H rescue re-runs (branch/search9) and the all-dead row
+             (branch/psum0); then the whole per-chunk stage (rel.rel_only:
+             the glue kernels and the DP kernel, five launches) against
+             rel_only with the plain versions.  Tolerance: asgn bit-equal
+             on rows whose plain margin is >= 1e-5, finite margins within
+             1e-9, the inf / 1e-30 margin patterns equal, rescue equal,
+             risky equal except where the margin lies within 1e-9 of
+             1e-5.  On the same packs the main-path glue kernels against
+             their plain versions on the kernel chain's own inputs, bit
+             for bit: rel_prep (rel.prep_ref), rel_rescue
+             (rel.rescue_rows), rel_pack (rel.pack_ref; a NaN margin's
+             bytes only NaN on both sides), and rel_pack on margins at
+             the f32 conversion's edges (inf, NaN, 0, -0, 1e-30, 1e-300,
+             the smallest double, 1e-5 and the double below it, 3.5e38).
+             Times the DP kernel (CUDA events; us per step of the longest
+             row) and each glue kernel (CUDA events around a CUDA graph
+             of 20 launches), with their plain versions and bounds, at
+             the medium shapes, with the launch geometry.
    k1profile, k5profile (only when named) - K1 (medium chunks) or K5
              (medium alldev chunks and the long-row chunk) built with its
              per-phase clocks against the production kernel bit for bit,
@@ -29,25 +42,47 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
              golden.class.gz; the launch counts are reset just before and
-             read just after, and the DP kernel's must be > 0.
-5. stream  - steady stream: --passes passes over medium through
+             read just after, and every kernel of the path (rel_prep,
+             rel_dp, rel_rescue, rel_pack) must have launched.
+5. stream  - steady stream over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
-             pipeline), every chunk checked against the golden; prints
-             k-mers/s, DP-kernel time per launch (CUDA events), launches
-             per chunk, guard_flagged and max_memory_allocated.
+             pipeline), every chunk checked against the golden: a warm-up
+             pass, then three runs (turns) of --passes passes.  Per turn:
+             k-mers/s, the main thread's seconds by stage (host_s,
+             enqueue_h2d_dp_d2h among them), rel_only's span on the card
+             per chunk and the glue's share of it (span less the DP
+             launches), the DP kernel's ms per launch (CUDA events), the
+             DP and glue kernels' launches per chunk (5 in all),
+             guard_flagged (must be 0) and max_memory_allocated.
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
              against its plain version (unrel_ref) on the card, asgn and
-             margins bit-equal, and the whole classify_batch with the
-             kernels against it with the plain versions, outputs and flags
-             equal; times each (every chunk kept).  Then one synthetic
-             long-row chunk (the tests' random_sweep_inputs, 256 rows of
-             up to 1100 intervals: the rows' state in the global scratch)
-             through the sweep kernel, bit-equal and timed.  Then
-             TorchEngine(alldev=True) over tiny
+             margins bit-equal; rel_prep in the all-device layout
+             (alldev.prep_ref) and rel_settle (alldev.settle_ref: the
+             sweeps' assignment rows and the margin gate) against their
+             plain versions, bit for bit; and the whole classify_batch
+             with the kernels against it with the plain versions,
+             outputs and flags equal; times each (every chunk kept).
+             Then one synthetic long-row chunk (the tests'
+             random_sweep_inputs, 256 rows of up to 1100 intervals: the
+             rows' state in the global scratch) through the sweep kernel,
+             bit-equal and timed.  Then TorchEngine(alldev=True) over tiny
              and medium writes the golden bytes (launch counts reset just
-             before and read after: both kernels > 0), and a timed alldev
-             stream of --alldev-passes passes over medium, 3 runs.
+             before and read after: every kernel of the path > 0), and the
+             alldev stream over medium (a warm-up pass, three turns of
+             --alldev-passes passes), with each kernel's launches per
+             chunk (six in all), the K4+K6 glue's card ms per chunk
+             (classify_batch's span less the DP and sweep kernels') and
+             where the main thread's time goes.
+   glue_ab (only when named) - both streams with the two compositions of
+             the per-chunk glue taken in turns (plain glue, kernels,
+             kernels, plain glue): the plain torch glue around the DP and
+             sweep kernels, as before the glue kernels, against the glue
+             kernels; then, in a process of its own (so that the serve
+             phase's --torch-profile stays the main process's only
+             profiler session), one torch.profiler pass over medium of
+             each composition of each stream: the kernel launch calls per
+             device chunk and the kernels' time on the card by name.
 7. shard   - the parallel layer (K8) and the rest of classify's surface:
              (a) psum_histogram in a NCCL world of one rank equals its
              input (medium's partial instance histogram), the all-reduce
@@ -98,9 +133,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              parity against the exact oracle (0 mismatches), the two-shard
              merge's byte equality and the served job's wall.
 
-It prints one {"kernels": [...]} line (each with its registers, stack and
-spill bytes, launch geometry and us per step), {"stream": {...}},
-{"alldev_stream": {...}}, {"shard": {...}} and {"serve": {...}} lines
+It prints one {"kernels": [...]} line (all six kernels: rel_dp,
+unrel_sweeps, rel_prep, rel_rescue, rel_pack, rel_settle, each with its
+registers, stack and spill bytes and launch geometry), {"stream": {...}},
+{"alldev_stream": {...}}, {"glue_ab": {...}} (when named),
+{"shard": {...}} and {"serve": {...}} lines
 (ready_s, each job's wall_s and k-mers/s, table_uploads, launches, the
 trace's busy share), {"tools": {...}} and {"soak": {...}} lines, the card's
 name and power limit, and, as
@@ -148,6 +185,31 @@ OPS_PER_UNREL_STEP = 360
 # f64 / int operations per DP-plane cell of the K4 glue (reversals,
 # log-factorial lookups, E emission, rescue predicate, pack)
 OPS_PER_K4_CELL = 30
+# operations of the glue kernels, read off glue_row.cuh: per plane cell
+# of rel_prep (the reversal index, two clamps, the E emission: 2 products,
+# 6 sums, a log, a max ~15), per interval cell of the all-device rel_prep
+# (3 logs, 4 Poisson terms of 3 each, 8 casts ~25), per D cell of
+# rel_rescue (length, half count, keyed min ~10; its other live cells
+# cost the two state tests of OPS_RESCUE_TEST), per cell of rel_pack (a
+# select ~2) and per live cell of rel_settle (its eleven passes over both
+# rows: ~40)
+OPS_PREP_CELL = 15
+OPS_PREP_UN_CELL = 25
+OPS_RESCUE_CELL = 10
+OPS_RESCUE_TEST = 2
+OPS_PACK_CELL = 2
+OPS_SETTLE_CELL = 40
+# each kernel's entry functions in its nvcc build log
+ENTRIES = {"rel_dp": ("rel_dp_kernel",), "unrel_sweeps": ("unrel_kernel",),
+           "rel_prep": ("rel_prep_main_kernel", "rel_prep_alldev_kernel"),
+           "rel_rescue": ("rel_rescue_kernel",),
+           "rel_pack": ("rel_pack_kernel",),
+           "rel_settle": ("rel_settle_kernel",)}
+GLUE = ("rel_prep", "rel_rescue", "rel_pack", "rel_settle")
+# the kernels each path launches
+MAIN_PATH = ("rel_prep", "rel_dp", "rel_rescue", "rel_pack")
+ALLDEV_PATH = ("rel_prep", "rel_dp", "rel_rescue", "rel_settle",
+               "unrel_sweeps")
 
 
 def fail(msg: str) -> None:
@@ -179,7 +241,10 @@ def phase_build():
 
     t0 = time.time()
     jobs = {"host": lambda: native.get_lib(force=True)}
-    for name in kernels.SOURCES:
+    libs: dict = {}                  # source -> the first kernel built of it
+    for name, (src, _) in kernels.SOURCES.items():
+        libs.setdefault(src, name)
+    for name in libs.values():
         jobs[name] = (lambda n=name: kernels.build("cuda", n, force=True))
     secs: dict = {}
     errs: dict = {}
@@ -198,21 +263,22 @@ def phase_build():
         th.join()
     for e in errs.values():
         raise e
-    for name in kernels.SOURCES:
+    for src, name in libs.items():
         for line in kernels.BUILD_LOG[(name, "cuda")].splitlines():
             if "ptxas" in line or "bytes stack frame" in line:
                 say(f"  {line.strip()}")
-        say(f"build: nvcc {kernels.SOURCES[name][0]} {secs[name]:.1f} s")
-    say(f"build: g++ host library {secs['host']:.1f} s (all three at once)")
+        say(f"build: nvcc {src} {secs[name]:.1f} s")
+    say(f"build: g++ host library {secs['host']:.1f} s (all {len(jobs)} at "
+        f"once)")
     out = {}
-    for name, entry in (("rel_dp", "rel_dp_kernel"),
-                        ("unrel_sweeps", "unrel_kernel")):
-        res = ptxas_resources(kernels.BUILD_LOG[(name, "cuda")], entry)
-        say(f"build: {entry} {json.dumps(res)}")
-        if res["stack_bytes"] or res["spill_store_bytes"] \
-                or res["spill_load_bytes"]:
-            fail(f"{entry} keeps a stack or spills: {res}")
-        out[name] = res
+    for name, entries in ENTRIES.items():
+        for entry in entries:
+            res = ptxas_resources(kernels.BUILD_LOG[(name, "cuda")], entry)
+            say(f"build: {entry} {json.dumps(res)}")
+            if res["stack_bytes"] or res["spill_store_bytes"] \
+                    or res["spill_load_bytes"]:
+                fail(f"{entry} keeps a stack or spills: {res}")
+            out[entry] = res
     return out
 
 
@@ -382,15 +448,210 @@ def _k4_bound(fb, ib, R: int, max_m: int) -> dict:
             else "operations", "bytes": nbytes}
 
 
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _diff(got, want) -> float:
+    """The largest |got - want| over the elements, as f64 (equal values,
+    infinities included, and NaN against NaN count 0)."""
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    d = torch.where((g == w) | (torch.isnan(g) & torch.isnan(w)), 0.0,
+                    (g - w).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _same(tag: str, what: str, got, want) -> float:
+    """Bit for bit (f64 compared as their bit patterns); returns the
+    largest difference (_diff), 0 when the run goes on."""
+    err = _diff(got, want)
+    if not torch.equal(_bits(got), _bits(want)):
+        fail(f"{tag}: {what} differs from its plain version (max |diff| "
+             f"{err!r})")
+    return err
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` moved once and ``ops`` operations."""
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = ops / PEAK_F64 * 1e3
+    return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o
+            else "operations", "bytes": nbytes, "ops": ops}
+
+
+def _check_pack(tag: str, args) -> float:
+    """rel_pack against pack_ref, every byte; a NaN margin's four bytes
+    only need to be NaN on both sides.  Returns the largest difference of
+    the assignment and flag bytes and of the f32 margins (_diff)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref
+
+    got, want = kernels.rel_pack(*args), pack_ref(*args)
+    M = args[0].shape[1]
+    mm = lambda t: t[:, M + 1:].contiguous().view(torch.float32)[:, 0]
+    err = max(_diff(got[:, :M + 1], want[:, :M + 1]),
+              _diff(mm(got), mm(want)))
+    nan = torch.isnan(mm(want))
+    if not torch.equal(torch.isnan(mm(got)), nan):
+        fail(f"{tag}: rel_pack's NaN margins differ from its plain version")
+    bad = ((got != want).any(1) & ~nan) | (got[:, :M + 1]
+                                           != want[:, :M + 1]).any(1)
+    if bool(bad.any()):
+        r = int(bad.nonzero()[0, 0])
+        fail(f"{tag}: rel_pack differs from its plain version on "
+             f"{int(bad.sum())} row(s); row {r}: margins "
+             f"{float(args[2][r])!r}, {float(args[3][r])!r}, rescue "
+             f"{bool(args[4][r])}: {got[r, M:].tolist()} against "
+             f"{want[r, M:].tolist()}")
+    return err
+
+
+def _glue_main(tag, fb_d, ib_d, P, R: int, max_m: int) -> dict:
+    """rel_prep, rel_rescue and rel_pack against their plain versions on
+    one main-path pack, bit for bit, each on the kernel chain's own inputs
+    (the DP kernel's passes); returns each kernel's arguments and, under
+    "err", each one's largest difference."""
+    from classpro_tpu_torch import kernels, rel
+
+    planes, cov = kernels.rel_prep(fb_d, ib_d, P, R, max_m)
+    p_r, c_r = rel.prep_ref(fb_d, ib_d, P, R, max_m)
+    err = {"rel_prep": max(_same(tag, f"rel_prep output {k}", a, b)
+                           for k, (a, b) in enumerate(
+                               zip(planes + (cov,), p_r + (c_r,))))}
+    asgn1, _, mm1 = kernels.rel_dp(*planes, cov, P)
+    rescue, cov2 = kernels.rel_rescue(planes, asgn1, P)
+    r_r, c2_r = rel.rescue_rows(planes, asgn1, P, max_m)
+    err["rel_rescue"] = max(_same(tag, "rel_rescue's rescue", rescue, r_r),
+                            _same(tag, "rel_rescue's cov2", cov2, c2_r))
+    asgn2, _, mm2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
+    err["rel_pack"] = _check_pack(tag, (asgn1, asgn2, mm1, mm2, rescue))
+    return {"rel_prep": (fb_d, ib_d, P, R, max_m),
+            "rel_rescue": (planes, asgn1, P),
+            "rel_pack": (asgn1, asgn2, mm1, mm2, rescue),
+            "rescued": int(rescue.sum()), "err": err}
+
+
+def _check_pack_specials() -> float:
+    """rel_pack on margins at the f32 conversion's edges (inf, -inf,
+    NaN, 0, -0, the smallest double, 1e-300, 1e-30, 1e-5 and the double
+    below it, 3.5e38), both passes, rescued or not."""
+    import math
+
+    dev = torch.device("cuda")
+    vals = [math.inf, -math.inf, math.nan, 0.0, -0.0, math.ulp(0.0),
+            1e-300, 1e-30, 1e-5, math.nextafter(1e-5, 0.0), 3.5e38, 0.25]
+    n = len(vals)
+    mm1 = torch.tensor([a for a in vals for _ in vals], dtype=torch.float64)
+    mm2 = torch.tensor([b for _ in vals for b in vals], dtype=torch.float64)
+    R2 = 2 * n * n
+    gen = torch.Generator().manual_seed(3)
+    args = (torch.randint(0, 4, (R2, 33), generator=gen).to(torch.int8),
+            torch.randint(0, 4, (R2, 33), generator=gen).to(torch.int8),
+            torch.cat([mm1, mm1]), torch.cat([mm2, mm2]),
+            torch.arange(R2) < n * n)
+    return _check_pack("margin edge cases", tuple(t.to(dev) for t in args))
+
+
+def _main_bounds(fb, ib, planes, cov, P, asgn1) -> dict:
+    """The main-path glue kernels' bounds on one pack: each input read
+    once (the log-factorial entries its counts select; of the planes,
+    what the warp kernels read: rel_rescue reads the first pass ``asgn1``
+    at the live cells and the four int64 planes at its D cells only),
+    each output written once, against their operations per cell (OPS_*
+    above)."""
+    R2, M = planes[0].shape
+    cells = R2 * M
+    inb = torch.arange(M, device=asgn1.device)[None, :] < planes[7][:, None]
+    live = int(inb.sum())
+    n_d = int(((asgn1 == 3) & inb).sum())
+    counts = torch.cat([planes[1], planes[3]]).clamp(0, 32767)
+    lf = int(torch.unique(counts).numel())
+    return {
+        "rel_prep": _bound(fb.nbytes + ib.nbytes + lf * 8 + 32
+                           + cells * 7 * 8 + R2 * (8 + 8 + 1 + 32),
+                           cells * OPS_PREP_CELL),
+        "rel_rescue": _bound(live + n_d * 4 * 8 + R2 * 8 + 32
+                             + R2 * (1 + 32),
+                             live * OPS_RESCUE_TEST + n_d * OPS_RESCUE_CELL),
+        "rel_pack": _bound(cells + R2 * (8 + 8 + 1) + R2 * (M + 5),
+                           cells * OPS_PACK_CELL)}
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` (launches only) on the card: ``reps`` calls
+    captured in one CUDA graph, CUDA events around its replays (the card
+    runs the launches back to back; a run of eager calls would time the
+    wrappers' Python, which takes longer than these kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = _time_cuda(g.replay, 5) / reps
+    del g
+    return ms
+
+
+def _time_glue(rec: dict, name: str, args, plain, bnd: dict) -> None:
+    """A glue kernel's ms per launch on the card (``_graph_ms``, 20
+    launches), its wrapper's ms per call (CUDA events around 20 eager
+    calls: what the host pays) and its plain version's ms per call (CUDA
+    events, 5 calls), with its bound, appended to rec[name]."""
+    from classpro_tpu_torch import kernels
+
+    wrapper = getattr(kernels, name)
+    r = rec.setdefault(name, {"ms": [], "call_ms": [], "plain_ms": [],
+                              "bound": []})
+    r["ms"].append(_graph_ms(lambda: wrapper(*args), 20))
+    r["call_ms"].append(_time_cuda(lambda: wrapper(*args), 20))
+    r["plain_ms"].append(_time_cuda(lambda: plain(*args), 5))
+    r["bound"].append(bnd)
+
+
+# the JAX function each glue kernel replaces (device_pipeline.py:
+# _rel_only_core, _rel_pipeline, _pack_out, _demotes_dev)
+GLUE_REPLACES = {"rel_prep": "classpro_tpu/tpu/device_pipeline.py:541",
+                 "rel_rescue": "classpro_tpu/tpu/device_pipeline.py:153",
+                 "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638",
+                 "rel_settle": "classpro_tpu/tpu/device_pipeline.py:257"}
+
+
+def _glue_entry(name: str, g: dict, launches: int, err: float,
+                brec) -> dict:
+    """A glue kernel's entry of the {"kernels": [...]} line: its medium
+    chunk timed last, its launches on its path, the largest difference
+    from its plain version over the packs it was held against, its build
+    resources (each entry function's, the first flattened) and launch
+    geometry."""
+    res = {e: (brec or {}).get(e, {}) for e in ENTRIES[name]}
+    return {"name": name, "route": "cuda",
+            "source": "classpro_tpu_torch/csrc/glue.cu",
+            "replaces": GLUE_REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": g["ms"][-1],
+            "plain_ms": g["plain_ms"][-1], "bound_ms": g["bound"][-1]["ms"],
+            "bound_by": g["bound"][-1]["by"], "library_ms": None,
+            "ms_per_chunk": g["ms"], "call_ms": g["call_ms"][-1],
+            "bound_bytes": g["bound"][-1]["bytes"],
+            **res[ENTRIES[name][0]], "resources": res, **g["geometry"]}
+
+
 def phase_kernel():
     from classpro_tpu_torch import kernels
+    from classpro_tpu_torch import rel as rel_mod
     from classpro_tpu_torch.engine import TorchEngine
     from classpro_tpu_torch.rel import rel_only, rel_planes, rescue_rows
     from classpro_tpu_torch.rel_ref import rel_dp_ref
 
     dev = torch.device("cuda")
-    rec = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": []}
-    for fx in ("medium", "branch/search9"):
+    rec = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
+           "glue": {}, "glue_err": {"rel_pack": _check_pack_specials()}}
+    say("kernel == plain: rel_pack on the margin edge cases, every byte")
+    plains = {"rel_prep": rel_mod.prep_ref,
+              "rel_rescue": lambda pl, a, P: rescue_rows(pl, a, P,
+                                                         a.shape[1]),
+              "rel_pack": rel_mod.pack_ref}
+    for fx in ("medium", "branch/search9", "branch/psum0"):
         gm, seqs, profs = _model(fx)
         eng = TorchEngine(gm, device=dev)
         packs = _packs(eng, seqs, profs)
@@ -412,9 +673,30 @@ def phase_kernel():
                                          P, active=rescue)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err2)
             n_res2 = _compare_rel_only(tag, fb_d, ib_d, P, R, max_m)
+            gargs = _glue_main(tag, fb_d, ib_d, P, R, max_m)
+            for name, e in gargs["err"].items():
+                rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0),
+                                            e)
             say(f"kernel == plain: {tag}: {n} rows ({n_ok} unflagged), "
-                f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}")
+                f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}; "
+                f"rel_prep, rel_rescue ({gargs['rescued']} rescued), "
+                f"rel_pack bit-equal")
             if fx == "medium":
+                bnds = _main_bounds(fb, ib, planes, cov, P,
+                                    gargs["rel_rescue"][1])
+                for name in ("rel_prep", "rel_rescue", "rel_pack"):
+                    _time_glue(rec["glue"], name, gargs[name], plains[name],
+                               bnds[name])
+                    g = rec["glue"][name]
+                    g["geometry"] = kernels.glue_geometry(
+                        name, 2 * R * max_m if name == "rel_prep" else 2 * R)
+                    say(f"  {name}: {g['ms'][-1]:.4f} ms per launch on the "
+                        f"card ({g['call_ms'][-1]:.4f} ms per wrapper call), "
+                        f"plain torch {g['plain_ms'][-1]:.3f} ms, bound "
+                        f"{g['bound'][-1]['ms']:.6f} ms "
+                        f"({g['bound'][-1]['by']}, "
+                        f"{g['bound'][-1]['bytes']} B), geometry "
+                        f"{json.dumps(g['geometry'])}")
                 ms = _time_cuda(lambda: kernels.rel_dp(*planes, cov, P), 20)
                 t0 = time.perf_counter()
                 rel_dp_ref(*planes, cov, P)
@@ -571,8 +853,9 @@ def phase_e2e():
                 f"{wall:.2f} s incl. set-up, guard_flagged "
                 f"{st['guard_flagged']})")
         launches = dict(kernels.LAUNCHES)
-        if launches["rel_dp"] <= 0:
-            fail("main path launched kernel rel_dp no time")
+        for k in MAIN_PATH:
+            if launches[k] <= 0:
+                fail(f"main path launched kernel {k} no time")
         say(f"e2e launches: {launches}")
         return launches
     finally:
@@ -626,22 +909,87 @@ def _launch_events(sink):
     return undo
 
 
-def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
-                 sort_window: int = 8):
-    """Steady stream: ``repeats`` timed runs of ``passes`` passes over
-    medium after one warm-up pass; the last run also records the DP
-    kernel's device time (CUDA events around each launch) and where the
-    main thread's time goes."""
+def _profiled_launches(run, eng) -> dict:
+    """Kernel launch calls per device chunk over one profiled pass
+    (torch.profiler, CPU + CUDA; the cudaLaunchKernel events of its
+    Chrome trace inside the pass's marked window), and the kernel events
+    by name with their time on the card.  The window opens with spin
+    kernels and a pause: kernels launched just after the profiler starts
+    may be missing from the trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from classpro_tpu_torch.devtools.profile_summary import load_events
+
+    c0 = eng.chunks_done
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.cuda._sleep(100000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        with record_function("chip_smoke_pass"):
+            run(1)
+    chunks = max(eng.chunks_done - c0, 1)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        evs = load_events(path)
+    finally:
+        os.remove(path)
+    mark = [e for e in evs if e.get("name") == "chip_smoke_pass"
+            and e.get("cat") == "user_annotation"]     # not the card's copy
+    if len(mark) != 1:
+        fail(f"the profiled pass's window is marked {len(mark)} times")
+    lo = float(mark[0]["ts"])
+    hi = lo + float(mark[0]["dur"])
+    calls = [e for e in evs if e.get("cat") == "cuda_runtime"
+             and "LaunchKernel" in e.get("name", "")
+             and lo <= float(e["ts"]) <= hi]
+    kern = [e for e in evs if e.get("cat") == "kernel"
+            and "spin_kernel" not in e.get("name", "")]
+    if not calls:
+        fail("the profiled pass holds no kernel launch call")
+    by = {}
+    for e in kern:
+        k = e["name"].split("(")[0][:60]
+        n, us = by.get(k, (0, 0.0))
+        by[k] = (n + 1, us + float(e["dur"]))
+    return {"chunks": chunks, "launch_calls_per_chunk": len(calls) / chunks,
+            "kernels_per_chunk": len(kern) / chunks,
+            "kernel_us_per_chunk": sum(us for _, us in by.values())
+            / chunks,
+            "by_kernel": {k: {"count": n, "us": us}
+                          for k, (n, us) in sorted(by.items())}}
+
+
+def _medium_stream(alldev: bool, batch_size: int = 200,
+                   sort_window: int = 8):
+    """The steady stream over medium on one path (main, or alldev) and
+    its two compositions of the glue: a namespace of the engine, ``run(n)``
+    (n passes, every chunk checked against the golden; returns seconds),
+    k-mers and reads per pass, ``comps`` ("plain_glue": the plain torch
+    glue around the DP and sweep kernels, the composition before the glue
+    kernels; "kernels": the glue kernels) and ``install(fn)``, which puts
+    fn in place of the path's rel_only / classify_batch and returns the
+    undo."""
+    import functools
+    import types
+
+    from classpro_tpu_torch import alldev as alldev_mod
     from classpro_tpu_torch import engine as engine_mod
     from classpro_tpu_torch import kernels
 
     gm, seqs, profs = _model("medium")
     gold = golden_classes("medium")
-    kmers_pass = sum(len(c) - c.count("N") for c in gold[:len(seqs)])
-    eng = engine_mod.TorchEngine(gm, batch_size=batch_size,
-                                 device="cuda")
+    eng = engine_mod.TorchEngine(gm, batch_size=batch_size, device=DEV,
+                                 alldev=alldev)
     B = 200                                  # input chunks, as the CLI
     spans = [(lo, min(lo + B, len(seqs))) for lo in range(0, len(seqs), B)]
+    mod, attr = ((alldev_mod, "classify_batch") if alldev
+                 else (engine_mod, "rel_only"))
+    orig = getattr(mod, attr)
+    plain = ("cuda", "cuda") if alldev else kernels.rel_dp
 
     def run(n):
         chunks = ((seqs[lo:hi], profs[lo:hi])
@@ -651,70 +999,192 @@ def phase_stream(passes: int, repeats: int = 3, batch_size: int = 200,
                 chunks, sort_window=sort_window)):
             lo, hi = spans[k % len(spans)]
             if res != gold[lo:hi]:
-                fail(f"stream chunk {k} differs from the golden")
+                fail(f"{'alldev ' if alldev else ''}stream chunk {k} "
+                     f"differs from the golden")
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run(1)                                   # warm-up pass
-    rates = [passes * kmers_pass / run(passes) for _ in range(repeats - 1)]
+    def install(fn):
+        setattr(mod, attr, fn)
+        return lambda: setattr(mod, attr, orig)
 
-    # the recorded run: DP events per launch kind, host time by stage
-    events: dict = {"main": [], "rescue": []}
-    acc: dict = {}
-    undo = [_clock(eng, n, acc) for n in ("_stage", "_pack_st", "_submit",
-                                          "_finish", "_exact_guard")]
-    undo += [_clock(eng.wall, "finish_batch", acc)]
-    undo += [_clock(engine_mod, n, acc)
-             for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
-    torch.cuda.reset_peak_memory_stats()
-    l0 = kernels.LAUNCHES["rel_dp"]
-    g0, c0 = eng.guard_flagged, eng.chunks_done
-    undo.append(_launch_events(
-        lambda name, args: events["main" if args[_ACTIVE_ARG] is None
+    return types.SimpleNamespace(
+        eng=eng, run=run, install=install, reads=len(seqs),
+        kmers_pass=sum(len(c) - c.count("N") for c in gold[:len(seqs)]),
+        comps={"plain_glue": functools.partial(orig, impl=plain),
+               "kernels": orig})
+
+
+def _warm(S, comps) -> None:
+    """One pass of each of ``comps``."""
+    for comp in comps:
+        undo = S.install(S.comps[comp])
+        try:
+            S.run(1)
+        finally:
+            undo()
+
+
+def phase_profiled() -> dict:
+    """One profiled pass of each composition of each stream (only when
+    named; the glue_ab phase runs it as a process of its own, so that its
+    profiler sessions leave the serve phase's `--torch-profile` session
+    the only one in the main process)."""
+    out = {}
+    for path, alldev in (("stream", False), ("alldev_stream", True)):
+        S = _medium_stream(alldev)
+        _warm(S, S.comps)
+        out[path] = {}
+        for comp in S.comps:
+            undo = S.install(S.comps[comp])
+            try:
+                out[path][comp] = _profiled_launches(S.run, S.eng)
+            finally:
+                undo()
+    return out
+
+
+def _profiled_process() -> dict:
+    """phase_profiled in a process of its own (the kernels and the host
+    library this run built are loaded, not rebuilt)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phases", "profiled"], cwd=HERE,
+                       capture_output=True, text=True, timeout=900)
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith('{"profiled":')]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"the profiled passes' process failed (rc {r.returncode}): "
+             f"{r.stderr[-2000:]}")
+    prof = recs[0]["profiled"]
+    for path, comps in prof.items():
+        for comp, p in comps.items():
+            say(f"{path} {comp}: {p['launch_calls_per_chunk']:.1f} launch "
+                f"calls per device chunk ({p['chunks']} chunks profiled); "
+                f"{p['kernels_per_chunk']:.1f} kernel events, "
+                f"{p['kernel_us_per_chunk']:.1f} us on the card: "
+                + json.dumps(p["by_kernel"]))
+    return prof
+
+
+def _spanned(fn, sink: list):
+    """fn with CUDA events recorded on the current stream just before and
+    after each call; the pairs go to ``sink``."""
+    def g(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        sink.append((e0, e1))
+        return out
+    return g
+
+
+# the streams' turns: by default three runs of the path as it ships (the
+# glue kernels); the glue_ab phase takes the two compositions of the
+# per-chunk glue in turns, the plain torch glue around the DP (and sweep)
+# kernels, as before the glue kernels, and the glue kernels
+TURNS = ("kernels",) * 3
+AB_TURNS = ("plain_glue", "kernels", "kernels", "plain_glue")
+
+
+def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
+                 turns=TURNS):
+    """Steady stream over medium in the compositions of rel_only
+    (``_medium_stream``) that ``turns`` names, in that order.  After a
+    warm-up pass of each, each turn is a run of ``passes`` passes that
+    records the DP launches' card time (CUDA events around them), every
+    kernel's launches, rel_only's span on the card and where the main
+    thread's time goes."""
+    from classpro_tpu_torch import engine as engine_mod
+
+    S = _medium_stream(False, batch_size, sort_window)
+    eng = S.eng
+
+    def turn(comp):
+        ev: dict = {"main": [], "rescue": [], "rel_only": []}
+        ev.update({g: [] for g in GLUE})
+        acc: dict = {}
+        undo = [S.install(_spanned(S.comps[comp], ev["rel_only"]))]
+        undo += [_clock(eng, n, acc) for n in ("_stage", "_pack_st",
+                                               "_submit", "_finish",
+                                               "_exact_guard")]
+        undo += [_clock(eng.wall, "finish_batch", acc)]
+        undo += [_clock(engine_mod, n, acc)
+                 for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
+        undo.append(_launch_events(
+            lambda name, args: ev[name if name != "rel_dp" else
+                                  "main" if args[_ACTIVE_ARG] is None
                                   else "rescue"]))
-    try:
-        wall = run(passes)
-    finally:
-        for u in undo:
-            u()
-    rates.append(passes * kmers_pass / wall)
-    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
-    dp_ms = sum(ms["main"]) + sum(ms["rescue"])
-    launches = kernels.LAUNCHES["rel_dp"] - l0
-    chunks = eng.chunks_done - c0
-    host = {
-        "wall_stage_cpp": acc["_stage"], "pack_rel_cpp": acc["_pack_st"],
-        "enqueue_h2d_dp_d2h": acc["_submit"] - acc["_stage"]
-        - acc["_pack_st"],
-        "wait_device": acc["_finish"] - acc["unpack_out"]
-        - acc["demote_host"] - acc["reconcile_fwbw"] - acc["_exact_guard"]
-        - acc["finish_batch"],
-        "demote_reconcile_guard": acc["unpack_out"] + acc["demote_host"]
-        + acc["reconcile_fwbw"] + acc["_exact_guard"],
-        "finish_batch_cpp": acc["finish_batch"],
-        "other": wall - acc["_submit"] - acc["_finish"]}
-    res = {
-        "batch_size": batch_size, "sort_window": sort_window,
-        "passes": passes, "reads": passes * len(seqs),
-        "kmers": passes * kmers_pass, "kmers_per_s_runs": rates,
-        "kmers_per_s": statistics.median(rates), "wall_s": wall,
-        "device_chunks": chunks, "dp_launches": launches,
-        "launches_per_device_chunk": launches / max(chunks, 1),
-        "dp_ms_per_launch": dp_ms / max(launches, 1),
-        "dp_ms_per_main_launch": sum(ms["main"]) / max(len(ms["main"]), 1),
-        "dp_ms_per_rescue_launch":
-            sum(ms["rescue"]) / max(len(ms["rescue"]), 1),
-        "dp_busy_share": dp_ms / 1e3 / wall,
-        "host_s": host,
-        "guard_flagged": eng.guard_flagged - g0,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-    }
-    say(f"stream: {res['kmers_per_s'] / 1e6:.2f} M k-mers/s (median of "
-        f"{repeats} runs of {passes} passes of medium, {res['reads']} "
-        f"reads each), DP kernel {res['dp_ms_per_main_launch']:.3f} ms per "
-        f"main launch + {res['dp_ms_per_rescue_launch']:.3f} ms per rescue "
-        f"launch, {res['launches_per_device_chunk']:.2f} launches/chunk, "
-        f"guard_flagged {res['guard_flagged']}")
+        torch.cuda.reset_peak_memory_stats()
+        g0, c0 = eng.guard_flagged, eng.chunks_done
+        try:
+            wall = S.run(passes)
+        finally:
+            for u in undo:
+                u()
+        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
+        chunks = max(eng.chunks_done - c0, 1)
+        dp_ms = sum(ms["main"]) + sum(ms["rescue"])
+        host = {
+            "wall_stage_cpp": acc["_stage"], "pack_rel_cpp": acc["_pack_st"],
+            "enqueue_h2d_dp_d2h": acc["_submit"] - acc["_stage"]
+            - acc["_pack_st"],
+            "wait_device": acc["_finish"] - acc["unpack_out"]
+            - acc["demote_host"] - acc["reconcile_fwbw"]
+            - acc["_exact_guard"] - acc["finish_batch"],
+            "demote_reconcile_guard": acc["unpack_out"] + acc["demote_host"]
+            + acc["reconcile_fwbw"] + acc["_exact_guard"],
+            "finish_batch_cpp": acc["finish_batch"],
+            "other": wall - acc["_submit"] - acc["_finish"]}
+        return {
+            "composition": comp,
+            "kmers_per_s": passes * S.kmers_pass / wall,
+            "wall_s": wall, "device_chunks": chunks,
+            "dp_launches_per_chunk": (len(ms["main"]) + len(ms["rescue"]))
+            / chunks,
+            "glue_launches_per_chunk": sum(len(ms[g]) for g in GLUE)
+            / chunks,
+            "dp_ms_per_main_launch": sum(ms["main"])
+            / max(len(ms["main"]), 1),
+            "dp_ms_per_rescue_launch": sum(ms["rescue"])
+            / max(len(ms["rescue"]), 1),
+            "rel_only_ms_per_chunk": sum(ms["rel_only"]) / chunks,
+            "glue_ms_per_chunk": (sum(ms["rel_only"]) - dp_ms) / chunks,
+            "dp_busy_share": dp_ms / 1e3 / wall,
+            "enqueue_ms_per_chunk": host["enqueue_h2d_dp_d2h"] * 1e3
+            / chunks,
+            "host_s": host, "guard_flagged": eng.guard_flagged - g0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    comps = tuple(dict.fromkeys(turns))
+    _warm(S, comps)
+    runs = [turn(c) for c in turns]
+    res = {"batch_size": batch_size, "sort_window": sort_window,
+           "passes": passes, "reads": passes * S.reads,
+           "kmers": passes * S.kmers_pass, "turns": runs}
+    for comp in comps:
+        mine = [t for t in runs if t["composition"] == comp]
+        res[comp] = {k: [t[k] for t in mine] for k in (
+            "kmers_per_s", "rel_only_ms_per_chunk", "glue_ms_per_chunk",
+            "enqueue_ms_per_chunk", "dp_ms_per_main_launch")}
+        res[comp]["enqueue_h2d_dp_d2h_s"] = [
+            t["host_s"]["enqueue_h2d_dp_d2h"] for t in mine]
+    for t in runs:
+        if t["guard_flagged"]:
+            fail(f"stream ({t['composition']}): guard_flagged "
+                 f"{t['guard_flagged']} on medium")
+        say(f"stream {t['composition']}: {t['kmers_per_s'] / 1e6:.2f} M "
+            f"k-mers/s ({passes} passes of medium, {res['reads']} reads), "
+            f"rel_only {t['rel_only_ms_per_chunk']:.3f} ms/chunk on the "
+            f"card (glue {t['glue_ms_per_chunk']:.3f}), DP kernel "
+            f"{t['dp_ms_per_main_launch']:.3f} ms per main launch + "
+            f"{t['dp_ms_per_rescue_launch']:.3f} per rescue launch, "
+            f"{t['dp_launches_per_chunk']:.2f} DP + "
+            f"{t['glue_launches_per_chunk']:.2f} glue launches/chunk, "
+            f"enqueue {t['enqueue_ms_per_chunk']:.3f} ms/chunk; main "
+            f"thread s: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in t["host_s"].items()))
     return res
 
 
@@ -883,13 +1353,63 @@ def _alldev_chunks():
                "args": _k6(U, asgn8, rescue, PP.rel, dims)}
 
 
-def phase_alldev():
-    """Sweep kernel vs plain and classify_batch kernels vs plain on every
-    medium chunk, and the sweep kernel on a long-row chunk, with times and
-    bounds; returns the record."""
+def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
+    """rel_prep (all-device layout) and rel_settle against their plain
+    versions on one chunk, bit for bit, rel_settle on the kernel chain's
+    own DP passes; returns each kernel's arguments, bounds and, under
+    "err", largest difference."""
     from classpro_tpu_torch import alldev, kernels
 
-    rec = {"max_abs_err": 0.0, "chunks": []}
+    Bn, max_n, R2, max_m = dims
+    R = R2 // 2
+    planes, cov, un = kernels.rel_prep(fb_d, ib_d, P, R, max_m, (Bn, max_n))
+    p_r, c_r, un_r = alldev.prep_ref(fb_d, ib_d, P, R, max_m, Bn, max_n)
+    err = {"rel_prep": max(
+        [_same(tag, f"rel_prep (alldev) output {k}", a, b)
+         for k, (a, b) in enumerate(zip(planes + (cov,), p_r + (c_r,)))]
+        + [_same(tag, f"rel_prep (alldev) {k}", un[k], un_r[k])
+           for k in un])}
+    asgn1, _, mm1 = kernels.rel_dp(*planes, cov, P)
+    rescue, cov2 = kernels.rel_rescue(planes, asgn1, P)
+    asgn2, _, mm2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
+    V = kernels.blob_views(fb_d, ib_d, *dims)
+    sargs = (asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],
+             V["rel_cols"], P)
+    got = (un["asgn"].clone(), un["gate"].clone())
+    want = (un["asgn"].clone(), un["gate"].clone())
+    kernels.rel_settle(*sargs, *got)
+    alldev.settle_ref(*sargs, *want)
+    err["rel_settle"] = max(
+        _same(tag, "rel_settle's sweep assignments", got[0], want[0]),
+        _same(tag, "rel_settle's margin gate", got[1], want[1]))
+    live = int(planes[7].sum())
+    UN, cells = Bn * max_n, R2 * max_m
+    return {
+        "rel_prep": (fb_d, ib_d, P, R, max_m, (Bn, max_n)),
+        "rel_settle": sargs + got,
+        "flagged": int(torch.isinf(got[1][0]).sum()), "err": err,
+        "bounds": {
+            "rel_prep": _bound(
+                5 * cells * 4 + 3 * R2 * 4 + 2 * cells * 8 + 8 * UN * 4
+                + 5 * UN * 8 + 32 + cells * 6 * 8 + R2 * (8 + 8 + 1 + 32)
+                + UN * (13 * 8 + 6 * 8 + 2 + 4) + 2 * Bn * 8,
+                cells * OPS_PREP_CELL + UN * OPS_PREP_UN_CELL),
+            "rel_settle": _bound(
+                live * (1 + 4 * 8) + live // 2 * (4 + 4)
+                + R2 * (8 + 8 + 1 + 8 + 1) + R * 4 + 32,
+                live * OPS_SETTLE_CELL)}}
+
+
+def phase_alldev():
+    """Sweep kernel vs plain, the all-device glue kernels vs plain and
+    classify_batch kernels vs plain on every medium chunk, and the sweep
+    kernel on a long-row chunk, with times and bounds; returns the
+    record."""
+    from classpro_tpu_torch import alldev, kernels
+
+    rec = {"max_abs_err": 0.0, "chunks": [], "glue": {}, "glue_err": {}}
+    plains = {"rel_prep": lambda fb, ib, P, R, M, ad: alldev.prep_ref(
+        fb, ib, P, R, M, *ad), "rel_settle": alldev.settle_ref}
     for k, c in enumerate(_alldev_chunks()):
         PP, fb, ib, fb_d, ib_d, dims = (c[x] for x in ("PP", "fb", "ib",
                                                        "fb_d", "ib_d",
@@ -910,9 +1430,25 @@ def phase_alldev():
             fail(f"{tag}: classify_batch with the kernels differs from "
                  f"the plain versions")
         changed = int((a_r.to(torch.int32) != args[1]).sum())
+        gargs = _glue_alldev(tag, fb_d, ib_d, PP.rel, dims)
+        for name, e in gargs["err"].items():
+            rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0), e)
         say(f"kernel == plain: {tag}: sweeps bit-equal on {Bn} rows "
-            f"({changed} intervals decided by the sweeps), classify_batch "
-            f"equal ({int(f_k.sum())} flagged)")
+            f"({changed} intervals decided by the sweeps), rel_prep and "
+            f"rel_settle bit-equal ({gargs['flagged']} reads with a risky "
+            f"rel margin), classify_batch equal ({int(f_k.sum())} flagged)")
+        for name in ("rel_prep", "rel_settle"):
+            _time_glue(rec["glue"], name, gargs[name], plains[name],
+                       gargs["bounds"][name])
+            g = rec["glue"][name]
+            g["geometry"] = kernels.glue_geometry(
+                name, R2 * max_m + Bn * max_n if name == "rel_prep"
+                else R2 // 2)
+            say(f"  {name}: {g['ms'][-1]:.4f} ms per launch on the card "
+                f"({g['call_ms'][-1]:.4f} ms per wrapper call), plain torch "
+                f"{g['plain_ms'][-1]:.3f} ms, bound "
+                f"{g['bound'][-1]['ms']:.6f} ms ({g['bound'][-1]['by']}, "
+                f"{g['bound'][-1]['bytes']} B)")
         sw = _time_sweeps(args, PP.unrel, max_n, plain)
         bnd = sw["bound"]
         k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
@@ -996,61 +1532,42 @@ def phase_alldev_e2e():
             f"{time.time() - t0:.2f} s incl. set-up, guard_flagged "
             f"{eng.guard_flagged})")
     launches = dict(kernels.LAUNCHES)
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ALLDEV_PATH:
+        if launches[k] <= 0:
             fail(f"alldev path launched kernel {k} no time")
     say(f"alldev e2e launches: {launches}")
     return launches
 
 
-def phase_alldev_stream(passes: int, repeats: int = 3):
-    """The alldev stream over medium: per run, k-mers/s, the sweep
-    kernel's ms per launch (CUDA events), launches per chunk, the K4 + K6
-    glue's device ms per chunk (classify_batch's span less its kernels')
-    and max_memory_allocated."""
-    from classpro_tpu_torch import alldev, kernels
+def phase_alldev_stream(passes: int, turns=TURNS):
+    """The alldev stream over medium in the compositions of
+    classify_batch (``_medium_stream``) that ``turns`` names, in that
+    order.  Per turn: k-mers/s, the DP and sweep kernels' ms per launch (CUDA
+    events), launches per chunk, the glue's card ms per chunk
+    (classify_batch's span less the DP and sweep kernels'), where the
+    main thread's time goes and max_memory_allocated."""
     from classpro_tpu_torch import engine as engine_mod
+    from classpro_tpu_torch import kernels
 
-    gm, seqs, profs = _model("medium")
-    gold = golden_classes("medium")
-    kmers_pass = sum(len(c) - c.count("N") for c in gold[:len(seqs)])
-    eng = engine_mod.TorchEngine(gm, device=DEV, alldev=True)
-    spans = [(lo, min(lo + 200, len(seqs))) for lo in range(0, len(seqs), 200)]
+    S = _medium_stream(True)
+    eng = S.eng
 
-    def run(n):
-        chunks = ((seqs[lo:hi], profs[lo:hi])
-                  for _ in range(n) for lo, hi in spans)
-        t0 = time.perf_counter()
-        for k, res in enumerate(eng.classify_stream(chunks, sort_window=8)):
-            lo, hi = spans[k % len(spans)]
-            if res != gold[lo:hi]:
-                fail(f"alldev stream chunk {k} differs from the golden")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    def timed(fn, acc, host=None):
+    def timed(fn, acc, host):
         def g(*a, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
             t = time.perf_counter()
-            e0.record()
-            out = fn(*a, **kw)
-            e1.record()
-            if host is not None:
+            try:
+                return fn(*a, **kw)
+            finally:
                 host["classify_batch"] = host.get("classify_batch", 0.0) \
                     + time.perf_counter() - t
-            acc.append((e0, e1))
-            return out
-        return g
+        return _spanned(g, acc)
 
-    run(1)                                   # warm-up pass
-    runs = []
-    for _ in range(repeats):
-        ev: dict = {"rel_dp": [], "unrel_sweeps": [], "classify_batch": []}
-        orig = alldev.classify_batch
+    def turn(comp):
+        ev: dict = {name: [] for name in kernels.LAUNCHES}
+        ev["classify_batch"] = []
         acc: dict = {}
-        alldev.classify_batch = timed(orig, ev["classify_batch"], acc)
-        undo = [_launch_events(lambda name, args: ev[name])]
+        undo = [S.install(timed(S.comps[comp], ev["classify_batch"], acc))]
+        undo.append(_launch_events(lambda name, args: ev[name]))
         undo += [_clock(eng, n, acc) for n in ("_stage", "_submit", "_finish",
                                                "_exact_full")]
         undo += [_clock(engine_mod, n, acc)
@@ -1058,9 +1575,8 @@ def phase_alldev_stream(passes: int, repeats: int = 3):
         torch.cuda.reset_peak_memory_stats()
         c0, g0 = eng.chunks_done, eng.guard_flagged
         try:
-            wall = run(passes)
+            wall = S.run(passes)
         finally:
-            alldev.classify_batch = orig
             for u in undo:
                 u()
         a = lambda k: acc.get(k, 0.0)
@@ -1075,39 +1591,53 @@ def phase_alldev_stream(passes: int, repeats: int = 3):
                 "exact_guard": a("_exact_full"),
                 "other": wall - a("_submit") - a("_finish")}
         ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
-        chunks = len(ms["classify_batch"])
+        chunks = max(len(ms["classify_batch"]), 1)
         glue = (sum(ms["classify_batch"]) - sum(ms["rel_dp"])
                 - sum(ms["unrel_sweeps"]))
-        r = {"kmers_per_s": passes * kmers_pass / wall, "wall_s": wall,
-             "device_chunks": chunks, "engine_chunks": eng.chunks_done - c0,
-             "unrel_ms_per_launch": sum(ms["unrel_sweeps"])
-             / max(len(ms["unrel_sweeps"]), 1),
-             "unrel_launches_per_chunk": len(ms["unrel_sweeps"])
-             / max(chunks, 1),
-             "rel_dp_ms_per_launch": sum(ms["rel_dp"])
-             / max(len(ms["rel_dp"]), 1),
-             "rel_dp_launches_per_chunk": len(ms["rel_dp"]) / max(chunks, 1),
-             "glue_k4_k6_ms_per_chunk": glue / max(chunks, 1),
-             "classify_batch_ms_per_chunk": sum(ms["classify_batch"])
-             / max(chunks, 1),
-             "device_busy_share": sum(ms["classify_batch"]) / 1e3 / wall,
-             "guard_flagged": eng.guard_flagged - g0,
-             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-             "host_s": host}
-        runs.append(r)
-        say(f"alldev stream run {len(runs)}: {r['kmers_per_s'] / 1e6:.2f} M "
-            f"k-mers/s ({passes} passes of medium), sweep kernel "
-            f"{r['unrel_ms_per_launch']:.3f} ms per launch, "
-            f"{r['unrel_launches_per_chunk']:.2f} launches/chunk, DP kernel "
-            f"{r['rel_dp_ms_per_launch']:.3f} ms x "
-            f"{r['rel_dp_launches_per_chunk']:.2f}/chunk, K4+K6 glue "
-            f"{r['glue_k4_k6_ms_per_chunk']:.3f} ms/chunk, classify_batch "
-            f"{r['classify_batch_ms_per_chunk']:.3f} ms/chunk, "
-            f"guard_flagged {r['guard_flagged']}, max_memory_allocated "
-            f"{r['max_memory_allocated']}; main thread s: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    return {"passes": passes, "runs": runs,
-            "kmers_per_s": statistics.median(r["kmers_per_s"] for r in runs)}
+        per = lambda k: sum(ms[k]) / max(len(ms[k]), 1)
+        return {"composition": comp,
+                "kmers_per_s": passes * S.kmers_pass / wall, "wall_s": wall,
+                "device_chunks": len(ms["classify_batch"]),
+                "engine_chunks": eng.chunks_done - c0,
+                "unrel_ms_per_launch": per("unrel_sweeps"),
+                "rel_dp_ms_per_launch": per("rel_dp"),
+                "launches_per_chunk": {
+                    k: len(ms[k]) / chunks for k in kernels.LAUNCHES},
+                "glue_k4_k6_ms_per_chunk": glue / chunks,
+                "classify_batch_ms_per_chunk": sum(ms["classify_batch"])
+                / chunks,
+                "classify_batch_enqueue_ms_per_chunk":
+                    host["classify_batch_enqueue"] * 1e3 / chunks,
+                "device_busy_share": sum(ms["classify_batch"]) / 1e3 / wall,
+                "guard_flagged": eng.guard_flagged - g0,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "host_s": host}
+
+    comps = tuple(dict.fromkeys(turns))
+    _warm(S, comps)
+    runs = [turn(c) for c in turns]
+    for r in runs:
+        if r["guard_flagged"]:
+            fail(f"alldev stream ({r['composition']}): guard_flagged "
+                 f"{r['guard_flagged']} on medium")
+        say(f"alldev stream {r['composition']}: "
+            f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s ({passes} passes of "
+            f"medium), sweep kernel {r['unrel_ms_per_launch']:.3f} ms per "
+            f"launch, DP kernel {r['rel_dp_ms_per_launch']:.3f} ms, K4+K6 "
+            f"glue {r['glue_k4_k6_ms_per_chunk']:.3f} ms/chunk, "
+            f"classify_batch {r['classify_batch_ms_per_chunk']:.3f} ms/chunk "
+            f"(enqueue {r['classify_batch_enqueue_ms_per_chunk']:.3f} ms), "
+            f"launches/chunk {json.dumps(r['launches_per_chunk'])}, "
+            f"max_memory_allocated {r['max_memory_allocated']}; main thread "
+            f"s: " + ", ".join(f"{k} {v:.3f}" for k, v in r["host_s"].items()))
+    res = {"passes": passes, "runs": runs}
+    for comp in comps:
+        mine = [r for r in runs if r["composition"] == comp]
+        res[comp] = {k: [r[k] for r in mine] for k in (
+            "kmers_per_s", "glue_k4_k6_ms_per_chunk",
+            "classify_batch_ms_per_chunk",
+            "classify_batch_enqueue_ms_per_chunk")}
+    return res
 
 
 # --------------------------------------------------------------------- 7
@@ -1223,8 +1753,8 @@ def _driver(rec: dict, tmp: str) -> None:
         if _read(out) != _gold_bytes(fx):
             fail(f"driver nproc=1 {fx}: .class differs from the golden")
     launches = dict(kernels.LAUNCHES)
-    if launches["rel_dp"] <= 0:
-        fail("driver path launched kernel rel_dp no time")
+    if any(launches[k] <= 0 for k in MAIN_PATH):
+        fail(f"driver path launched a kernel no time: {launches}")
 
     def four(fx, out, resume=False):
         s, fk = src(fx)
@@ -1329,7 +1859,7 @@ def _sharded(rec: dict, devices: list) -> None:
         runs.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(runs)
     launches = dict(kernels.LAUNCHES)
-    if launches["rel_dp"] <= 0 or launches["unrel_sweeps"] <= 0:
+    if any(launches[k] <= 0 for k in ALLDEV_PATH):
         fail(f"sharded_classify launches {launches}: a kernel ran no time")
     checked = 0
     for d, (g, (fb, ib, _, meta)) in enumerate(zip(groups, packs)):
@@ -1382,7 +1912,7 @@ def _round_robin(rec: dict, devices: list) -> None:
         tag = "alldev" if alldev else "main"
         if got != gold[:len(seqs)]:
             fail(f"round robin ({tag}) over {devices} differs from golden")
-        need = ("rel_dp", "unrel_sweeps") if alldev else ("rel_dp",)
+        need = ALLDEV_PATH if alldev else MAIN_PATH
         if any(launches[k] <= 0 for k in need):
             fail(f"round robin ({tag}) launches {launches}")
         out[tag] = {"s": wall, "launches": launches,
@@ -1543,7 +2073,8 @@ def phase_serve(keep: str) -> dict:
         rec["ready_s"] = time.perf_counter() - t0
         st0 = request(sock, {"cmd": "stats"}, timeout=30)
         rec["warmup_launches"] = st0["launches"]
-        if st0["launches"]["rel_dp"] != len(st0["warm_shapes"]):
+        if any(st0["launches"][k] != len(st0["warm_shapes"])
+               for k in ("rel_prep", "rel_dp")):
             fail(f"serve: warm-up launches {st0['launches']} for shapes "
                  f"{st0['warm_shapes']}")
         jobs = []
@@ -1592,7 +2123,7 @@ def phase_serve(keep: str) -> dict:
         launches = {k: st["launches"][k] - st0["launches"][k]
                     for k in st["launches"]}
         if st["jobs"] != 2 or st["table_uploads"] != 1 \
-                or launches["rel_dp"] <= 0:
+                or any(launches[k] <= 0 for k in MAIN_PATH):
             fail(f"serve stats after two jobs: {st} (path launches "
                  f"{launches})")
         # a failing job is replied, and the daemon serves on
@@ -1765,7 +2296,7 @@ def phase_tools(trace: str | None) -> dict:
     bad = [r["dataset"] for r in recs if not gpu_parity.dataset_ok(r)]
     if bad:
         fail(f"tools (b): mismatches against the exact oracle on {bad}")
-    if launches["rel_dp"] <= 0 or launches["unrel_sweeps"] <= 0:
+    if any(n <= 0 for n in launches.values()):
         fail(f"tools (b): a kernel of the path did not launch: {launches}")
     say(f"tools (b): .dam -s K={dam['K']}: all {dam['files']} outputs "
         f"byte-equal to the {dam['oracle']}'s; launches on the path "
@@ -1830,13 +2361,16 @@ def main(argv=None) -> int:
                             "tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile and k5profile, the kernels' phase "
-                    "clocks, and soak only when named)")
+                    "clocks, glue_ab, the streams with the plain glue "
+                    "against the glue kernels, and soak only when named; "
+                    "profiled is glue_ab's profiled passes, which it "
+                    "starts as a process of its own)")
     ap.add_argument("--soak-gbp", type=float, default=0.05,
                     help="soak phase: dataset size in billions of bases")
     ap.add_argument("--passes", type=int, default=40,
-                    help="steady-stream passes over medium")
+                    help="steady-stream passes over medium (per turn)")
     ap.add_argument("--alldev-passes", type=int, default=10,
-                    help="alldev-stream passes over medium")
+                    help="alldev-stream passes over medium (per turn)")
     ap.add_argument("--batch-size", type=int, default=200,
                     help="steady stream: reads per device chunk")
     ap.add_argument("--sort-window", type=int, default=8,
@@ -1879,6 +2413,15 @@ def main(argv=None) -> int:
         arec = phase_alldev()
         alaunch = phase_alldev_e2e()
         asrec = phase_alldev_stream(args.alldev_passes)
+    if "profiled" in phases:                 # the child of _profiled_process
+        say(json.dumps({"profiled": phase_profiled()}))
+    abrec = None
+    if "glue_ab" in phases:
+        abrec = {"stream": phase_stream(args.passes, args.batch_size,
+                                        args.sort_window, AB_TURNS),
+                 "alldev_stream": phase_alldev_stream(args.alldev_passes,
+                                                      AB_TURNS),
+                 "profiled": _profiled_process()}
     shrec = phase_shard() if "shard" in phases else None
     keep = tempfile.mkdtemp(prefix="cpk")
     try:
@@ -1893,6 +2436,8 @@ def main(argv=None) -> int:
     if asrec is not None:
         say(json.dumps({"alldev_stream": asrec, "alldev": arec,
                         "card": smi}))
+    if abrec is not None:
+        say(json.dumps({"glue_ab": abrec, "card": smi}))
     kern = []
     if krec is not None and launches is not None:
         k = len(krec["ms"]) - 1              # the medium shape timed last
@@ -1906,7 +2451,7 @@ def main(argv=None) -> int:
             "bound_ms": krec["bound"][k]["ms"],
             "bound_by": krec["bound"][k]["by"],
             "library_ms": None, "us_per_step": krec["us_per_step"],
-            **(brec or {}).get("rel_dp", {}), **krec["geometry"]})
+            **(brec or {}).get("rel_dp_kernel", {}), **krec["geometry"]})
     if arec is not None:
         ch = arec["chunks"][-1]              # the medium chunk timed last
         kern.append({
@@ -1923,7 +2468,25 @@ def main(argv=None) -> int:
             "long_row_ms": arec["long_row"]["ms"],
             "long_row_us_per_active_step":
                 arec["long_row"]["us_per_active_step"],
-            **(brec or {}).get("unrel_sweeps", {}), **arec["geometry"]})
+            **(brec or {}).get("unrel_kernel", {}), **arec["geometry"]})
+    if krec is not None and launches is not None:
+        for name in ("rel_prep", "rel_rescue", "rel_pack"):
+            err = krec["glue_err"][name]
+            if name == "rel_prep" and arec is not None:
+                err = max(err, arec["glue_err"]["rel_prep"])
+            e = _glue_entry(name, krec["glue"][name], launches[name], err,
+                            brec)
+            if name == "rel_prep" and arec is not None:
+                g = arec["glue"]["rel_prep"]
+                e.update(alldev_ms=g["ms"][-1], alldev_plain_ms=
+                         g["plain_ms"][-1], alldev_bound_ms=g["bound"][-1]
+                         ["ms"], alldev_bound_by=g["bound"][-1]["by"],
+                         alldev_ms_per_chunk=g["ms"])
+            kern.append(e)
+    if arec is not None:
+        kern.append(_glue_entry("rel_settle", arec["glue"]["rel_settle"],
+                                alaunch["rel_settle"],
+                                arec["glue_err"]["rel_settle"], brec))
     if shrec is not None:
         say(json.dumps({"shard": shrec, "card": smi}))
     if svrec is not None:

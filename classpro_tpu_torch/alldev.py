@@ -22,55 +22,39 @@ float64 first (torch would give float32); the reconciliation's hdrr
 divides in IEEE float64, so it equals the host ``rel.reconcile_fwbw`` on
 every row; the ``mode="drop"`` scatters send their sentinel indices to a
 spare row or column that is then cut off.
+
+On a card (``impl="cuda"``) a chunk is six launches and two torch ops
+(``classify_glued``): the glue kernels of csrc/glue.cu (rel_prep in this
+layout, rel_rescue, rel_settle) around the DP and sweep kernels.  The
+torch functions here are their plain versions (``prep_ref``,
+``settle_ref`` built from ``dp_planes``, ``un_planes``, ``demotes_dev``,
+``reconcile_dev`` and ``sweep_inputs``' scatter).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from classpro_tpu_torch.kernels import GATE_UNFLAGGED, blob_views
 from classpro_tpu_torch.params import PipelineParams, RelParams
 from classpro_tpu_torch.rel import (REL_MARGIN_EPS, default_impl,
-                                    e_emission, rel_pipeline as _rel_dp)
+                                    e_emission, merge_passes,
+                                    rel_pipeline as _rel_dp)
 
 ERROR, REPEAT, HAPLO, DIPLO, N_STATE = 0, 1, 2, 3, 4
 
 _RE_PLANES = ("bpos", "bcnt", "epos", "ecnt", "max_cc")
 
-
 def unpack(fblob: torch.Tensor, iblob: torch.Tensor, Bn: int, max_n: int,
            R2: int, max_m: int) -> dict:
     """Views of the two blobs (device_pipeline._unpack); the rel planes
     and m, plen as int64, fwd as bool."""
-    R = R2 // 2
-    un_sz, rel_sz = Bn * max_n, R2 * max_m
-    i64 = torch.int64
-    U = {}
-    o = 0
-    for k in ("b", "e", "cb", "ce", "ccb", "cce", "idx_desc", "idx_asc",
-              "is_rel", "live"):
-        U[k] = iblob[o:o + un_sz].reshape(Bn, max_n)
-        o += un_sz
-    U["n"] = iblob[o:o + Bn]
-    o += Bn
-    for k in _RE_PLANES:
-        U[k] = iblob[o:o + rel_sz].reshape(R2, max_m).to(i64)
-        o += rel_sz
-    U["rel_cols"] = iblob[o:o + R * max_m].reshape(R, max_m)
-    o += R * max_m
-    for k in ("m", "plen"):
-        U[k] = iblob[o:o + R2].to(i64)
-        o += R2
-    U["fwd"] = iblob[o:o + R2] != 0
-    o += R2
-    U["rel_rows"] = iblob[o:o + R]
-
-    of = 0
-    for k in ("pe", "peob", "peoe", "lf_cb", "lf_ce"):
-        U[k] = fblob[of:of + un_sz].reshape(Bn, max_n)
-        of += un_sz
-    for k in ("pe_rel", "lf_bcnt", "lf_ecnt"):
-        U[k] = fblob[of:of + rel_sz].reshape(R2, max_m)
-        of += rel_sz
+    U = blob_views(fblob, iblob, Bn, max_n, R2, max_m)
+    for k in _RE_PLANES + ("m", "plen"):
+        U[k] = U[k].to(torch.int64)
+    U["fwd"] = U["fwd"] != 0
     return U
 
 
@@ -257,36 +241,118 @@ def _drop(idx, size: int):
     return torch.where((idx >= 0) & (idx < size), idx, size)
 
 
+def _scatter_rel(asgn, rel_out, rel_rows, rel_cols) -> None:
+    """asgn[rel_rows[j], rel_cols[j, c]] = rel_out[j, c] in place (the
+    (Bn, max_n) interval rows); the sentinel indices (rel_rows = Bn,
+    rel_cols = max_n) land in a spare row or column, which is cut off."""
+    Bn, max_n = asgn.shape
+    R, max_m = rel_out.shape
+    rows = _drop(rel_rows, Bn)
+    cols = _drop(rel_cols, max_n)
+    asgn_x = torch.full((Bn + 1, max_n + 1), N_STATE, dtype=torch.int32,
+                        device=asgn.device)
+    asgn_x[:Bn, :max_n] = asgn
+    asgn_x[rows[:, None].expand(R, max_m), cols] = rel_out.to(torch.int32)
+    asgn.copy_(asgn_x[:Bn, :max_n])
+
+
 def sweep_inputs(U: dict, rel_out, P: RelParams, Bn: int, max_n: int):
     """The relaxation sweeps' arguments for a chunk whose reconciled rel
     assignments are ``rel_out`` (R, max_m): (is_rel, asgn, P13, packL,
     packR, idx_desc, idx_asc, live, n), as unrel_sweeps takes them."""
-    R, max_m = rel_out.shape
-    # rel assignments into the (Bn, max_n) interval rows; the sentinel
-    # indices (rel_rows = Bn, rel_cols = max_n) land in a spare row or
-    # column, which is cut off
-    rows = _drop(U["rel_rows"], Bn)
-    cols = _drop(U["rel_cols"], max_n)
-    asgn_x = torch.full((Bn + 1, max_n + 1), N_STATE, dtype=torch.int32,
-                        device=rel_out.device)
-    asgn_x[rows[:, None].expand(R, max_m), cols] = rel_out.to(torch.int32)
+    asgn = torch.full((Bn, max_n), N_STATE, dtype=torch.int32,
+                      device=rel_out.device)
+    _scatter_rel(asgn, rel_out, U["rel_rows"], U["rel_cols"])
     P13, packL, packR = un_planes(U, P)
-    return (U["is_rel"] != 0, asgn_x[:Bn, :max_n].contiguous(), P13, packL,
-            packR, U["idx_desc"], U["idx_asc"], U["live"] != 0, U["n"])
+    return (U["is_rel"] != 0, asgn, P13, packL, packR, U["idx_desc"],
+            U["idx_asc"], U["live"] != 0, U["n"])
+
+
+def prep_ref(fblob, iblob, P: RelParams, R: int, max_m: int, Bn: int,
+             max_n: int):
+    """kernels.rel_prep's plain version (all-device layout): the DP's
+    planes, the first pass's coverages (2R, 4) and the sweeps' is_rel,
+    asgn (all N_STATE), P13, packL, packR, live and the (2, Bn) margin
+    gate (every read unflagged)."""
+    R2 = 2 * R
+    U = unpack(fblob, iblob, Bn, max_n, R2, max_m)
+    P13, packL, packR = un_planes(U, P)
+    dev = fblob.device
+    gate = torch.tensor(GATE_UNFLAGGED, dtype=torch.float64, device=dev)
+    un = {"is_rel": U["is_rel"] != 0,
+          "asgn": torch.full((Bn, max_n), N_STATE, dtype=torch.int32,
+                             device=dev),
+          "P13": P13, "packL": packL, "packR": packR,
+          "live": U["live"] != 0,
+          "gate": gate[:, None].expand(2, Bn).contiguous()}
+    return dp_planes(U, P), P.gcov[None, :].expand(R2, 4).contiguous(), un
+
+
+def settle_ref(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols,
+               P: RelParams, asgn, gate) -> None:
+    """kernels.rel_settle's plain version: the pass merge, demote_rows and
+    reconcile_dev on the DP's two passes, the reconciled rows scattered
+    into ``asgn`` (Bn, max_n), and the ``gate`` (2, Bn) of every read with
+    a risky rel margin opened to [-inf, inf]."""
+    R2, max_m = asgn1.shape
+    R = R2 // 2
+    Bn = asgn.shape[0]
+    asgn8, mm = merge_passes(asgn1, mm1, asgn2, mm2, rescue)
+    U = dict(zip(_RE_PLANES[:4], planes[:4]), m=planes[7])
+    rel2 = demote_rows(U, asgn8, rescue, P)
+    _scatter_rel(asgn, reconcile_dev(rel2, planes[7], planes[1], planes[3],
+                                     planes[9], R, max_m),
+                 rel_rows, rel_cols)
+    f = torch.zeros(Bn + 1, dtype=torch.int32, device=asgn.device)
+    f.scatter_reduce_(0, _drop(rel_rows, Bn),
+                      (_risky(mm[:R]) | _risky(mm[R:])).to(torch.int32),
+                      "amax")
+    gate[0].masked_fill_(f[:Bn] > 0, -math.inf)
+    gate[1].masked_fill_(f[:Bn] > 0, math.inf)
+
+
+def classify_glued(fblob, iblob, P: PipelineParams, Bn: int, max_n: int,
+                   R2: int, max_m: int, ops):
+    """classify_batch as six launches and two torch ops: ``ops`` holds
+    rel_prep, rel_dp, rel_rescue, rel_settle and unrel_sweeps with the
+    contracts of the kernels module's wrappers (the kernels on a card; the
+    tests pass the g++ shims)."""
+    R = R2 // 2
+    V = blob_views(fblob, iblob, Bn, max_n, R2, max_m)
+    planes, cov, un = ops.rel_prep(fblob, iblob, P.rel, R, max_m,
+                                   alldev=(Bn, max_n))
+    asgn1, _dp1, mm1 = ops.rel_dp(*planes, cov, P.rel)
+    rescue, cov2 = ops.rel_rescue(planes, asgn1, P.rel)
+    asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P.rel, active=rescue)
+    gate = un["gate"]
+    ops.rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],
+                   V["rel_cols"], P.rel, un["asgn"], gate)
+    out, un_mm = ops.unrel_sweeps(
+        un["is_rel"], un["asgn"], un["P13"], un["packL"], un["packR"],
+        V["idx_desc"], V["idx_asc"], un["live"], V["n"], P.unrel)
+    # risky(un_mm) or the read's rel flag: the sweeps' margin is never NaN
+    # (a NaN step margin counts as 1e-30), so a flagged read's [-inf, inf]
+    # gate returns it unchanged
+    return out, torch.clamp(un_mm, gate[0], gate[1]) == un_mm
 
 
 def classify_batch(fblob: torch.Tensor, iblob: torch.Tensor,
                    P: PipelineParams, Bn: int, max_n: int, R2: int,
                    max_m: int, impl=None):
     """Classify one packed read group on ``P``'s device
-    (device_pipeline.classify_batch_dev).  ``impl``: "cuda" (the kernels),
-    "ref" (the plain versions) or a pair (DP, sweeps) of callables with
-    the kernels' contracts; the default follows the device.
+    (device_pipeline.classify_batch_dev).  ``impl``: "cuda" (the kernels:
+    ``classify_glued``), "ref" (the plain versions) or a pair (DP, sweeps)
+    of callables with the kernels' contracts (the plain glue around them);
+    the default follows the device.
 
     Returns (asgn int8 (Bn, max_n) per interval, flags bool (Bn,): reads
     whose rel or relaxation decisions fell inside the exactness-guard
     epsilon, which the caller re-decides exactly)."""
     impl = impl or default_impl(fblob.device)
+    if impl == "cuda":
+        from classpro_tpu_torch import kernels
+
+        return classify_glued(fblob, iblob, P, Bn, max_n, R2, max_m, kernels)
     dp_impl, un_impl = impl if isinstance(impl, tuple) else (impl, impl)
     R = R2 // 2
     U = unpack(fblob, iblob, Bn, max_n, R2, max_m)

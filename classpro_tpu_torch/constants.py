@@ -23,6 +23,12 @@ class State(enum.IntEnum):
 
 N_STATE = 4
 
+# minimum decision margin below which a read's rel stage is recomputed
+# on the host with exact arithmetic (the engine's exactness guard).  The
+# risky comparison runs on the device, in f64; the shipped f32 margin is
+# telemetry only.
+REL_MARGIN_EPS = 1e-5
+
 #: State -> output character (const.c:19)
 STOC = "ERHD"
 

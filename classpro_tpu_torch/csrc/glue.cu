@@ -1,0 +1,294 @@
+// The per-chunk glue around the DP kernel (K4, main path) and around the
+// sweep kernel (K6, all-device path) as four kernels for sm_90a, bound
+// with ctypes:
+//   rel_prep   the DP's planes from a chunk's blobs (both layouts; in the
+//              all-device layout also the sweeps' planes), one thread per
+//              cell;
+//   rel_rescue the no-H rescue predicate and the rescue pass's
+//              coverages, one warp per scan row;
+//   rel_pack   the pass merge and the packed (2R, max_m + 5) result of
+//              the main path, one warp per scan row;
+//   rel_settle the pass merge, demotions, fw/bw reconciliation, the
+//              scatter into the sweeps' assignments and the read's rel
+//              flag (all-device path), one warp per read pair.
+// Replaces the JAX package's device_pipeline._rel_only_core :541,
+// _rel_pipeline :153, _pack_out :638, _demotes_dev :257, _reconcile_dev
+// :401, _un_planes :511 and classify_batch_dev's tail :686-704, which XLA
+// fused into one program per chunk and the port first ran as some 90
+// small torch ops.  The bodies are glue_row.cuh.
+//
+// What bounds them on the card: bytes.  A chunk's glue reads its blobs
+// and writes the DP's planes once, a few MB at the medium shapes, some
+// microseconds at 3.35 TB/s; the work per byte is a handful of integer
+// and f64 operations.  At these sizes a launch costs more than its bytes,
+// so the design counts launches: one per program stage between the DP
+// launches, five per main-path chunk with both DP launches.  The warp
+// kernels re-read a row's int8 and int64 planes once per pass (the
+// demotions' stages read each other's results), from L1/L2; left for
+// later: keeping a row in registers or shared memory.
+
+// Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
+// -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
+// Under g++ -x c++ (no __CUDACC__) the same file compiles to the host
+// test shims, which run each warp's 32 lanes phase by phase.
+
+#include "glue_row.cuh"
+
+#define GP_ARGS_DECL                                                       \
+  const void *iblob, const void *fblob, const void *logfact,              \
+      const void *gcov, double e_po_base, int R, int M, int Bn, int N,     \
+      double gate_lo, double gate_hi, void *bpos, void *bcnt, void *epos,  \
+      void *ecnt, void *max_cc, void *m, void *plen, void *cov,            \
+      void *lf_bcnt, void *logpE, void *fwd, void *is_rel, void *live,     \
+      void *asgn, void *P13, void *packL, void *packR, void *gate,         \
+      int alldev
+#define GP_ARGS_PASS                                                      \
+  iblob, fblob, logfact, gcov, e_po_base, R, M, Bn, N, gate_lo, gate_hi,  \
+      bpos, bcnt, epos, ecnt, max_cc, m, plen, cov, lf_bcnt, logpE, fwd,  \
+      is_rel, live, asgn, P13, packL, packR, gate, alldev
+
+static gl::Prep gp_make_args(GP_ARGS_DECL) {
+  gl::Prep a;
+  a.iblob = (const int*)iblob;
+  a.fblob = (const double*)fblob;
+  a.logfact = (const double*)logfact;
+  a.gcov = (const long long*)gcov;
+  a.e_po_base = e_po_base;
+  a.R = R;
+  a.M = M;
+  a.Bn = alldev ? Bn : 0;
+  a.N = alldev ? N : 0;
+  a.gate_lo = gate_lo;
+  a.gate_hi = gate_hi;
+  a.bpos = (long long*)bpos;
+  a.bcnt = (long long*)bcnt;
+  a.epos = (long long*)epos;
+  a.ecnt = (long long*)ecnt;
+  a.max_cc = (long long*)max_cc;
+  a.m = (long long*)m;
+  a.plen = (long long*)plen;
+  a.cov = (long long*)cov;
+  a.lf_bcnt = (double*)lf_bcnt;
+  a.logpE = (double*)logpE;
+  a.fwd = (unsigned char*)fwd;
+  a.is_rel = (unsigned char*)is_rel;
+  a.live = (unsigned char*)live;
+  a.asgn = (int*)asgn;
+  a.P13 = (double*)P13;
+  a.packL = (double*)packL;
+  a.packR = (double*)packR;
+  a.gate = (double*)gate;
+  return a;
+}
+
+// cells of a prep launch: the (2R, max_m) planes, and in the all-device
+// layout the (Bn, max_n) interval planes after them
+static long long gp_cells(const gl::Prep& a) {
+  return 2LL * a.R * a.M + (long long)a.Bn * a.N;
+}
+
+#define GR_ARGS_DECL                                                       \
+  const void *bpos, const void *bcnt, const void *epos, const void *ecnt,  \
+      const void *m, const void *asgn, const void *gcov, int R2, int M,    \
+      void *rescue, void *cov2
+#define GR_ARGS_PASS bpos, bcnt, epos, ecnt, m, asgn, gcov, R2, M, rescue, cov2
+
+static gl::Rescue gr_make_args(GR_ARGS_DECL) {
+  gl::Rescue a;
+  a.bpos = (const long long*)bpos;
+  a.bcnt = (const long long*)bcnt;
+  a.epos = (const long long*)epos;
+  a.ecnt = (const long long*)ecnt;
+  a.m = (const long long*)m;
+  a.asgn = (const signed char*)asgn;
+  a.gcov = (const long long*)gcov;
+  a.R2 = R2;
+  a.M = M;
+  a.rescue = (unsigned char*)rescue;
+  a.cov2 = (long long*)cov2;
+  return a;
+}
+
+#define GK_ARGS_DECL                                                       \
+  const void *asgn1, const void *asgn2, const void *mm1, const void *mm2,  \
+      const void *rescue, int R2, int M, void *out
+#define GK_ARGS_PASS asgn1, asgn2, mm1, mm2, rescue, R2, M, out
+
+static gl::Pack gk_make_args(GK_ARGS_DECL) {
+  gl::Pack a;
+  a.asgn1 = (const signed char*)asgn1;
+  a.asgn2 = (const signed char*)asgn2;
+  a.mm1 = (const double*)mm1;
+  a.mm2 = (const double*)mm2;
+  a.rescue = (const unsigned char*)rescue;
+  a.R2 = R2;
+  a.M = M;
+  a.out = (unsigned char*)out;
+  return a;
+}
+
+#define GS_ARGS_DECL                                                       \
+  const void *asgn1, const void *asgn2, const void *mm1, const void *mm2,  \
+      const void *rescue, const void *bpos, const void *bcnt,              \
+      const void *epos, const void *ecnt, const void *m, const void *fwd,  \
+      const void *rel_rows, const void *rel_cols, const void *gcov, int R, \
+      int M, int Bn, int N, void *asgn, void *gate
+#define GS_ARGS_PASS                                                      \
+  asgn1, asgn2, mm1, mm2, rescue, bpos, bcnt, epos, ecnt, m, fwd,         \
+      rel_rows, rel_cols, gcov, R, M, Bn, N, asgn, gate
+
+static gl::Settle gs_make_args(GS_ARGS_DECL) {
+  gl::Settle a;
+  a.asgn1 = (const signed char*)asgn1;
+  a.asgn2 = (const signed char*)asgn2;
+  a.mm1 = (const double*)mm1;
+  a.mm2 = (const double*)mm2;
+  a.rescue = (const unsigned char*)rescue;
+  a.bpos = (const long long*)bpos;
+  a.bcnt = (const long long*)bcnt;
+  a.epos = (const long long*)epos;
+  a.ecnt = (const long long*)ecnt;
+  a.m = (const long long*)m;
+  a.fwd = (const unsigned char*)fwd;
+  a.rel_rows = (const int*)rel_rows;
+  a.rel_cols = (const int*)rel_cols;
+  a.gcov = (const long long*)gcov;
+  a.R = R;
+  a.M = M;
+  a.Bn = Bn;
+  a.N = N;
+  a.asgn = (int*)asgn;
+  a.gate = (double*)gate;
+  return a;
+}
+
+// Launch geometry: the prep kernels run one thread per cell in blocks of
+// GL_PREP_THREADS, grid-stride beyond GL_PREP_BLOCKS blocks; the warp
+// kernels run one warp per row (read pair) in blocks of four warps.
+constexpr int GL_PREP_THREADS = 256;
+constexpr long long GL_PREP_BLOCKS = 132 * 16;
+constexpr int GL_WARP_THREADS = 4 * rd::WARP;
+
+static int gl_prep_blocks(long long cells) {
+  const long long b = (cells + GL_PREP_THREADS - 1) / GL_PREP_THREADS;
+  return (int)(b < GL_PREP_BLOCKS ? b : GL_PREP_BLOCKS);
+}
+static int gl_warp_blocks(long long rows) {
+  return (int)((rows * rd::WARP + GL_WARP_THREADS - 1) / GL_WARP_THREADS);
+}
+
+// out[0..1] = threads per block and blocks of a prep launch over ``n``
+// cells (warp == 0) or of a warp kernel over ``n`` rows (warp == 1).
+extern "C" int glue_geometry(int warp, long long n, int* out) {
+  out[0] = warp ? GL_WARP_THREADS : GL_PREP_THREADS;
+  out[1] = warp ? gl_warp_blocks(n) : gl_prep_blocks(n);
+  return 0;
+}
+
+#ifdef __CUDACC__
+
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(GL_PREP_THREADS)
+rel_prep_main_kernel(gl::Prep a, long long cells) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < cells; k += (long long)gridDim.x * blockDim.x)
+    gl::prep_main_cell(a, k);
+}
+
+__global__ void __launch_bounds__(GL_PREP_THREADS)
+rel_prep_alldev_kernel(gl::Prep a, long long cells) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < cells; k += (long long)gridDim.x * blockDim.x)
+    gl::prep_alldev_cell(a, k);
+}
+
+__global__ void __launch_bounds__(GL_WARP_THREADS)
+rel_rescue_kernel(gl::Rescue a) {
+  gl::rescue_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(GL_WARP_THREADS)
+rel_pack_kernel(gl::Pack a) {
+  gl::pack_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(GL_WARP_THREADS)
+rel_settle_kernel(gl::Settle a) {
+  gl::settle_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
+}
+
+// Launches on ``stream``; each returns cudaGetLastError() (0 = launched).
+extern "C" int rel_prep_launch(GP_ARGS_DECL, void* stream) {
+  const gl::Prep a = gp_make_args(GP_ARGS_PASS);
+  const long long cells = gp_cells(a);
+  if (cells > 0) {
+    if (alldev)
+      rel_prep_alldev_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
+                               (cudaStream_t)stream>>>(a, cells);
+    else
+      rel_prep_main_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
+                             (cudaStream_t)stream>>>(a, cells);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rel_rescue_launch(GR_ARGS_DECL, void* stream) {
+  if (R2 > 0)
+    rel_rescue_kernel<<<gl_warp_blocks(R2), GL_WARP_THREADS, 0,
+                        (cudaStream_t)stream>>>(gr_make_args(GR_ARGS_PASS));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rel_pack_launch(GK_ARGS_DECL, void* stream) {
+  if (R2 > 0)
+    rel_pack_kernel<<<gl_warp_blocks(R2), GL_WARP_THREADS, 0,
+                      (cudaStream_t)stream>>>(gk_make_args(GK_ARGS_PASS));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rel_settle_launch(GS_ARGS_DECL, void* stream) {
+  if (R > 0)
+    rel_settle_kernel<<<gl_warp_blocks(R), GL_WARP_THREADS, 0,
+                        (cudaStream_t)stream>>>(gs_make_args(GS_ARGS_PASS));
+  return (int)cudaGetLastError();
+}
+
+#else
+
+// Host test shims: the same bodies, cell by cell, and one warp's 32 lanes
+// per call over the warps of the launch.
+extern "C" int rel_prep_host(GP_ARGS_DECL) {
+  const gl::Prep a = gp_make_args(GP_ARGS_PASS);
+  const long long cells = gp_cells(a);
+  for (long long k = 0; k < cells; ++k) {
+    if (alldev)
+      gl::prep_alldev_cell(a, k);
+    else
+      gl::prep_main_cell(a, k);
+  }
+  return 0;
+}
+
+extern "C" int rel_rescue_host(GR_ARGS_DECL) {
+  const gl::Rescue a = gr_make_args(GR_ARGS_PASS);
+  for (long long g0 = 0; g0 < (long long)R2 * rd::WARP; g0 += rd::WARP)
+    gl::rescue_warp<rd::WARP>(a, g0);
+  return 0;
+}
+
+extern "C" int rel_pack_host(GK_ARGS_DECL) {
+  const gl::Pack a = gk_make_args(GK_ARGS_PASS);
+  for (long long g0 = 0; g0 < (long long)R2 * rd::WARP; g0 += rd::WARP)
+    gl::pack_warp<rd::WARP>(a, g0);
+  return 0;
+}
+
+extern "C" int rel_settle_host(GS_ARGS_DECL) {
+  const gl::Settle a = gs_make_args(GS_ARGS_PASS);
+  for (long long g0 = 0; g0 < (long long)R * rd::WARP; g0 += rd::WARP)
+    gl::settle_warp<rd::WARP>(a, g0);
+  return 0;
+}
+
+#endif

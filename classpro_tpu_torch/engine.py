@@ -233,8 +233,11 @@ class TorchEngine:
         construction put them there), and one DP launch on an
         all-padding pack of each shape, waited for.  The host plane's
         binomial-tail tables for this model, which the first chunk would
-        otherwise build (seconds of numpy), are built too."""
-        from classpro_tpu_torch.rel import _dp, default_impl, rel_planes
+        otherwise build (seconds of numpy), are built too.  The pack's
+        planes come from rel_prep, which loads the glue kernels' library
+        on a card."""
+        from classpro_tpu_torch.kernels import rel_prep
+        from classpro_tpu_torch.rel import _dp, default_impl
 
         self.wall._walk_tables()
         for R, max_m in shapes:
@@ -245,8 +248,8 @@ class TorchEngine:
                     if stream is not None:
                         ctx.enter_context(torch.cuda.device(dev))
                         ctx.enter_context(torch.cuda.stream(stream))
-                    planes = rel_planes(fb.to(dev), ib.to(dev), P, R, max_m)
-                    cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+                    planes, cov = rel_prep(fb.to(dev), ib.to(dev), P, R,
+                                           max_m)
                     _dp(default_impl(dev), planes, cov, P)
                 if stream is not None:
                     stream.synchronize()

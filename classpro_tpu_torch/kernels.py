@@ -1,30 +1,33 @@
 """Build and bind the hand-written CUDA kernels (csrc/).
 
-``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP) and
-``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) are the
-wrappers the paths call: on CUDA tensors they launch the sm_90a kernel
-(eight lanes per DP row; four lanes per sweep row) on the current
-stream and count the launch in ``LAUNCHES``; on CPU tensors they run the
-plain torch version (rel_ref, unrel_ref).  There is no fallback between
-the two: a failed nvcc build or a refused launch raises.
+``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP), ``unrel_sweeps``
+(csrc/unrel.cu: the two relaxation sweeps) and the per-chunk glue around
+them (csrc/glue.cu: ``rel_prep``, ``rel_rescue``, ``rel_pack``,
+``rel_settle``) are the wrappers the paths call: on CUDA tensors they
+launch the sm_90a kernel on the current stream and count the launch in
+``LAUNCHES``; on CPU tensors they run the plain torch version (rel_ref,
+unrel_ref, rel.prep_ref / rescue_rows / pack_ref, alldev.prep_ref /
+settle_ref).  There is no fallback between the two: a failed nvcc build
+or a refused launch raises.
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
-interface, loaded with ctypes), never at import.  ``rel_dp_host`` and
-``unrel_sweeps_host`` run the same warp bodies compiled by g++ (the
-headers under -x c++, a warp's 32 lanes phase by phase); they are the CPU
-tests' window onto the kernels' arithmetic and lane exchanges and never
-run on a path.
+interface, loaded with ctypes), never at import.  The ``*_host`` functions
+run the same bodies compiled by g++ (the headers under -x c++, a warp's
+32 lanes phase by phase); they are the CPU tests' window onto the
+kernels' arithmetic and lane exchanges and never run on a path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import threading
 
 import torch
 
+from classpro_tpu_torch.constants import REL_MARGIN_EPS
 from classpro_tpu_torch.params import RelParams, UnrelParams
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -37,6 +40,10 @@ SOURCES = {
     "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh",
                                   "warp_lanes.cuh")),
 }
+# the four glue kernels share one source and one library
+_GLUE = ("glue.cu", ("glue_row.cuh", "rd_math.cuh", "warp_lanes.cuh"))
+GLUE_KERNELS = ("rel_prep", "rel_rescue", "rel_pack", "rel_settle")
+SOURCES.update({name: _GLUE for name in GLUE_KERNELS})
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
@@ -45,7 +52,7 @@ HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
               "-x", "c++"]
 
 # launches of the CUDA kernels (plain-version calls on the CPU do not count)
-LAUNCHES = {"rel_dp": 0, "unrel_sweeps": 0}
+LAUNCHES = {name: 0 for name in SOURCES}
 # compiler output of the last build in this process, by (kernel, kind)
 # (nvcc's -Xptxas -v lines)
 BUILD_LOG: dict = {}
@@ -63,9 +70,18 @@ _ARGTYPES = {
     "unrel_sweeps": ([_PTR] * 12 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
                      + [_D] * 5 + [_LL] * 3),
 }
+# glue.cu GP_ARGS_DECL, GR_ARGS_DECL, GK_ARGS_DECL, GS_ARGS_DECL
+_ARGTYPES.update({
+    "rel_prep": [_PTR] * 4 + [_D] + [_I] * 4 + [_D] * 2 + [_PTR] * 18 + [_I],
+    "rel_rescue": [_PTR] * 7 + [_I, _I, _PTR, _PTR],
+    "rel_pack": [_PTR] * 5 + [_I, _I, _PTR],
+    "rel_settle": [_PTR] * 14 + [_I] * 4 + [_PTR, _PTR],
+})
 _ENTRY = {("rel_dp", "cuda"): "rel_dp_launch", ("rel_dp", "host"): "rel_dp_host",
           ("unrel_sweeps", "cuda"): "unrel_launch",
           ("unrel_sweeps", "host"): "unrel_host"}
+_ENTRY.update({(name, kind): f"{name}_{'launch' if kind == 'cuda' else kind}"
+               for name in GLUE_KERNELS for kind in ("cuda", "host")})
 
 
 def _nvcc() -> str:
@@ -114,6 +130,9 @@ def build(kind: str = "cuda", name: str = "rel_dp", force: bool = False,
     so = os.path.join(_BUILD, f"lib{stem}_{kind}{tag}.so")
     if force or _stale(so, name):
         _compile(cmd, so, (name, kind + tag))
+        for other, (osrc, _) in SOURCES.items():   # the same library
+            if osrc == SOURCES[name][0]:
+                BUILD_LOG[(other, kind + tag)] = BUILD_LOG[(name, kind + tag)]
     return so
 
 
@@ -345,3 +364,315 @@ def unrel_sweeps_host(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc,
     if _fn("unrel_sweeps", "host")(*args) != 0:
         raise RuntimeError("host shim failed")
     return out, mm
+
+
+# ------------------------------------------------------------- the glue
+
+# the margin gate of a read whose rel margins are not risky: the sweeps'
+# margin v clamped to [GATE_UNFLAGGED] equals v exactly when 0 < v < 1e-5
+# (the smallest positive double, the double below 1e-5); a risky read's
+# gate is [-inf, inf]
+GATE_UNFLAGGED = (math.ulp(0.0), math.nextafter(REL_MARGIN_EPS, 0.0))
+
+
+def blob_views(fblob: torch.Tensor, iblob: torch.Tensor, Bn: int,
+               max_n: int, R2: int, max_m: int) -> dict:
+    """Views of the all-device path's two blobs (layout in alldev.py) in
+    their own types, no copies: the offsets rel_prep reads in that
+    layout."""
+    R = R2 // 2
+    un_sz, rel_sz = Bn * max_n, R2 * max_m
+    V = {}
+    o = 0
+    for k in ("b", "e", "cb", "ce", "ccb", "cce", "idx_desc", "idx_asc",
+              "is_rel", "live"):
+        V[k] = iblob[o:o + un_sz].view(Bn, max_n)
+        o += un_sz
+    V["n"] = iblob[o:o + Bn]
+    o += Bn
+    for k in ("bpos", "bcnt", "epos", "ecnt", "max_cc"):
+        V[k] = iblob[o:o + rel_sz].view(R2, max_m)
+        o += rel_sz
+    V["rel_cols"] = iblob[o:o + R * max_m].view(R, max_m)
+    o += R * max_m
+    for k in ("m", "plen", "fwd"):
+        V[k] = iblob[o:o + R2]
+        o += R2
+    V["rel_rows"] = iblob[o:o + R]
+
+    of = 0
+    for k in ("pe", "peob", "peoe", "lf_cb", "lf_ce"):
+        V[k] = fblob[of:of + un_sz].view(Bn, max_n)
+        of += un_sz
+    for k in ("pe_rel", "lf_bcnt", "lf_ecnt"):
+        V[k] = fblob[of:of + rel_sz].view(R2, max_m)
+        of += rel_sz
+    return V
+
+
+def _need(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, kernel on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _shim(name: str, args) -> None:
+    """Run glue kernel ``name``'s g++ shim on CPU tensors."""
+    if _fn(name, "host")(*args) != 0:
+        raise RuntimeError(f"{name} host shim failed")
+
+
+def glue_geometry(kernel: str, n: int, kind: str = "cuda") -> dict:
+    """Threads per block and blocks of a glue launch, as glue.cu computes
+    them: ``rel_prep`` over ``n`` cells, the warp kernels over ``n`` rows
+    (read pairs for ``rel_settle``)."""
+    out = (ctypes.c_int * 2)()
+    _entry("rel_prep", kind, "glue_geometry", [_I, _LL, _PTR])(
+        int(kernel != "rel_prep"), n, ctypes.cast(out, _PTR))
+    return {"threads_per_block": out[0], "blocks": out[1]}
+
+
+def _prep_args(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
+    """Checks of rel_prep's inputs; its outputs (the DP's planes and first
+    coverages; in the all-device layout also the sweeps' planes and the
+    margin gate) and the flat C argument list (GP_ARGS_DECL)."""
+    dev = iblob.device
+    R2, M = 2 * R, max_m
+    if alldev is None:
+        Bn = N = 0
+        n_i, n_f = 4 * R * M + 2 * R, R * M
+    else:
+        Bn, N = alldev
+        n_i = 10 * Bn * N + Bn + 5 * R2 * M + R * M + 3 * R2 + R
+        n_f = 5 * Bn * N + 3 * R2 * M
+    _need("iblob", iblob, torch.int32, (n_i,), dev)
+    _need("fblob", fblob, torch.float64, (n_f,), dev)
+    for name, t in (("logfact", P.logfact), ("gcov", P.gcov)):
+        _need(name, t, t.dtype, t.shape, dev)
+    if P.logfact.dtype != torch.float64 or P.gcov.dtype != torch.int64:
+        raise ValueError("RelParams: logfact must be f64, gcov int64")
+    i64 = torch.empty(5 * R2 * M + 6 * R2, dtype=torch.int64, device=dev)
+    f64 = torch.empty((1 if alldev else 2) * R2 * M + 19 * Bn * N + 2 * Bn,
+                      dtype=torch.float64, device=dev)
+    u8 = torch.empty(R2 + 2 * Bn * N, dtype=torch.bool, device=dev)
+    asgn = torch.empty((Bn, N), dtype=torch.int32, device=dev)
+    rm = R2 * M
+    pl = [i64[k * rm:(k + 1) * rm].view(R2, M) for k in range(5)]
+    m, plen = i64[5 * rm:5 * rm + R2], i64[5 * rm + R2:5 * rm + 2 * R2]
+    cov = i64[5 * rm + 2 * R2:].view(R2, 4)
+    if alldev is None:
+        lf_bcnt, logpE = f64[:rm].view(R2, M), f64[rm:2 * rm].view(R2, M)
+        o = 2 * rm
+    else:
+        lf_bcnt = blob_views(fblob, iblob, Bn, N, R2, M)["lf_bcnt"]
+        logpE, o = f64[:rm].view(R2, M), rm
+    P13 = f64[o:o + 13 * Bn * N].view(Bn, N, 13)
+    packL = f64[o + 13 * Bn * N:o + 16 * Bn * N].view(Bn, N, 3)
+    packR = f64[o + 16 * Bn * N:o + 19 * Bn * N].view(Bn, N, 3)
+    gate = f64[o + 19 * Bn * N:].view(2, Bn)
+    fwd = u8[:R2]
+    is_rel = u8[R2:R2 + Bn * N].view(Bn, N)
+    live = u8[R2 + Bn * N:].view(Bn, N)
+    planes = tuple(pl) + (lf_bcnt, logpE, m, plen, fwd)
+    outs = (pl[0], pl[1], pl[2], pl[3], pl[4], m, plen, cov,
+            None if alldev else lf_bcnt, logpE, fwd, is_rel, live, asgn,
+            P13, packL, packR, gate)
+    args = ([iblob.data_ptr(), fblob.data_ptr(), P.logfact.data_ptr(),
+             P.gcov.data_ptr(), float(P.e_po_base), R, M, Bn, N,
+             GATE_UNFLAGGED[0], GATE_UNFLAGGED[1]]
+            + [t.data_ptr() if t is not None else None for t in outs]
+            + [int(alldev is not None)])
+    un = None
+    if alldev is not None:
+        un = {"is_rel": is_rel, "asgn": asgn, "P13": P13, "packL": packL,
+              "packR": packR, "live": live, "gate": gate}
+    return args, planes, cov, un
+
+
+def _prep_out(planes, cov, un):
+    return (planes, cov) if un is None else (planes, cov, un)
+
+
+def rel_prep(fblob, iblob, P: RelParams, R: int, max_m: int, alldev=None):
+    """The DP's planes of one chunk from its blobs (the kernel replaces
+    device_pipeline._rel_only_core :572-626 with the E emission of
+    _rel_pipeline :170-174; with ``alldev`` = (Bn, max_n) the all-device
+    layout, _unpack :119 + _un_planes :511-538 + the sweeps' N_STATE
+    rows): returns (planes, cov) with planes as kernels.rel_dp takes them
+    and cov the first pass's (2R, 4) coverages; with ``alldev`` also a
+    dict of the sweeps' is_rel, asgn, P13, packL, packR, live and the
+    (2, Bn) margin gate.  CUDA tensors launch the kernel; CPU tensors run
+    the plain version (rel.prep_ref, alldev.prep_ref)."""
+    if iblob.device.type == "cpu":
+        if alldev is None:
+            from classpro_tpu_torch.rel import prep_ref
+
+            return prep_ref(fblob, iblob, P, R, max_m)
+        from classpro_tpu_torch.alldev import prep_ref
+
+        return prep_ref(fblob, iblob, P, R, max_m, *alldev)
+    if iblob.device.type != "cuda":
+        raise ValueError(f"no kernel for device {iblob.device}")
+    args, planes, cov, un = _prep_args(fblob, iblob, P, R, max_m, alldev)
+    _launch("rel_prep", iblob.device, args)
+    return _prep_out(planes, cov, un)
+
+
+def rel_prep_host(fblob, iblob, P: RelParams, R: int, max_m: int,
+                  alldev=None):
+    """rel_prep's cell body compiled by g++ and run on CPU tensors
+    (test-only; same contract)."""
+    args, planes, cov, un = _prep_args(fblob.contiguous(),
+                                       iblob.contiguous(), P, R, max_m,
+                                       alldev)
+    _shim("rel_prep", args)
+    return _prep_out(planes, cov, un)
+
+
+def _row_planes(planes, device):
+    """Checks of the planes the warp kernels read (bpos, bcnt, epos, ecnt,
+    m, fwd); returns (R2, max_m)."""
+    R2, M = planes[0].shape
+    for k, name in ((0, "bpos"), (1, "bcnt"), (2, "epos"), (3, "ecnt")):
+        _need(name, planes[k], torch.int64, (R2, M), device)
+    _need("m", planes[7], torch.int64, (R2,), device)
+    _need("fwd", planes[9], torch.bool, (R2,), device)
+    return R2, M
+
+
+def _rescue_args(planes, asgn1, P: RelParams):
+    dev = asgn1.device
+    R2, M = _row_planes(planes, dev)
+    _need("asgn", asgn1, torch.int8, (R2, M), dev)
+    _need("gcov", P.gcov, torch.int64, (4,), dev)
+    rescue = torch.empty(R2, dtype=torch.bool, device=dev)
+    cov2 = torch.empty((R2, 4), dtype=torch.int64, device=dev)
+    args = [planes[k].data_ptr() for k in (0, 1, 2, 3, 7)] + [
+        asgn1.data_ptr(), P.gcov.data_ptr(), R2, M, rescue.data_ptr(),
+        cov2.data_ptr()]
+    return args, rescue, cov2
+
+
+def rel_rescue(planes, asgn1, P: RelParams):
+    """The no-H rescue predicate on a first DP pass (the kernel replaces
+    device_pipeline._rel_pipeline :198-234): returns (rescue bool (R2,),
+    the rescue pass's coverages int64 (R2, 4)).  CUDA tensors launch the
+    kernel; CPU tensors run the plain version (rel.rescue_rows)."""
+    if asgn1.device.type == "cpu":
+        from classpro_tpu_torch.rel import rescue_rows
+
+        return rescue_rows(planes, asgn1, P, asgn1.shape[1])
+    if asgn1.device.type != "cuda":
+        raise ValueError(f"no kernel for device {asgn1.device}")
+    args, rescue, cov2 = _rescue_args(planes, asgn1, P)
+    _launch("rel_rescue", asgn1.device, args)
+    return rescue, cov2
+
+
+def rel_rescue_host(planes, asgn1, P: RelParams):
+    """rel_rescue's warp body compiled by g++ (test-only; same contract)."""
+    args, rescue, cov2 = _rescue_args(planes, asgn1, P)
+    _shim("rel_rescue", args)
+    return rescue, cov2
+
+
+def _passes(asgn1, asgn2, mm1, mm2, rescue):
+    """Checks of the two DP passes' outputs; returns (R2, max_m)."""
+    dev = asgn1.device
+    R2, M = asgn1.shape
+    for name, t, dt, shape in (("asgn1", asgn1, torch.int8, (R2, M)),
+                               ("asgn2", asgn2, torch.int8, (R2, M)),
+                               ("mm1", mm1, torch.float64, (R2,)),
+                               ("mm2", mm2, torch.float64, (R2,)),
+                               ("rescue", rescue, torch.bool, (R2,))):
+        _need(name, t, dt, shape, dev)
+    return R2, M
+
+
+def _pack_args(asgn1, asgn2, mm1, mm2, rescue):
+    R2, M = _passes(asgn1, asgn2, mm1, mm2, rescue)
+    out = torch.empty((R2, M + 5), dtype=torch.uint8, device=asgn1.device)
+    args = [t.data_ptr() for t in (asgn1, asgn2, mm1, mm2, rescue)] + [
+        R2, M, out.data_ptr()]
+    return args, out
+
+
+def rel_pack(asgn1, asgn2, mm1, mm2, rescue):
+    """The pass merge and the packed result of the main path (the kernel
+    replaces device_pipeline._rel_pipeline :237-241 and _pack_out
+    :638-651): returns uint8 (R2, max_m + 5).  CUDA tensors launch the
+    kernel; CPU tensors run the plain version (rel.pack_ref)."""
+    if asgn1.device.type == "cpu":
+        from classpro_tpu_torch.rel import pack_ref
+
+        return pack_ref(asgn1, asgn2, mm1, mm2, rescue)
+    if asgn1.device.type != "cuda":
+        raise ValueError(f"no kernel for device {asgn1.device}")
+    args, out = _pack_args(asgn1, asgn2, mm1, mm2, rescue)
+    _launch("rel_pack", asgn1.device, args)
+    return out
+
+
+def rel_pack_host(asgn1, asgn2, mm1, mm2, rescue):
+    """rel_pack's warp body compiled by g++ (test-only; same contract)."""
+    args, out = _pack_args(asgn1, asgn2, mm1, mm2, rescue)
+    _shim("rel_pack", args)
+    return out
+
+
+def _settle_args(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows,
+                 rel_cols, P: RelParams, asgn, gate):
+    dev = asgn1.device
+    R2, M = _passes(asgn1, asgn2, mm1, mm2, rescue)
+    if _row_planes(planes, dev) != (R2, M) or R2 % 2:
+        raise ValueError("planes must match the passes' (R2, max_m)")
+    R = R2 // 2
+    if asgn.dim() != 2:
+        raise ValueError("asgn must be (Bn, max_n)")
+    Bn, N = asgn.shape
+    for name, t, dt, shape in (("rel_rows", rel_rows, torch.int32, (R,)),
+                               ("rel_cols", rel_cols, torch.int32, (R, M)),
+                               ("gcov", P.gcov, torch.int64, (4,)),
+                               ("asgn", asgn, torch.int32, (Bn, N)),
+                               ("gate", gate, torch.float64, (2, Bn))):
+        _need(name, t, dt, shape, dev)
+    return ([t.data_ptr() for t in (asgn1, asgn2, mm1, mm2, rescue)]
+            + [planes[k].data_ptr() for k in (0, 1, 2, 3, 7, 9)]
+            + [rel_rows.data_ptr(), rel_cols.data_ptr(), P.gcov.data_ptr(),
+               R, M, Bn, N, asgn.data_ptr(), gate.data_ptr()])
+
+
+def rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols,
+               P: RelParams, asgn, gate) -> None:
+    """The all-device path's rel tail (the kernel replaces the pass merge
+    of device_pipeline._rel_pipeline :237-241, _demotes_dev :257-294,
+    _reconcile_dev :401-447 and classify_batch_dev's scatter and rel flag
+    :686-704): writes each read pair's reconciled row into the sweeps'
+    ``asgn`` (Bn, max_n) at (rel_rows, rel_cols), sentinels dropped, and
+    opens the read's margin ``gate`` (2, Bn) when its rel margin is
+    risky.  CUDA tensors launch the kernel; CPU tensors run the plain
+    version (alldev.settle_ref)."""
+    if asgn1.device.type == "cpu":
+        from classpro_tpu_torch.alldev import settle_ref
+
+        return settle_ref(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows,
+                          rel_cols, P, asgn, gate)
+    if asgn1.device.type != "cuda":
+        raise ValueError(f"no kernel for device {asgn1.device}")
+    _launch("rel_settle", asgn1.device, _settle_args(
+        asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols, P, asgn,
+        gate))
+
+
+def rel_settle_host(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows,
+                    rel_cols, P: RelParams, asgn, gate) -> None:
+    """rel_settle's warp body compiled by g++ (test-only; same contract)."""
+    _shim("rel_settle", _settle_args(
+        asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols, P, asgn,
+        gate))

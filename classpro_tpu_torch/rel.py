@@ -4,11 +4,14 @@ plus the host steps that follow it.
 ``rel_only`` is the counterpart of the JAX package's ``rel_only_dev``
 (``_rel_only_core`` + ``_rel_pipeline(demotes=False)`` + ``_pack_out``):
 it takes the C++ ``pack_rel`` blobs, derives both scan directions, runs
-the DP (``impl="cuda"``: csrc/rel_dp.cu; ``impl="ref"``: rel_ref), the
-no-H rescue predicate and the rescue pass, and packs one uint8 array
-(2R, max_m+5).  The glue runs once per chunk as torch ops; only the DP
-loops.  ``unpack_out``, ``demote_host`` and ``reconcile_fwbw`` are numpy
-copies of the JAX package's host steps.
+the DP, the no-H rescue predicate and the rescue pass, and packs one
+uint8 array (2R, max_m+5).  On a card (``impl="cuda"``) that is five
+launches per chunk: the glue kernels of csrc/glue.cu around the DP
+kernel of csrc/rel_dp.cu (``rel_glued``).  ``impl="ref"`` runs the plain
+versions: ``rel_planes`` (``prep_ref``), the plain DP (rel_ref),
+``rescue_rows`` and ``pack_ref``, which are what the glue kernels are
+held against.  ``unpack_out``, ``demote_host`` and ``reconcile_fwbw`` are
+numpy copies of the JAX package's host steps.
 """
 
 from __future__ import annotations
@@ -16,15 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from classpro_tpu_torch.constants import REL_MARGIN_EPS
 from classpro_tpu_torch.params import RelParams
 
 ERROR, REPEAT, HAPLO, DIPLO, N_STATE = 0, 1, 2, 3, 4
-
-# minimum decision margin below which a read's rel stage is recomputed
-# on the host with exact arithmetic (the engine's exactness guard).  The
-# risky comparison runs here, on the device, in f64; the shipped f32
-# margin is telemetry only.
-REL_MARGIN_EPS = 1e-5
 
 
 def default_impl(device) -> str:
@@ -101,6 +99,14 @@ def rel_planes(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
     return planes
 
 
+def prep_ref(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
+             R: int, max_m: int):
+    """kernels.rel_prep's plain version (main layout): the DP's planes and
+    the first pass's coverages (2R, 4)."""
+    cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+    return rel_planes(fblob, iblob, P, R, max_m), cov
+
+
 def rescue_rows(planes, asgn8, P: RelParams, max_m: int):
     """The no-H rescue predicate (class_rel.c:630-672 / 744-784) on a
     first pass's assignments: returns (rescue bool (R2,), the rescue
@@ -146,10 +152,21 @@ def rel_pipeline(planes, P: RelParams, max_m: int, impl):
         # the kernel's second launch runs only the rescued rows (the
         # rest exit at once), so no host sync tests any(rescue)
         asgn2, _dp2, mm2 = _dp(impl, planes, cov2, P, active=rescue)
-    out = torch.where(rescue[:, None], asgn2, asgn8)
-    # rescued rows' decisions came from both passes
-    mm = torch.where(rescue, torch.minimum(mm1, mm2), mm1)
+    out, mm = merge_passes(asgn8, mm1, asgn2, mm2, rescue)
     return out, mm, rescue
+
+
+def merge_passes(asgn1, mm1, asgn2, mm2, rescue):
+    """The rescued rows' second-pass assignments; their margin the min of
+    both passes' (their decisions came from both)."""
+    out = torch.where(rescue[:, None], asgn2, asgn1)
+    return out, torch.where(rescue, torch.minimum(mm1, mm2), mm1)
+
+
+def pack_ref(asgn1, asgn2, mm1, mm2, rescue) -> torch.Tensor:
+    """kernels.rel_pack's plain version: the pass merge and pack_out."""
+    asgn, mm = merge_passes(asgn1, mm1, asgn2, mm2, rescue)
+    return pack_out(asgn, mm, rescue, asgn.shape[1])
 
 
 def pack_out(asgn, mm, rescue, max_m: int) -> torch.Tensor:
@@ -165,11 +182,30 @@ def rel_only(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
              R: int, max_m: int, impl: str | None = None) -> torch.Tensor:
     """The rel stage of one chunk on ``P``'s device (JAX rel_only_dev):
     returns the packed uint8 (2R, max_m+5) result — fw rows then bw rows
-    in scan order, post-rescue, pre-demotion."""
+    in scan order, post-rescue, pre-demotion.  ``impl``: "cuda" (the
+    kernels: ``rel_glued``), "ref" (the plain versions) or a DP callable
+    with rel_dp's contract (the plain glue around it)."""
     impl = impl or default_impl(P.device)
+    if impl == "cuda":
+        from classpro_tpu_torch import kernels
+
+        return rel_glued(fblob, iblob, P, R, max_m, kernels)
     planes = rel_planes(fblob, iblob, P, R, max_m)
     asgn, mm, rescue = rel_pipeline(planes, P, max_m, impl)
     return pack_out(asgn, mm, rescue, max_m)
+
+
+def rel_glued(fblob, iblob, P: RelParams, R: int, max_m: int, ops):
+    """rel_only as five launches: ``ops`` holds rel_prep, rel_dp,
+    rel_rescue and rel_pack with the contracts of the kernels module's
+    wrappers (the kernels on a card; the tests pass the g++ shims).  The
+    rescue pass runs the rescued rows only (the others exit at once), so
+    no host sync tests any(rescue)."""
+    planes, cov = ops.rel_prep(fblob, iblob, P, R, max_m)
+    asgn1, _dp1, mm1 = ops.rel_dp(*planes, cov, P)
+    rescue, cov2 = ops.rel_rescue(planes, asgn1, P)
+    asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P, active=rescue)
+    return ops.rel_pack(asgn1, asgn2, mm1, mm2, rescue)
 
 
 def unpack_out(buf, max_m: int):

@@ -1,0 +1,678 @@
+"""The glue kernels (csrc/glue.cu: rel_prep, rel_rescue, rel_pack,
+rel_settle) through their g++ shims, against their plain torch versions
+and against the JAX package's device_pipeline functions, on the CPU.
+
+Inputs: the chunk packs of medium at batch 200 (the main layout staged by
+the C++ pack_rel, the all-device layout by pack.pack_chunk), branch/search9
+(rows the rescue re-runs) and branch/psum0 (the all-dead row), each with
+the first and rescue DP passes of the DP kernel's shim; and chunks made
+with numpy from a seed that reach m = 0 and m = max_m rows, all-H rows,
+rows with >= 70% H, no-H rows with D, symmetric reads (the hdrr tie),
+zero counts (an inf or NaN hdrr), counts at and past 32767, and margins
+of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.
+
+The JAX side runs as the JAX package's own tests run it, on its CPU
+backend: ``_rel_only_core`` (with ``_rel_pipeline`` and ``_pack_out``),
+``_unpack`` + ``_un_planes`` + ``_rel_pipeline(demotes=True)`` +
+``_reconcile_dev`` and the scatter and flag of ``classify_batch_dev``.
+Its DP (``rel_dp_pass2``) is replaced by a stand-in that returns the
+same two passes the port's side gets and records the planes and
+coverages it is handed (under ``jax.disable_jit``, so the rescue pass's
+``lax.cond`` runs eagerly).
+
+Tolerance: bit-equal on every output byte (integers, IEEE f64 compared as
+bit patterns, the packed buffer), except a NaN margin, whose four f32
+bytes need only be NaN on both sides.  (JAX's ``_reconcile_dev`` divides
+as XLA does; on its CPU backend that is IEEE, so it meets the port's
+IEEE hdrr on every read here, the exact ties included.)
+
+The ``gpu`` tests run the kernels on the card against their plain
+versions and skip without one.  JAX is imported only by the functions
+that run it (``_jax``), so that the ``gpu`` tests also run on a machine
+that has only the port's dependencies.
+"""
+import functools
+import math
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_kernel_shim import _load
+
+torch.set_num_threads(1)
+
+REPEAT, HAPLO, DIPLO, N_STATE = 1, 2, 3, 4
+# margins at the edges of the risky test and of the f32 conversion
+SPECIAL_MM = (0.0, -0.0, 1e-30, math.nextafter(1e-5, 0.0), 1e-5, math.inf,
+              math.nan, 5e-6, 0.5, 1e-300, 3.5e38)
+FIXTURES = ("medium0", "medium1", "search9", "psum0")
+RANDOM = ("rand0", "rand1", "rand2", "rand3")
+CASES = FIXTURES + RANDOM
+
+
+def bits(t):
+    """Tensor or array as comparable integers (f64 as bit patterns)."""
+    a = t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return a.view(np.int64) if a.dtype == np.float64 else a
+
+
+def assert_bits(got, want):
+    g, w = bits(got), bits(want)
+    assert g.shape == w.shape
+    np.testing.assert_array_equal(g, w)
+
+
+def assert_packed(got, want, max_m):
+    """Every byte equal; a NaN margin's bytes only NaN on both sides."""
+    got, want = np.asarray(got), np.asarray(want)
+    mm = lambda b: b[:, max_m + 1:].copy().view(np.float32).ravel()
+    nan = np.isnan(mm(want))
+    np.testing.assert_array_equal(np.isnan(mm(got)), nan)
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    np.testing.assert_array_equal(got[nan, :max_m + 1],
+                                  want[nan, :max_m + 1])
+
+
+# ------------------------------------------------------------- inputs
+
+def _jax():
+    """jax, jax.numpy and the JAX package's device_pipeline, on JAX's CPU
+    backend with 64-bit types."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from classpro_tpu.tpu import device_pipeline
+
+    return jax, jnp, device_pipeline
+
+
+@functools.lru_cache(maxsize=None)
+def _model(fx: str):
+    """The port's RelParams of a fixture, on the CPU."""
+    from classpro_tpu_torch.params import build_rel_params
+
+    return build_rel_params(_load(fx, 1)[0], "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model(fx: str):
+    """The JAX package's RelOnlyParams of a fixture."""
+    from test_torch_rel import _jax_gm, _jax_params
+
+    return _jax_params(_jax_gm(fx))
+
+
+@functools.lru_cache(maxsize=None)
+def _staged(fx: str):
+    """(main-layout packs, all-device packs) of every chunk of ``fx`` at
+    batch 200."""
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.pack import pack_chunk
+
+    gm, seqs, profs = _load(fx)
+    eng = TorchEngine(gm, device="cpu")
+    main, alld = [], []
+    for lo in range(0, len(seqs), 200):
+        pk = eng.stage_pack(seqs[lo:lo + 200], profs[lo:lo + 200])
+        if pk is not None:
+            main.append(pk)
+        st = eng._stage(seqs[lo:lo + 200], profs[lo:lo + 200])
+        slab, slot, n_out = st["slab"], st["slot"], st["n_out"]
+        rows = [r for r in range(len(st["g"])) if n_out[r] > 0]
+        ivs = [slab[r * slot: r * slot + int(n_out[r])]
+               for r in range(len(st["g"]))]
+        fb, ib, dims, _ = pack_chunk(
+            rows, ivs, [len(st["profiles"][i]) for i in st["g"]])
+        alld.append((fb, ib, dims))
+    return main, alld
+
+
+def _fixture(case: str):
+    fx = {"search9": "branch/search9", "psum0": "branch/psum0"}.get(
+        case, "medium")
+    k = int(case[-1]) if case.startswith("medium") else 0
+    return fx, k
+
+
+def _dp_passes(planes, cov, P):
+    """The DP kernel shim's two passes on the planes (the rescue pass on
+    every row, so that both passes are defined everywhere)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import rescue_rows
+
+    asgn1, _, mm1 = kernels.rel_dp_host(*planes, cov, P)
+    _, cov2 = rescue_rows(planes, asgn1, P, asgn1.shape[1])
+    asgn2, _, mm2 = kernels.rel_dp_host(*planes, cov2, P)
+    return asgn1, mm1, asgn2, mm2
+
+
+def _row_patterns(rng, m, R, max_m, sym):
+    """Two passes of (2R, max_m) int8 assignments: all-H, >= 70% H, no-H
+    with D and mixed rows (random values in the padding columns); the
+    symmetric reads' bw rows repeat their fw rows in scan order."""
+    out = rng.integers(0, 4, (2 * R, max_m)).astype(np.int8)
+    for r in range(2 * R):
+        n = int(m[r % R])
+        kind = rng.integers(0, 5)
+        if kind == 0:
+            row = np.full(n, HAPLO)
+        elif kind == 1:
+            row = np.where(rng.random(n) < 0.8, HAPLO,
+                           rng.choice([DIPLO, REPEAT], n))
+        elif kind == 2:
+            row = rng.choice([DIPLO, DIPLO, REPEAT, 0], n)
+        elif kind == 3:
+            row = np.full(n, REPEAT)
+            row[n // 2:] = 0
+        else:
+            row = rng.integers(0, 4, n)
+        out[r, :n] = row
+    for j in np.nonzero(sym)[0]:
+        out[R + j] = out[j]
+    return out
+
+
+def _margins(rng, n):
+    """n DP margins, every value of SPECIAL_MM among them."""
+    mm = rng.choice(SPECIAL_MM, n)
+    mm[rng.permutation(n)[:len(SPECIAL_MM)]] = SPECIAL_MM
+    return mm
+
+
+def _counts(rng, n, gH, gD, sym):
+    """ccb, cce of one read's n intervals: near gH, gD or between,
+    constant on a symmetric read, with zeros and counts at and past
+    32767."""
+    if sym:
+        c = np.full(n, int(rng.choice([gH, gD, 7])))
+        return c, c.copy()
+    centre = int(rng.choice([gH, gD, (gH + gD) // 2, 3 * gH]))
+    ccb = np.maximum(rng.integers(centre - 4, centre + 5, n), 0)
+    cce = np.maximum(ccb + rng.integers(-3, 4, n), 0)
+    special = rng.random(n)
+    ccb[special < 0.08] = 0
+    cce[(special > 0.92) & (special < 0.95)] = 32767
+    ccb[special > 0.97] = 40000
+    return ccb, cce
+
+
+@functools.lru_cache(maxsize=None)
+def _main_case(case: str):
+    """(fblob, iblob, R, max_m, asgn1, mm1, asgn2, mm2) of a main-layout
+    case: a fixture's chunk with the DP shim's passes, or a numpy chunk."""
+    from classpro_tpu_torch.rel import rel_planes
+
+    P = _P(case)
+    if case in FIXTURES:
+        fx, k = _fixture(case)
+        fb, ib, R, max_m = _staged(fx)[0][k]
+        fb, ib = torch.from_numpy(fb), torch.from_numpy(ib)
+        planes = rel_planes(fb, ib, P, R, max_m)
+        cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
+        return (fb, ib, R, max_m) + _dp_passes(planes, cov, P)
+    seed = int(case[-1])
+    rng = np.random.default_rng(100 + seed)
+    R, max_m = 16, 32
+    gH, gD = int(P.gcov[HAPLO]), int(P.gcov[DIPLO])
+    m = rng.integers(0, max_m + 1, R)
+    m[:3] = [0, max_m, 1]
+    sym = rng.random(R) < 0.25
+    b = np.zeros((R, max_m), np.int32)
+    e = np.ones((R, max_m), np.int32)
+    ccb = np.ones((R, max_m), np.int32)
+    cce = np.ones((R, max_m), np.int32)
+    pe = np.full((R, max_m), -np.inf)
+    for j in range(R):
+        n = int(m[j])
+        starts = np.cumsum(rng.integers(1, 60, n))
+        b[j, :n] = starts
+        e[j, :n] = starts + rng.integers(1, 50, n)
+        ccb[j, :n], cce[j, :n] = _counts(rng, n, gH, gD, sym[j])
+        pe[j, :n] = np.where(rng.random(n) < 0.1, -np.inf,
+                             -rng.random(n) * 40)
+    plen = rng.integers(100, 5000, R)
+    ib = np.concatenate([b.ravel(), e.ravel(), ccb.ravel(), cce.ravel(), m,
+                         plen]).astype(np.int32)
+    asgn = [_row_patterns(rng, m, R, max_m, sym) for _ in range(2)]
+    mm = [_margins(rng, 2 * R) for _ in range(2)]
+    t = torch.from_numpy
+    return (t(pe.ravel()), t(ib), R, max_m, t(asgn[0]), t(mm[0]),
+            t(asgn[1]), t(mm[1]))
+
+
+class _StubDP:
+    """Stands in for rel_dev2.rel_dp_pass2 in the JAX pipeline: returns
+    the given passes in call order and records what it was handed."""
+
+    def __init__(self, passes):
+        self.passes = passes
+        self.calls = []
+
+    def __call__(self, bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m,
+                 plen, fwd, cov, P, max_m):
+        jnp = _jax()[1]
+        self.calls.append({"planes": tuple(np.asarray(x) for x in (
+            bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd)),
+            "cov": np.asarray(cov)})
+        a, mm = self.passes[len(self.calls) - 1]
+        return jnp.asarray(a), None, jnp.asarray(mm)
+
+
+def _stubbed(passes, fn, *args, **kw):
+    jax, _, J = _jax()
+    stub = _StubDP(passes)
+    with mock.patch.object(J, "rel_dp_pass2", stub), jax.disable_jit():
+        return fn(*args, **kw), stub
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_main(case: str):
+    """JAX's _rel_only_core and _pack_out on a main-layout case: (the
+    planes handed to its DP, its rescue pass's coverages or None, its
+    (asgn, margin, rescue), its packed result)."""
+    jax, jnp, J = _jax()
+    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case(case)
+    pp = _jax_model(_fx(case))
+    passes = [(a1.numpy(), m1.numpy()), (a2.numpy(), m2.numpy())]
+    core, stub = _stubbed(passes, J._rel_only_core, jnp.asarray(fb.numpy()),
+                          jnp.asarray(ib.numpy()), pp, R, max_m)
+    cov2 = stub.calls[1]["cov"] if len(stub.calls) > 1 else None
+    with jax.disable_jit():
+        packed = np.asarray(J._pack_out(*core, max_m))
+    return (stub.calls[0]["planes"], cov2,
+            tuple(np.asarray(x) for x in core), packed)
+
+
+def _fx(case: str) -> str:
+    """The fixture whose model a case uses (tiny's for the numpy chunks)."""
+    return _fixture(case)[0] if case in FIXTURES else "tiny"
+
+
+def _P(case: str):
+    return _model(_fx(case))
+
+
+# ------------------------------------------------------ the main layout
+
+@pytest.mark.parametrize("case", CASES)
+def test_rel_prep_main(case):
+    """rel_prep's shim == rel.prep_ref == the planes JAX's _rel_only_core
+    hands its DP, every plane bit for bit."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import prep_ref
+
+    fb, ib, R, max_m = _main_case(case)[:4]
+    P = _P(case)
+    planes, cov = kernels.rel_prep_host(fb, ib, P, R, max_m)
+    p_r, c_r = prep_ref(fb, ib, P, R, max_m)
+    for a, b in zip(planes + (cov,), p_r + (c_r,)):
+        assert a.dtype == b.dtype
+        assert_bits(a, b)
+    for a, b in zip(planes, _jax_main(case)[0]):
+        assert_bits(a, b.astype(bits(a).dtype) if b.dtype == bool else b)
+    assert_bits(cov, np.broadcast_to(P.gcov.numpy(), (2 * R, 4)))
+    if case in RANDOM:       # m = 0 and m = max_m rows, clamped counts
+        m = planes[7].numpy()
+        assert (m == 0).any() and (m == max_m).any()
+        assert (planes[1].numpy() > 32767).any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rel_rescue(case):
+    """rel_rescue's shim == rel.rescue_rows == JAX's rescue flags and
+    rescue-pass coverages, on the first pass's assignments."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import prep_ref, rescue_rows
+
+    fb, ib, R, max_m, a1 = _main_case(case)[:5]
+    P = _P(case)
+    planes, _ = prep_ref(fb, ib, P, R, max_m)
+    rescue, cov2 = kernels.rel_rescue_host(planes, a1, P)
+    r_r, c_r = rescue_rows(planes, a1, P, max_m)
+    assert_bits(rescue, r_r)
+    assert_bits(cov2, c_r)
+    _, j_cov2, (_, _, j_res), _ = _jax_main(case)
+    assert_bits(rescue, j_res)
+    if j_cov2 is not None:
+        assert_bits(cov2, j_cov2)
+    else:
+        assert not bool(rescue.any())
+    if case == "search9":
+        assert bool(rescue.any())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rel_pack(case):
+    """rel_pack's shim == rel.pack_ref == JAX's _pack_out of its merged
+    passes, every byte (NaN margins: NaN on both sides)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref, prep_ref, rescue_rows
+
+    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case(case)
+    P = _P(case)
+    planes, _ = prep_ref(fb, ib, P, R, max_m)
+    rescue, _ = rescue_rows(planes, a1, P, max_m)
+    args = (a1, a2, m1, m2, rescue)
+    got = kernels.rel_pack_host(*args).numpy()
+    assert_packed(got, pack_ref(*args).numpy(), max_m)
+    assert_packed(got, _jax_main(case)[3], max_m)
+    if case in RANDOM:       # every margin edge case through the pack
+        none = torch.zeros_like(rescue)
+        assert set(m1.numpy().view(np.int64)) >= set(
+            np.array(SPECIAL_MM).view(np.int64))
+        assert_packed(kernels.rel_pack_host(a1, a2, m1, m2, none).numpy(),
+                      pack_ref(a1, a2, m1, m2, none).numpy(), max_m)
+
+
+# -------------------------------------------------- the all-device layout
+
+def _random_alldev(seed: int, P):
+    """A numpy chunk of 12 reads through pack.pack_chunk: interval records
+    with random reliable flags (one read with exactly 32 reliable
+    intervals, so m = max_m), counts as _counts makes them."""
+    from classpro_tpu_torch.native import _IVDT
+    from classpro_tpu_torch.pack import pack_chunk
+
+    rng = np.random.default_rng(200 + seed)
+    gH, gD = int(P.gcov[HAPLO]), int(P.gcov[DIPLO])
+    ivs, sym = [], []
+    for r in range(12):
+        n = 40 if r == 0 else int(rng.integers(1, 40))
+        rec = np.zeros(n, _IVDT)
+        starts = np.cumsum(rng.integers(1, 60, n))
+        rec["b"], rec["e"] = starts, starts + rng.integers(1, 50, n)
+        s = bool(rng.random() < 0.25)
+        rec["ccb"], rec["cce"] = _counts(rng, n, gH, gD, s)
+        rec["cb"] = np.maximum(rec["ccb"] + rng.integers(-2, 3, n), 0)
+        rec["ce"] = np.maximum(rec["cce"] + rng.integers(-2, 3, n), 0)
+        rel = rng.random(n) < rng.choice([0.3, 0.7, 1.0])
+        if r == 0:
+            rel[:] = False
+            rel[:32] = True
+        rec["is_rel"] = rel
+        for k in ("pe", "pe_o_b", "pe_o_e"):
+            rec[k] = -rng.random(n) * 40
+        ivs.append(rec)
+        sym.append(s)
+    plens = [int(x) for x in rng.integers(2000, 9000, 12)]
+    fb, ib, dims, meta = pack_chunk(list(range(12)), ivs, plens)
+    return fb, ib, dims, rng
+
+
+@functools.lru_cache(maxsize=None)
+def _alldev_case(case: str):
+    """(fblob, iblob, dims, asgn1, mm1, asgn2, mm2) of an all-device
+    case."""
+    from classpro_tpu_torch.alldev import prep_ref
+
+    P = _P(case)
+    if case in FIXTURES:
+        fx, k = _fixture(case)
+        fb, ib, dims = _staged(fx)[1][k]
+    else:
+        fb, ib, dims, rng = _random_alldev(int(case[-1]), P)
+    Bn, max_n, R2, max_m = dims
+    fb, ib = torch.from_numpy(fb), torch.from_numpy(ib)
+    planes, cov, _ = prep_ref(fb, ib, P, R2 // 2, max_m, Bn, max_n)
+    if case in FIXTURES:
+        return (fb, ib, dims) + _dp_passes(planes, cov, P)
+    m = planes[7].numpy()[:R2 // 2]
+    sym = np.zeros(R2 // 2, bool)
+    sym[::3] = True
+    t = torch.from_numpy
+    return (fb, ib, dims,
+            t(_row_patterns(rng, m, R2 // 2, max_m, sym)),
+            t(_margins(rng, R2)),
+            t(_row_patterns(rng, m, R2 // 2, max_m, sym)),
+            t(_margins(rng, R2)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_alldev(case: str):
+    """JAX's side of an all-device case: the DP planes its _rel_pipeline
+    hands the DP, _un_planes, the demoted rows, _reconcile_dev, and the
+    scatter and rel flag of classify_batch_dev."""
+    jax, jnp, J = _jax()
+    fb, ib, dims, a1, m1, a2, m2 = _alldev_case(case)
+    Bn, max_n, R2, max_m = dims
+    R = R2 // 2
+    pp = _jax_model(_fx(case))
+    EPS = 1e-5
+    with jax.disable_jit():
+        U = J._unpack(jnp.asarray(fb.numpy()), jnp.asarray(ib.numpy()),
+                      *dims)
+        P13, packL, packR = J._un_planes(U, pp)
+        (rel2, mm, rescue), stub = _stubbed(
+            [(a1.numpy(), m1.numpy()), (a2.numpy(), m2.numpy())],
+            J._rel_pipeline, U, pp, R2, max_m)
+        rel_out = J._reconcile_dev(rel2, U["m"], U["bcnt"], U["ecnt"],
+                                 U["fwd"], R, max_m)
+        asgn = jnp.full((Bn, max_n), N_STATE, jnp.int32).at[
+            U["rel_rows"][:, None], U["rel_cols"]].set(rel_out, mode="drop")
+        risky = lambda v: (v > 0.0) & (v < EPS)
+        flag = jnp.zeros(Bn, jnp.int32).at[U["rel_rows"]].max(
+            (risky(mm[:R]) | risky(mm[R:])).astype(jnp.int32), mode="drop")
+    return {"planes": stub.calls[0]["planes"], "cov": stub.calls[0]["cov"],
+            "P13": np.asarray(P13), "packL": np.asarray(packL),
+            "packR": np.asarray(packR), "is_rel": np.asarray(U["is_rel"]),
+            "live": np.asarray(U["live"]), "rel2": np.asarray(rel2),
+            "rel_out": np.asarray(rel_out), "asgn": np.asarray(asgn),
+            "flag": np.asarray(flag) > 0}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rel_prep_alldev(case):
+    """rel_prep's shim in the all-device layout == alldev.prep_ref == the
+    planes JAX's _rel_pipeline hands its DP and its _un_planes, bit for
+    bit; the sweeps' assignment rows all N_STATE, every gate unflagged."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.alldev import prep_ref
+    from classpro_tpu_torch.kernels import GATE_UNFLAGGED
+
+    fb, ib, dims = _alldev_case(case)[:3]
+    Bn, max_n, R2, max_m = dims
+    P = _P(case)
+    planes, cov, un = kernels.rel_prep_host(fb, ib, P, R2 // 2, max_m,
+                                            alldev=(Bn, max_n))
+    p_r, c_r, un_r = prep_ref(fb, ib, P, R2 // 2, max_m, Bn, max_n)
+    for a, b in zip(planes + (cov,), p_r + (c_r,)):
+        assert a.dtype == b.dtype
+        assert_bits(a, b)
+    assert set(un) == set(un_r)
+    for k in un:
+        assert un[k].dtype == un_r[k].dtype
+        assert_bits(un[k], un_r[k])
+    J = _jax_alldev(case)
+    for a, b in zip(planes, J["planes"]):
+        assert_bits(a, b.astype(bits(a).dtype) if b.dtype == bool else b)
+    assert_bits(cov, J["cov"])
+    for k in ("P13", "packL", "packR"):
+        assert_bits(un[k], J[k])
+    assert_bits(un["is_rel"], J["is_rel"] != 0)
+    assert_bits(un["live"], J["live"] != 0)
+    assert bool((un["asgn"] == N_STATE).all())
+    assert_bits(un["gate"], np.array(GATE_UNFLAGGED)[:, None].repeat(Bn, 1))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rel_settle(case):
+    """rel_settle's shim == alldev.settle_ref (sweep assignments and
+    margin gate, bit for bit) == JAX's _demotes_dev + _reconcile_dev +
+    scatter and its rel flag (the gate's lower bound -inf exactly where
+    the flag is set)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.alldev import prep_ref, settle_ref
+    from classpro_tpu_torch.kernels import blob_views
+    from classpro_tpu_torch.rel import rescue_rows
+
+    fb, ib, dims, a1, m1, a2, m2 = _alldev_case(case)
+    Bn, max_n, R2, max_m = dims
+    R = R2 // 2
+    P = _P(case)
+    planes, _, un = prep_ref(fb, ib, P, R, max_m, Bn, max_n)
+    rescue, _ = rescue_rows(planes, a1, P, max_m)
+    V = blob_views(fb, ib, *dims)
+    args = (a1, a2, m1, m2, rescue, planes, V["rel_rows"], V["rel_cols"], P)
+    got = (un["asgn"].clone(), un["gate"].clone())
+    want = (un["asgn"].clone(), un["gate"].clone())
+    kernels.rel_settle_host(*args, *got)
+    settle_ref(*args, *want)
+    assert_bits(got[0], want[0])
+    assert_bits(got[1], want[1])
+
+    J = _jax_alldev(case)
+    np.testing.assert_array_equal(got[0].numpy(), J["asgn"])
+    flag = got[1][0].numpy() == -np.inf
+    np.testing.assert_array_equal(flag, J["flag"])
+    np.testing.assert_array_equal(flag, got[1][1].numpy() == np.inf)
+
+
+def test_random_cases_reach_the_branches():
+    """The numpy chunks reach what they were made for: bw rows taken by
+    the reconciliation, symmetric reads whose fw row is not the reversed
+    bw row (the hdrr tie), zero counts at D or H intervals (an inf or NaN
+    hdrr), reads with and without a risky rel margin, m = max_m rows."""
+    from classpro_tpu_torch.kernels import blob_views
+
+    took = tie = zero = flagged = unflagged = full = 0
+    for case in RANDOM:
+        fb, ib, dims = _alldev_case(case)[:3]
+        Bn, max_n, R2, max_m = dims
+        R = R2 // 2
+        J = _jax_alldev(case)
+        rel2, out = J["rel2"], J["rel_out"]
+        m = J["planes"][7][:R]
+        inb = np.arange(max_m)[None, :] < m[:, None]
+        live = blob_views(fb, ib, *dims)["rel_rows"].numpy() < Bn
+        took += int((((out != rel2[:R]) & inb).any(1) & live).sum())
+        flip = np.where(inb, m[:, None] - 1 - np.arange(max_m)[None, :],
+                        np.arange(max_m)[None, :])
+        bw = np.take_along_axis(rel2[R:], flip, axis=1)
+        bc, ec = J["planes"][1][:R], J["planes"][3][:R]
+        sym = (bc == np.take_along_axis(ec, flip, axis=1)) | ~inb
+        tie += int((sym.all(1) & ((rel2[:R] != bw) & inb).any(1)
+                    & live).sum())
+        dh = inb & ((rel2[:R] == DIPLO) | (rel2[:R] == HAPLO))
+        zero += int((dh & (bc == 0)).any(1).sum())
+        flagged += int(J["flag"].sum())
+        unflagged += int((~J["flag"]).sum())
+        full += int((m == max_m).sum())
+    assert took and tie and zero and flagged and unflagged and full
+
+
+# ------------------------------------------------- wrappers, geometry, gpu
+
+def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
+    """Wrong dtypes, shapes or blob lengths raise; on CPU tensors the
+    wrappers run the plain versions and count no launch."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref, prep_ref
+
+    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case("rand0")
+    P = _P("rand0")
+    with pytest.raises(ValueError, match="iblob"):
+        kernels.rel_prep_host(fb, ib[:-1], P, R, max_m)
+    with pytest.raises(ValueError, match="fblob"):
+        kernels.rel_prep_host(fb.to(torch.float32), ib, P, R, max_m)
+    planes, cov = prep_ref(fb, ib, P, R, max_m)
+    with pytest.raises(ValueError, match="asgn"):
+        kernels.rel_rescue_host(planes, a1.to(torch.int32), P)
+    rescue = torch.zeros(2 * R, dtype=torch.bool)
+    with pytest.raises(ValueError, match="mm2"):
+        kernels.rel_pack_host(a1, a2, m1, m2[:-1], rescue)
+    n0 = dict(kernels.LAUNCHES)
+    for a, b in zip(kernels.rel_prep(fb, ib, P, R, max_m)[0], planes):
+        assert_bits(a, b)
+    assert_bits(kernels.rel_pack(a1, a2, m1, m2, rescue),
+                pack_ref(a1, a2, m1, m2, rescue))
+    assert kernels.LAUNCHES == n0
+
+
+def test_glue_geometry():
+    """One thread per cell in blocks of 256, grid-stride past 2112
+    blocks; one warp per row (read pair) in blocks of four warps."""
+    from classpro_tpu_torch import kernels
+
+    assert kernels.glue_geometry("rel_prep", 512 * 128, "host") == {
+        "threads_per_block": 256, "blocks": 256}
+    assert kernels.glue_geometry("rel_prep", 10 ** 7, "host")["blocks"] \
+        == 132 * 16
+    for name in ("rel_rescue", "rel_pack", "rel_settle"):
+        assert kernels.glue_geometry(name, 511, "host") == {
+            "threads_per_block": 128, "blocks": 128}
+
+
+def _card_params(case):
+    from classpro_tpu_torch.params import build_rel_params
+
+    return build_rel_params(_load(_fx(case), 1)[0], "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("medium0", "search9", "rand0", "rand1"))
+def test_main_glue_kernels_match_plain_on_card(case):
+    """rel_prep, rel_rescue and rel_pack on the card against their plain
+    versions on the same card inputs, bit for bit; each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref, prep_ref, rescue_rows
+
+    fb, ib, R, max_m, a1, m1, a2, m2 = (
+        t.cuda() if isinstance(t, torch.Tensor) else t
+        for t in _main_case(case))
+    P = _card_params(case)
+    n0 = dict(kernels.LAUNCHES)
+    planes, cov = kernels.rel_prep(fb, ib, P, R, max_m)
+    p_r, c_r = prep_ref(fb, ib, P, R, max_m)
+    rescue, cov2 = kernels.rel_rescue(planes, a1, P)
+    r_r, c2_r = rescue_rows(planes, a1, P, max_m)
+    got = kernels.rel_pack(a1, a2, m1, m2, rescue)
+    want = pack_ref(a1, a2, m1, m2, rescue)
+    torch.cuda.synchronize()
+    for a, b in zip(planes + (cov, rescue, cov2), p_r + (c_r, r_r, c2_r)):
+        assert_bits(a.cpu(), b.cpu())
+    assert_packed(got.cpu().numpy(), want.cpu().numpy(), max_m)
+    for k in ("rel_prep", "rel_rescue", "rel_pack"):
+        assert kernels.LAUNCHES[k] == n0[k] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("medium0", "psum0", "rand0", "rand1"))
+def test_alldev_glue_kernels_match_plain_on_card(case):
+    """rel_prep (all-device layout) and rel_settle on the card against
+    their plain versions on the same card inputs, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.alldev import prep_ref, settle_ref
+    from classpro_tpu_torch.kernels import blob_views
+    from classpro_tpu_torch.rel import rescue_rows
+
+    fb, ib, dims, a1, m1, a2, m2 = (
+        t.cuda() if isinstance(t, torch.Tensor) else t
+        for t in _alldev_case(case))
+    Bn, max_n, R2, max_m = dims
+    P = _card_params(case)
+    planes, cov, un = kernels.rel_prep(fb, ib, P, R2 // 2, max_m,
+                                       (Bn, max_n))
+    p_r, c_r, un_r = prep_ref(fb, ib, P, R2 // 2, max_m, Bn, max_n)
+    for a, b in zip(planes + (cov,), p_r + (c_r,)):
+        assert_bits(a.cpu(), b.cpu())
+    for k in un:
+        assert_bits(un[k].cpu(), un_r[k].cpu())
+    rescue, _ = rescue_rows(planes, a1, P, max_m)
+    V = blob_views(fb, ib, *dims)
+    args = (a1, a2, m1, m2, rescue, planes, V["rel_rows"], V["rel_cols"], P)
+    got = (un["asgn"].clone(), un["gate"].clone())
+    want = (un["asgn"].clone(), un["gate"].clone())
+    kernels.rel_settle(*args, *got)
+    settle_ref(*args, *want)
+    torch.cuda.synchronize()
+    assert_bits(got[0].cpu(), want[0].cpu())
+    assert_bits(got[1].cpu(), want[1].cpu())

@@ -99,6 +99,7 @@ def test_serve_two_jobs_byte_equal_and_warm(daemon, tmp_path):
     """Job 1 by ``request``, job 2 by ``classify --server``: both byte-
     equal to the direct port CLI and to the tiny golden; the tables were
     uploaded once; the buckets run are reported."""
+    from classpro_tpu_torch import kernels
     from classpro_tpu_torch.cli import main
 
     direct = tmp_path / "direct.class"
@@ -113,7 +114,7 @@ def test_serve_two_jobs_byte_equal_and_warm(daemon, tmp_path):
     assert rep["ok"], rep
     assert rep["reads"] == 221 and rep["kmers"] == 892969
     assert rep["guard_flagged"] == 0 and rep["warm_shapes"]
-    assert rep["launches"] == {"rel_dp": 0, "unrel_sweeps": 0}  # CPU
+    assert rep["launches"] == dict.fromkeys(kernels.LAUNCHES, 0)  # CPU
     assert out1.read_bytes() == direct.read_bytes()
 
     out2 = tmp_path / "o2.class"
