@@ -9,9 +9,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. build   - nvcc builds csrc/rel_dp.cu, csrc/unrel.cu and csrc/glue.cu
              (the four glue kernels) for sm_90a (printing -Xptxas -v)
              while g++ builds the C++ host library, all four at once,
-             from the checkout; each entry function's registers, stack
-             and spill bytes (rel_dp_kernel, unrel_kernel,
-             rel_prep_main_kernel, rel_prep_alldev_kernel,
+             from the checkout; each entry function's registers, static
+             shared bytes, stack and spill bytes (rel_dp_kernel,
+             unrel_kernel, rel_prep_main_kernel, rel_prep_alldev_kernel,
              rel_rescue_kernel, rel_pack_kernel, rel_settle_kernel) are
              parsed from the log, and a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
@@ -35,10 +35,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              row) and each glue kernel (CUDA events around a CUDA graph
              of 20 launches), with their plain versions and bounds, at
              the medium shapes, with the launch geometry.
-   k1profile, k5profile (only when named) - K1 (medium chunks) or K5
-             (medium alldev chunks and the long-row chunk) built with its
-             per-phase clocks against the production kernel bit for bit,
-             both timed in turns, and the clock sums per step.
+   k1profile, k5profile, settleprofile (only when named) - K1 (medium
+             chunks), K5 (medium alldev chunks and the long-row chunk) or
+             rel_settle (medium alldev chunks) built with its per-phase
+             clocks against the production kernel bit for bit, both timed
+             in turns, and the clock sums per step (per read pair for
+             rel_settle).
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
              golden.class.gz; the launch counts are reset just before and
@@ -62,7 +64,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              sweeps' assignment rows and the margin gate) against their
              plain versions, bit for bit; and the whole classify_batch
              with the kernels against it with the plain versions,
-             outputs and flags equal; times each (every chunk kept).
+             outputs and flags equal; times each (every chunk kept),
+             the glue kernels with their launch geometry (threads and
+             blocks, shared bytes per block).  With --parent DIR (a
+             checkout of an earlier commit), that checkout's glue.cu is
+             built too and its rel_prep and rel_settle are held against
+             this tree's on every chunk, bit for bit, and timed in turns
+             with them (parent, this tree, this tree, parent).
              Then one synthetic long-row chunk (the tests'
              random_sweep_inputs, 256 rows of up to 1100 intervals: the
              rows' state in the global scratch) through the sweep kernel,
@@ -135,7 +143,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 It prints one {"kernels": [...]} line (all six kernels: rel_dp,
 unrel_sweeps, rel_prep, rel_rescue, rel_pack, rel_settle, each with its
-registers, stack and spill bytes and launch geometry), {"stream": {...}},
+registers, shared bytes, stack and spill bytes and launch geometry;
+rel_prep's all-device layout and rel_settle with the parent's times
+when --parent is given), {"stream": {...}},
 {"alldev_stream": {...}}, {"glue_ab": {...}} (when named),
 {"shard": {...}} and {"serve": {...}} lines
 (ready_s, each job's wall_s and k-mers/s, table_uploads, launches, the
@@ -188,11 +198,12 @@ OPS_PER_K4_CELL = 30
 # operations of the glue kernels, read off glue_row.cuh: per plane cell
 # of rel_prep (the reversal index, two clamps, the E emission: 2 products,
 # 6 sums, a log, a max ~15), per interval cell of the all-device rel_prep
-# (3 logs, 4 Poisson terms of 3 each, 8 casts ~25), per D cell of
-# rel_rescue (length, half count, keyed min ~10; its other live cells
-# cost the two state tests of OPS_RESCUE_TEST), per cell of rel_pack (a
-# select ~2) and per live cell of rel_settle (its eleven passes over both
-# rows: ~40)
+# (4 Poisson terms of 3 each, the E emission's max, 8 casts ~25; its 3
+# logs are per chunk), per D cell of rel_rescue (length, half count,
+# keyed min ~10; its other live cells cost the two state tests of
+# OPS_RESCUE_TEST), per cell of rel_pack (a select ~2) and per live cell
+# of rel_settle (length, half count and the stage sums, the state after
+# the stages and the reconciliation's compares, the scatter: ~40)
 OPS_PREP_CELL = 15
 OPS_PREP_UN_CELL = 25
 OPS_RESCUE_CELL = 10
@@ -283,11 +294,12 @@ def phase_build():
 
 
 def ptxas_resources(log: str, kernel: str) -> dict:
-    """Registers, stack bytes and spill bytes of entry function ``kernel``
-    from nvcc's -Xptxas -v output."""
+    """Registers, static shared bytes (0 where ptxas prints none), stack
+    bytes and spill bytes of entry function ``kernel`` from nvcc's
+    -Xptxas -v output."""
     import re
 
-    res: dict = {}
+    res: dict = {"smem_bytes": 0}
     inside = False
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -303,8 +315,11 @@ def ptxas_resources(log: str, kernel: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             res["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            res["smem_bytes"] = int(m[1])
     if set(res) != {"stack_bytes", "spill_store_bytes", "spill_load_bytes",
-                    "registers"}:
+                    "registers", "smem_bytes"}:
         fail(f"no -Xptxas -v resources for {kernel} in the build log")
     return res
 
@@ -733,14 +748,17 @@ K1_PARTS = ("A", "exchange1", "B1", "exchange2", "B2", "exchange3", "C")
 K5_PARTS = ("S", "exchangeA", "I", "exchangeB", "K", "exchangesCD_H", "D")
 
 
-def _clock_profile(name: str, entry: str, parts, cases) -> dict:
+def _clock_profile(name: str, entry: str, parts, cases,
+                   timer=_time_cuda) -> dict:
     """A kernel's per-phase clocks (opt-in: --phases k1profile,
-    k5profile).  Builds kernel ``name`` once more with -DRD_PHASE_CLOCKS;
+    k5profile, settleprofile).  Builds kernel ``name`` once more with -DRD_PHASE_CLOCKS;
     on each case (tag, C arguments, the tensors the launch writes, the
     production kernel's outputs) holds that build's outputs to the
-    production kernel's bit for bit, times the two in turns (CUDA events
-    over 20 launches, ctypes launches without the wrapper) and reads the
-    clock sums (cycles per step of the warp's loop, lane 0 of each row)."""
+    production kernel's bit for bit, times the two in turns (``timer``
+    over 20 ctypes launches without the wrapper: CUDA events around eager
+    launches by default) and reads the clock sums (cycles per step of the
+    warp's loop, lane 0 of each row; per read pair, thread 0 of its
+    block, for rel_settle)."""
     import ctypes
 
     from classpro_tpu_torch import kernels
@@ -772,7 +790,9 @@ def _clock_profile(name: str, entry: str, parts, cases) -> dict:
         rec["cycles_per_step"].append(
             {p: out[j] / n for j, p in enumerate(parts)})
         for v in ("plain", "clocks", "clocks", "plain"):
-            rec["ms"][v].append(_time_cuda(lambda: fns[v](*args, stream), 20))
+            rec["ms"][v].append(timer(
+                lambda: fns[v](*args, torch.cuda.current_stream()
+                               .cuda_stream), 20))
         say(f"{name} profile: {tag}: production "
             f"{rec['ms']['plain'][-2]:.4f}, {rec['ms']['plain'][-1]:.4f} ms; "
             f"clocked {rec['ms']['clocks'][-2]:.4f}, "
@@ -822,6 +842,29 @@ def phase_k5profile() -> dict:
         out.append((tag, args, (o, mm), want))
         scratch.append(sc)          # the launches use it
     return _clock_profile("unrel_sweeps", "unrel_kernel", K5_PARTS, out)
+
+
+SETTLE_PARTS = ("rows_load", "reduce1", "decide", "scan", "reduce2", "hdrr",
+                "scatter")
+
+
+def phase_settleprofile() -> dict:
+    """rel_settle's cycles by part (thread 0 of each read pair's block) on
+    the medium alldev chunks, the clocked build against the production
+    kernel bit for bit, both timed in turns in CUDA graphs."""
+    from classpro_tpu_torch import kernels
+
+    cases, alive = [], []
+    for k, c in enumerate(_alldev_chunks()):
+        tag = f"medium alldev chunk {k}"
+        g = _glue_alldev(tag, c["fb_d"], c["ib_d"], c["PP"].rel, c["dims"])
+        outs = tuple(t.clone() for t in g["fresh"])
+        alive.append(g)                  # the launches read its tensors
+        cases.append((tag, kernels._settle_args(*g["rel_settle"][:-2],
+                                                *outs),
+                      outs, g["rel_settle"][-2:]))
+    return _clock_profile("rel_settle", "rel_settle_kernel", SETTLE_PARTS,
+                          cases, timer=_graph_ms)
 
 
 # --------------------------------------------------------------------- 4
@@ -1386,7 +1429,7 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
     UN, cells = Bn * max_n, R2 * max_m
     return {
         "rel_prep": (fb_d, ib_d, P, R, max_m, (Bn, max_n)),
-        "rel_settle": sargs + got,
+        "rel_settle": sargs + got, "fresh": (un["asgn"], un["gate"]),
         "flagged": int(torch.isinf(got[1][0]).sum()), "err": err,
         "bounds": {
             "rel_prep": _bound(
@@ -1400,13 +1443,91 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
                 live * OPS_SETTLE_CELL)}}
 
 
-def phase_alldev():
+def _parent_glue(parent: str) -> dict:
+    """The launch entries of rel_prep and rel_settle in the checkout
+    ``parent`` (an earlier commit of this repository): its
+    classpro_tpu_torch/csrc/glue.cu built with this tree's nvcc flags into
+    a library of its own, each entry bound with this tree's argument
+    list (the kernels' C interface did not change)."""
+    import ctypes
+
+    from classpro_tpu_torch import kernels
+
+    csrc = os.path.join(parent, "classpro_tpu_torch", "csrc")
+    so = os.path.join(HERE, "classpro_tpu_torch", "_build",
+                      "libglue_parent.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    t0 = time.time()
+    r = subprocess.run([kernels._nvcc()] + kernels.NVCC_FLAGS
+                       + ["-I", csrc, os.path.join(csrc, "glue.cu"), "-o",
+                          so], capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"nvcc failed on the parent's glue.cu:\n{r.stderr}")
+    lib = ctypes.CDLL(so)
+    fns = {}
+    for name in ("rel_prep", "rel_settle"):
+        fn = getattr(lib, f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = kernels._ARGTYPES[name] + [ctypes.c_void_p]
+        fns[name] = fn
+        res = ptxas_resources(r.stdout + r.stderr, ENTRIES[name][-1])
+        say(f"build: parent {ENTRIES[name][-1]} {json.dumps(res)}")
+    say(f"build: nvcc {parent}'s glue.cu {time.time() - t0:.1f} s")
+    return fns
+
+
+def _time_parent(g: dict, name: str, args, fn, fresh, tag: str) -> None:
+    """The parent's kernel ``name`` (``fn``, its C launch entry) on this
+    chunk's arguments: its outputs against this tree's kernel's, bit for
+    bit (rel_settle into copies of ``fresh``, the sweeps' assignment rows
+    and gate as rel_prep left them), then both timed in turns (parent,
+    this tree, this tree, parent; ms per launch, ``_graph_ms``), appended
+    to g["ab"]."""
+    from classpro_tpu_torch import kernels
+
+    wrapper = getattr(kernels, name)
+
+    def parent(*a):
+        if name == "rel_prep":
+            cargs, planes, cov, un = kernels._prep_args(*a)
+            out = planes + (cov,) + tuple(un[k] for k in sorted(un))
+        else:
+            cargs, out = kernels._settle_args(*a), a[-2:]
+        err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"parent {name} launch failed: CUDA error {err}")
+        return out
+
+    if name == "rel_prep":
+        planes, cov, un = wrapper(*args)
+        mine = planes + (cov,) + tuple(un[k] for k in sorted(un))
+        theirs = parent(*args)
+    else:
+        mine = args[-2:]
+        theirs = parent(*args[:-2], *(t.clone() for t in fresh))
+    for k, (a, b) in enumerate(zip(theirs, mine)):
+        _same(tag, f"the parent's {name} output {k} against this tree's",
+              a, b)
+    ab = [_graph_ms(lambda: parent(*args), 20),
+          _graph_ms(lambda: wrapper(*args), 20),
+          _graph_ms(lambda: wrapper(*args), 20),
+          _graph_ms(lambda: parent(*args), 20)]
+    g.setdefault("ab", []).append(ab)
+    say(f"  {name}: parent {ab[0]:.4f}, {ab[3]:.4f} ms per launch, this "
+        f"tree {ab[1]:.4f}, {ab[2]:.4f} (in turns); the parent's outputs "
+        f"bit-equal to this tree's")
+
+
+def phase_alldev(parent_dir: str | None = None):
     """Sweep kernel vs plain, the all-device glue kernels vs plain and
     classify_batch kernels vs plain on every medium chunk, and the sweep
-    kernel on a long-row chunk, with times and bounds; returns the
-    record."""
+    kernel on a long-row chunk, with times and bounds; with
+    ``parent_dir`` (a checkout of an earlier commit), its rel_prep and
+    rel_settle against this tree's on every chunk, timed in turns.
+    Returns the record."""
     from classpro_tpu_torch import alldev, kernels
 
+    parent = _parent_glue(parent_dir) if parent_dir else None
     rec = {"max_abs_err": 0.0, "chunks": [], "glue": {}, "glue_err": {}}
     plains = {"rel_prep": lambda fb, ib, P, R, M, ad: alldev.prep_ref(
         fb, ib, P, R, M, *ad), "rel_settle": alldev.settle_ref}
@@ -1441,14 +1562,20 @@ def phase_alldev():
             _time_glue(rec["glue"], name, gargs[name], plains[name],
                        gargs["bounds"][name])
             g = rec["glue"][name]
-            g["geometry"] = kernels.glue_geometry(
-                name, R2 * max_m + Bn * max_n if name == "rel_prep"
-                else R2 // 2)
+            g["geometry"] = (
+                kernels.glue_geometry(name, R2 * max_m, n2=Bn * max_n,
+                                      alldev=True)
+                if name == "rel_prep"
+                else kernels.glue_geometry(name, R2 // 2, n2=max_m))
             say(f"  {name}: {g['ms'][-1]:.4f} ms per launch on the card "
                 f"({g['call_ms'][-1]:.4f} ms per wrapper call), plain torch "
                 f"{g['plain_ms'][-1]:.3f} ms, bound "
                 f"{g['bound'][-1]['ms']:.6f} ms ({g['bound'][-1]['by']}, "
-                f"{g['bound'][-1]['bytes']} B)")
+                f"{g['bound'][-1]['bytes']} B), geometry "
+                f"{json.dumps(g['geometry'])}")
+            if parent is not None:
+                _time_parent(g, name, gargs[name], parent[name],
+                             gargs["fresh"], tag)
         sw = _time_sweeps(args, PP.unrel, max_n, plain)
         bnd = sw["bound"]
         k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
@@ -2360,8 +2487,8 @@ def main(argv=None) -> int:
                     default="build,kernel,e2e,stream,alldev,shard,serve,"
                             "tools",
                     help="comma-separated subset (the probe always runs; "
-                    "k1profile and k5profile, the kernels' phase "
-                    "clocks, glue_ab, the streams with the plain glue "
+                    "k1profile, k5profile and settleprofile, the kernels' "
+                    "phase clocks, glue_ab, the streams with the plain glue "
                     "against the glue kernels, and soak only when named; "
                     "profiled is glue_ab's profiled passes, which it "
                     "starts as a process of its own)")
@@ -2375,6 +2502,10 @@ def main(argv=None) -> int:
                     help="steady stream: reads per device chunk")
     ap.add_argument("--sort-window", type=int, default=8,
                     help="steady stream: classify_stream's sort_window")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="alldev phase: a checkout of an earlier commit "
+                    "whose rel_prep and rel_settle kernels are held "
+                    "against this tree's and timed in turns with them")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2404,13 +2535,16 @@ def main(argv=None) -> int:
         say(json.dumps({"k1_profile": phase_k1profile(), "card": smi}))
     if "k5profile" in phases:
         say(json.dumps({"k5_profile": phase_k5profile(), "card": smi}))
+    if "settleprofile" in phases:
+        say(json.dumps({"settle_profile": phase_settleprofile(),
+                        "card": smi}))
     launches = phase_e2e() if "e2e" in phases else None
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
                          sort_window=args.sort_window)
             if "stream" in phases else None)
     arec = alaunch = asrec = None
     if "alldev" in phases:
-        arec = phase_alldev()
+        arec = phase_alldev(args.parent)
         alaunch = phase_alldev_e2e()
         asrec = phase_alldev_stream(args.alldev_passes)
     if "profiled" in phases:                 # the child of _profiled_process
@@ -2481,12 +2615,18 @@ def main(argv=None) -> int:
                 e.update(alldev_ms=g["ms"][-1], alldev_plain_ms=
                          g["plain_ms"][-1], alldev_bound_ms=g["bound"][-1]
                          ["ms"], alldev_bound_by=g["bound"][-1]["by"],
-                         alldev_ms_per_chunk=g["ms"])
+                         alldev_ms_per_chunk=g["ms"],
+                         alldev_call_ms=g["call_ms"][-1],
+                         alldev_geometry=g["geometry"],
+                         **({"alldev_parent_ab_ms": g["ab"]}
+                            if "ab" in g else {}))
             kern.append(e)
     if arec is not None:
-        kern.append(_glue_entry("rel_settle", arec["glue"]["rel_settle"],
-                                alaunch["rel_settle"],
-                                arec["glue_err"]["rel_settle"], brec))
+        g = arec["glue"]["rel_settle"]
+        kern.append(dict(_glue_entry("rel_settle", g, alaunch["rel_settle"],
+                                     arec["glue_err"]["rel_settle"], brec),
+                         **({"parent_ab_ms": g["ab"]} if "ab" in g
+                            else {})))
     if shrec is not None:
         say(json.dumps({"shard": shrec, "card": smi}))
     if svrec is not None:

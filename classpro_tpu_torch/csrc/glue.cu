@@ -2,35 +2,50 @@
 // sweep kernel (K6, all-device path) as four kernels for sm_90a, bound
 // with ctypes:
 //   rel_prep   the DP's planes from a chunk's blobs (both layouts; in the
-//              all-device layout also the sweeps' planes), one thread per
-//              cell;
+//              all-device layout also the sweeps' planes);
 //   rel_rescue the no-H rescue predicate and the rescue pass's
 //              coverages, one warp per scan row;
 //   rel_pack   the pass merge and the packed (2R, max_m + 5) result of
 //              the main path, one warp per scan row;
 //   rel_settle the pass merge, demotions, fw/bw reconciliation, the
 //              scatter into the sweeps' assignments and the read's rel
-//              flag (all-device path), one warp per read pair.
+//              flag (all-device path), one block per read pair.
 // Replaces the JAX package's device_pipeline._rel_only_core :541,
-// _rel_pipeline :153, _pack_out :638, _demotes_dev :257, _reconcile_dev
-// :401, _un_planes :511 and classify_batch_dev's tail :686-704, which XLA
-// fused into one program per chunk and the port first ran as some 90
-// small torch ops.  The bodies are glue_row.cuh.
+// _rel_pipeline :153, _pack_out :638, _unpack :119, _demotes_dev :257,
+// _reconcile_dev :401, _un_planes :511 and classify_batch_dev's tail
+// :686-704, which XLA fused into one program per chunk.  The bodies are
+// glue_row.cuh.
 //
 // What bounds them on the card: bytes.  A chunk's glue reads its blobs
-// and writes the DP's planes once, a few MB at the medium shapes, some
-// microseconds at 3.35 TB/s; the work per byte is a handful of integer
-// and f64 operations.  At these sizes a launch costs more than its bytes,
-// so the design counts launches: one per program stage between the DP
-// launches, five per main-path chunk with both DP launches.  The warp
-// kernels re-read a row's int8 and int64 planes once per pass (the
-// demotions' stages read each other's results), from L1/L2; left for
-// later: keeping a row in registers or shared memory.
+// and writes the DP's and the sweeps' planes once, a few MB to some 17 MB
+// at the medium shapes, a few microseconds at 3.35 TB/s; the work per
+// byte is a handful of integer and f64 operations.  So the design counts
+// launches (one per program stage between the DP and sweep launches) and
+// store transactions:
+//   - rel_prep, all-device layout: a block per tile of 256 cells; the
+//     interval tiles stage their 13-double P13 and 3-double packL / packR
+//     records in shared memory (38.9 KB) and write each as one
+//     contiguous run of 16-byte stores, where one thread per cell would
+//     scatter every store over 32 records; the coverages' logs once per
+//     block; no 64-bit division.  The main layout keeps one thread per
+//     cell: its planes are one value per cell, coalesced as they are.
+//   - rel_settle: a block of 128 threads per read pair, so that a chunk's
+//     200-256 pairs fill the card (one warp per pair would leave one or
+//     two warps per SM, nothing to hide a load); the pair's rel_cols and
+//     both rows' states are loaded once into shared memory (7 bytes a
+//     column; beyond 4096 columns read again from global memory) with the
+//     sums of all three demotion stages, and the stages, the
+//     reconciliation and the scatter run on that cache with two block
+//     reductions (redux.sync) in all.  Its time is a chain of latencies
+//     per pair, not bytes.
+//   - rel_rescue and rel_pack: one warp per row, one pass each; they sit
+//     at a launch's cost on this card.
 
 // Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
 // Under g++ -x c++ (no __CUDACC__) the same file compiles to the host
-// test shims, which run each warp's 32 lanes phase by phase.
+// test shims, which run each warp's 32 lanes, or each block's threads,
+// phase by phase.
 
 #include "glue_row.cuh"
 
@@ -162,9 +177,13 @@ static gl::Settle gs_make_args(GS_ARGS_DECL) {
   return a;
 }
 
-// Launch geometry: the prep kernels run one thread per cell in blocks of
-// GL_PREP_THREADS, grid-stride beyond GL_PREP_BLOCKS blocks; the warp
-// kernels run one warp per row (read pair) in blocks of four warps.
+// Launch geometry: the main-layout prep runs one thread per cell in
+// blocks of GL_PREP_THREADS, grid-stride beyond GL_PREP_BLOCKS blocks; the
+// all-device prep one block per tile of gl::PREP_TILE cells (the rel
+// planes' tiles, then the interval planes'), its records staged in static
+// shared memory; rel_rescue and rel_pack one warp per row in blocks of
+// four warps; rel_settle one block of gl::SETTLE_THREADS per read pair,
+// its row cache in dynamic shared memory.
 constexpr int GL_PREP_THREADS = 256;
 constexpr long long GL_PREP_BLOCKS = 132 * 16;
 constexpr int GL_WARP_THREADS = 4 * rd::WARP;
@@ -176,13 +195,40 @@ static int gl_prep_blocks(long long cells) {
 static int gl_warp_blocks(long long rows) {
   return (int)((rows * rd::WARP + GL_WARP_THREADS - 1) / GL_WARP_THREADS);
 }
+static long long gl_alldev_blocks(long long rel_cells, long long un_cells) {
+  return gl::prep_tiles(rel_cells) + gl::prep_tiles(un_cells);
+}
 
-// out[0..1] = threads per block and blocks of a prep launch over ``n``
-// cells (warp == 0) or of a warp kernel over ``n`` rows (warp == 1).
-extern "C" int glue_geometry(int warp, long long n, int* out) {
-  out[0] = warp ? GL_WARP_THREADS : GL_PREP_THREADS;
-  out[1] = warp ? gl_warp_blocks(n) : gl_prep_blocks(n);
-  return 0;
+// out[0..2] = threads per block, blocks and shared bytes per block (static
+// and dynamic) of a launch of ``kernel``: 0 the main-layout prep over n
+// cells, 1 the all-device prep over n rel-plane and n2 interval cells, 2
+// rel_rescue / rel_pack over n rows, 3 rel_settle over n read pairs of
+// max_m n2.
+extern "C" int glue_geometry(int kernel, long long n, long long n2,
+                             int* out) {
+  switch (kernel) {
+    case 0:
+      out[0] = GL_PREP_THREADS;
+      out[1] = gl_prep_blocks(n);
+      out[2] = 0;
+      return 0;
+    case 1:
+      out[0] = gl::PREP_TILE;
+      out[1] = (int)gl_alldev_blocks(n, n2);
+      out[2] = (int)sizeof(gl::PrepShared);
+      return 0;
+    case 2:
+      out[0] = GL_WARP_THREADS;
+      out[1] = gl_warp_blocks(n);
+      out[2] = 0;
+      return 0;
+    case 3:
+      out[0] = gl::SETTLE_THREADS;
+      out[1] = (int)n;
+      out[2] = (int)sizeof(gl::SettleShared) + gl::settle_dyn_bytes((int)n2);
+      return 0;
+  }
+  return 1;
 }
 
 #ifdef __CUDACC__
@@ -196,11 +242,10 @@ rel_prep_main_kernel(gl::Prep a, long long cells) {
     gl::prep_main_cell(a, k);
 }
 
-__global__ void __launch_bounds__(GL_PREP_THREADS)
-rel_prep_alldev_kernel(gl::Prep a, long long cells) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < cells; k += (long long)gridDim.x * blockDim.x)
-    gl::prep_alldev_cell(a, k);
+__global__ void __launch_bounds__(gl::PREP_TILE)
+rel_prep_alldev_kernel(gl::Prep a) {
+  __shared__ gl::PrepShared sh;
+  gl::prep_alldev_block<1>(a, blockIdx.x, threadIdx.x, sh);
 }
 
 __global__ void __launch_bounds__(GL_WARP_THREADS)
@@ -213,9 +258,11 @@ rel_pack_kernel(gl::Pack a) {
   gl::pack_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
 }
 
-__global__ void __launch_bounds__(GL_WARP_THREADS)
+__global__ void __launch_bounds__(gl::SETTLE_THREADS)
 rel_settle_kernel(gl::Settle a) {
-  gl::settle_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
+  __shared__ gl::SettleShared sh;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  gl::settle_pair<1>(a, blockIdx.x, threadIdx.x, sh, dyn);
 }
 
 // Launches on ``stream``; each returns cudaGetLastError() (0 = launched).
@@ -224,8 +271,9 @@ extern "C" int rel_prep_launch(GP_ARGS_DECL, void* stream) {
   const long long cells = gp_cells(a);
   if (cells > 0) {
     if (alldev)
-      rel_prep_alldev_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
-                               (cudaStream_t)stream>>>(a, cells);
+      rel_prep_alldev_kernel<<<(unsigned)gl_alldev_blocks(
+                                   2LL * a.R * a.M, (long long)a.Bn * a.N),
+                               gl::PREP_TILE, 0, (cudaStream_t)stream>>>(a);
     else
       rel_prep_main_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
                              (cudaStream_t)stream>>>(a, cells);
@@ -249,24 +297,44 @@ extern "C" int rel_pack_launch(GK_ARGS_DECL, void* stream) {
 
 extern "C" int rel_settle_launch(GS_ARGS_DECL, void* stream) {
   if (R > 0)
-    rel_settle_kernel<<<gl_warp_blocks(R), GL_WARP_THREADS, 0,
+    rel_settle_kernel<<<R, gl::SETTLE_THREADS, gl::settle_dyn_bytes(M),
                         (cudaStream_t)stream>>>(gs_make_args(GS_ARGS_PASS));
   return (int)cudaGetLastError();
 }
 
+// rel_settle's part clocks (a -DRD_PHASE_CLOCKS build: chip_smoke.py
+// --phases settleprofile): out[0..7] = the sums of thread 0's cycles by
+// part over the read pairs, then the pairs; reset zeroes them.
+#ifdef RD_PHASE_CLOCKS
+extern "C" int rel_settle_phase_clocks(unsigned long long* out, int reset) {
+  if (reset) {
+    unsigned long long z[rd::NPART + 1] = {0};
+    return (int)cudaMemcpyToSymbol(rd::rd_phase_clocks, z, sizeof z);
+  }
+  return (int)cudaMemcpyFromSymbol(out, rd::rd_phase_clocks,
+                                   (rd::NPART + 1) * sizeof(unsigned long long));
+}
+#endif
+
 #else
 
-// Host test shims: the same bodies, cell by cell, and one warp's 32 lanes
-// per call over the warps of the launch.
+#include <vector>
+
+// Host test shims: the same bodies; a main-layout prep cell by cell, an
+// all-device prep or rel_settle block with all its threads, phase by
+// phase, and rel_rescue / rel_pack one warp's 32 lanes per call.
 extern "C" int rel_prep_host(GP_ARGS_DECL) {
   const gl::Prep a = gp_make_args(GP_ARGS_PASS);
-  const long long cells = gp_cells(a);
-  for (long long k = 0; k < cells; ++k) {
-    if (alldev)
-      gl::prep_alldev_cell(a, k);
-    else
-      gl::prep_main_cell(a, k);
+  if (alldev) {
+    gl::PrepShared sh;
+    const long long nb = gl_alldev_blocks(2LL * a.R * a.M,
+                                          (long long)a.Bn * a.N);
+    for (long long b = 0; b < nb; ++b)
+      gl::prep_alldev_block<gl::PREP_TILE>(a, b, 0, sh);
+    return 0;
   }
+  const long long cells = gp_cells(a);
+  for (long long k = 0; k < cells; ++k) gl::prep_main_cell(a, k);
   return 0;
 }
 
@@ -286,8 +354,11 @@ extern "C" int rel_pack_host(GK_ARGS_DECL) {
 
 extern "C" int rel_settle_host(GS_ARGS_DECL) {
   const gl::Settle a = gs_make_args(GS_ARGS_PASS);
-  for (long long g0 = 0; g0 < (long long)R * rd::WARP; g0 += rd::WARP)
-    gl::settle_warp<rd::WARP>(a, g0);
+  gl::SettleShared sh;
+  std::vector<int> dyn((gl::settle_dyn_bytes(M) + 3) / 4);
+  for (long long j = 0; j < R; ++j)
+    gl::settle_pair<gl::SETTLE_THREADS>(a, j, 0, sh,
+                                        (unsigned char*)dyn.data());
   return 0;
 }
 

@@ -428,14 +428,22 @@ def _shim(name: str, args) -> None:
         raise RuntimeError(f"{name} host shim failed")
 
 
-def glue_geometry(kernel: str, n: int, kind: str = "cuda") -> dict:
-    """Threads per block and blocks of a glue launch, as glue.cu computes
-    them: ``rel_prep`` over ``n`` cells, the warp kernels over ``n`` rows
-    (read pairs for ``rel_settle``)."""
-    out = (ctypes.c_int * 2)()
-    _entry("rel_prep", kind, "glue_geometry", [_I, _LL, _PTR])(
-        int(kernel != "rel_prep"), n, ctypes.cast(out, _PTR))
-    return {"threads_per_block": out[0], "blocks": out[1]}
+_GLUE_GEO = {"rel_prep": 0, "rel_rescue": 2, "rel_pack": 2, "rel_settle": 3}
+
+
+def glue_geometry(kernel: str, n: int, kind: str = "cuda", n2: int = 0,
+                  alldev: bool = False) -> dict:
+    """Threads per block, blocks and shared bytes per block (static and
+    dynamic) of a glue launch, as glue.cu computes them: ``rel_prep``
+    over ``n`` cells (with ``alldev``: ``n`` rel-plane and ``n2``
+    interval cells), ``rel_rescue`` / ``rel_pack`` over ``n`` rows,
+    ``rel_settle`` over ``n`` read pairs of max_m ``n2``."""
+    out = (ctypes.c_int * 3)()
+    code = 1 if alldev else _GLUE_GEO[kernel]
+    _entry("rel_prep", kind, "glue_geometry", [_I, _LL, _LL, _PTR])(
+        code, n, n2, ctypes.cast(out, _PTR))
+    return {"threads_per_block": out[0], "blocks": out[1],
+            "smem_bytes": out[2]}
 
 
 def _prep_args(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):

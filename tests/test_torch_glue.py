@@ -9,7 +9,15 @@ the first and rescue DP passes of the DP kernel's shim; and chunks made
 with numpy from a seed that reach m = 0 and m = max_m rows, all-H rows,
 rows with >= 70% H, no-H rows with D, symmetric reads (the hdrr tie),
 zero counts (an inf or NaN hdrr), counts at and past 32767, and margins
-of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.
+of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.  The EDGES
+chunks (numpy, in the all-device layout) sit at the edges of the
+all-device rel_prep's and rel_settle's launch geometry: tiles of 256
+cells that end mid-row and a last tile part full, max_m below and not a
+multiple of rel_settle's 128 threads, max_m beyond its 4096-column pair
+cache, padding read pairs (the sentinel row Bn and -1), pairs with
+m = 0 and pairs whose reconciliation takes the bw row.  Those two
+kernels' shims run a block's threads phase by phase, one barrier to the
+next.
 
 The JAX side runs as the JAX package's own tests run it, on its CPU
 backend: ``_rel_only_core`` (with ``_rel_pipeline`` and ``_pack_out``),
@@ -50,6 +58,24 @@ SPECIAL_MM = (0.0, -0.0, 1e-30, math.nextafter(1e-5, 0.0), 1e-5, math.inf,
 FIXTURES = ("medium0", "medium1", "search9", "psum0")
 RANDOM = ("rand0", "rand1", "rand2", "rand3")
 CASES = FIXTURES + RANDOM
+# all-device chunks made with numpy at the edges of the all-device prep's
+# and rel_settle's launch geometry (tiles of 256 cells, blocks of 128
+# threads, a pair cache of 4096 columns): name -> (Bn, max_n, R, max_m,
+# the read pairs' m, the pairs' rel_rows: "x" a distinct interval row,
+# "pad" the sentinel Bn, "neg" -1)
+EDGE_SPECS = {
+    # Bn*max_n and R2*max_m not multiples of 256, tiles ending mid-row,
+    # max_m below a block's threads
+    "ragged": (7, 75, 6, 45, (45, 0, 1, 44, 30, 1),
+               ("x", "x", "x", "x", "pad", "neg")),
+    # max_m not a multiple of 128: a block's second trip part full
+    "wide": (9, 200, 8, 200, (150, 0, 1, 137, 64, 200, 1, 1),
+             ("x", "x", "x", "x", "x", "x", "pad", "neg")),
+    # max_m beyond the pair cache: columns from 4096 read from global memory
+    "tail": (6, 8224, 6, 8224, (8224, 8200, 8193, 5000, 0, 1),
+             ("x", "x", "x", "x", "x", "pad")),
+}
+EDGES = tuple(EDGE_SPECS)
 
 
 def bits(t):
@@ -404,6 +430,71 @@ def _random_alldev(seed: int, P):
     return fb, ib, dims, rng
 
 
+def _edge_alldev(case: str, P):
+    """An all-device chunk of EDGE_SPECS[case] in the blob layout of
+    alldev.py, made with numpy from a seed: interval rows of random
+    length, read pairs with the given m and rel_rows (distinct interval
+    rows, the sentinel Bn or -1), the bw rows the fw rows reversed within
+    m and distinct increasing rel_cols within m, as pack.pack_chunk lays
+    them out; past m the sentinel max_n on odd pairs, and on even pairs
+    more distinct columns (the scatter writes padding columns too)."""
+    from classpro_tpu_torch.numerics import LOGFACT
+
+    Bn, max_n, R, max_m, m, kinds = EDGE_SPECS[case]
+    rng = np.random.default_rng(300 + EDGES.index(case))
+    gH, gD = int(P.gcov[HAPLO]), int(P.gcov[DIPLO])
+    lf = lambda c: LOGFACT[np.minimum(c, 32767)]
+
+    def planes(rows, cols):
+        b = np.cumsum(rng.integers(1, 60, (rows, cols)), axis=1)
+        e = b + rng.integers(1, 50, (rows, cols))
+        cnt = [_counts(rng, cols, gH, gD, rng.random() < 0.25)
+               for _ in range(rows)]
+        ccb = np.stack([c[0] for c in cnt])
+        cce = np.stack([c[1] for c in cnt])
+        pe = np.where(rng.random((rows, cols)) < 0.1, -np.inf,
+                      -rng.random((rows, cols)) * 40)
+        return b, e, ccb, cce, pe
+
+    b, e, cb, ce, pe = planes(Bn, max_n)
+    ccb = np.maximum(cb + rng.integers(-2, 3, cb.shape), 0)
+    cce = np.maximum(ce + rng.integers(-2, 3, ce.shape), 0)
+    n = rng.integers(1, max_n + 1, Bn)
+    live = np.arange(max_n)[None, :] < n[:, None]
+    idx = [rng.integers(0, max_n, (Bn, max_n)) for _ in range(2)]
+    is_rel = rng.integers(0, 2, (Bn, max_n))
+    pe2 = [-rng.random((Bn, max_n)) * 40 for _ in range(2)]
+
+    m = np.array(m)
+    rb, re, rcb, rce, rpe = planes(R, max_m)
+    cols = np.arange(max_m)
+    flip = np.where(cols[None, :] < m[:, None], m[:, None] - 1 - cols,
+                    cols)
+    rev = lambda a: np.take_along_axis(a, flip, axis=1)
+    mcc = np.maximum(rcb, rce)
+    real = rng.permutation(Bn)
+    rel_rows = np.array([{"pad": Bn, "neg": -1}.get(k, 0) for k in kinds])
+    rel_rows[[k == "x" for k in kinds]] = real[:kinds.count("x")]
+    rel_cols = np.full((R, max_m), max_n)
+    for j in range(R):
+        if kinds[j] == "x":
+            w = max_m if j % 2 == 0 else m[j]
+            rel_cols[j, :w] = np.sort(rng.choice(max_n, w, False))
+    ib = np.concatenate([x.ravel() for x in (
+        b, e, cb, ce, ccb, cce, idx[0], idx[1], is_rel, live, n,
+        np.concatenate([rb, rev(re) - 1]), np.concatenate([rcb, rev(rce)]),
+        np.concatenate([re - 1, rev(rb)]), np.concatenate([rce, rev(rcb)]),
+        np.concatenate([mcc, rev(mcc)]), rel_cols, np.concatenate([m, m]),
+        np.tile(rng.integers(100, 9000, R), 2),
+        np.repeat([1, 0], R), rel_rows)]).astype(np.int32)
+    fb = np.concatenate([x.ravel() for x in (
+        pe, pe2[0], pe2[1], lf(cb), lf(ce),
+        np.concatenate([rpe, rev(rpe)]),
+        np.concatenate([lf(rcb), rev(lf(rce))]),
+        np.concatenate([lf(rce), rev(lf(rcb))]))]).astype(np.float64)
+    return fb, ib, (Bn, max_n, 2 * R, max_m), rng
+
+
 @functools.lru_cache(maxsize=None)
 def _alldev_case(case: str):
     """(fblob, iblob, dims, asgn1, mm1, asgn2, mm2) of an all-device
@@ -414,6 +505,8 @@ def _alldev_case(case: str):
     if case in FIXTURES:
         fx, k = _fixture(case)
         fb, ib, dims = _staged(fx)[1][k]
+    elif case in EDGES:
+        fb, ib, dims, rng = _edge_alldev(case, P)
     else:
         fb, ib, dims, rng = _random_alldev(int(case[-1]), P)
     Bn, max_n, R2, max_m = dims
@@ -425,11 +518,28 @@ def _alldev_case(case: str):
     sym = np.zeros(R2 // 2, bool)
     sym[::3] = True
     t = torch.from_numpy
-    return (fb, ib, dims,
-            t(_row_patterns(rng, m, R2 // 2, max_m, sym)),
-            t(_margins(rng, R2)),
-            t(_row_patterns(rng, m, R2 // 2, max_m, sym)),
-            t(_margins(rng, R2)))
+    out = [fb, ib, dims]
+    for _ in range(2):
+        a = _row_patterns(rng, m, R2 // 2, max_m, sym)
+        if case in EDGES:
+            _suffix_pair(a, int(m[0]), R2 // 2)
+        out += [t(a), t(_margins(rng, R2))]
+    return tuple(out)
+
+
+def _suffix_pair(a, m: int, R: int) -> None:
+    """Read pair 0 of passes ``a`` (2R, max_m) with m >= 4 columns: fw row
+    0, 0, H, D, H, D, ..., R (no rescue, no demotion; its reversal opens
+    with R and is zero after its first zero: is_eq_suffix), bw row all R,
+    so that the reconciliation takes the bw row; past m the bw row's
+    padding differs from the fw row's (both are scattered where rel_cols
+    is valid there)."""
+    row = np.where(np.arange(m) % 2, DIPLO, HAPLO)
+    row[:2] = 0
+    row[-1] = REPEAT
+    a[0, :m] = row
+    a[R, :m] = REPEAT
+    a[R, m:] = (a[0, m:] + 1) % 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -443,9 +553,13 @@ def _jax_alldev(case: str):
     R = R2 // 2
     pp = _jax_model(_fx(case))
     EPS = 1e-5
+    # JAX's scatters wrap a negative row index; the port drops it, as it
+    # drops the sentinel Bn, so JAX gets Bn there
+    ib = ib.numpy().copy()
+    rows = ib[len(ib) - R:]
+    rows[rows < 0] = Bn
     with jax.disable_jit():
-        U = J._unpack(jnp.asarray(fb.numpy()), jnp.asarray(ib.numpy()),
-                      *dims)
+        U = J._unpack(jnp.asarray(fb.numpy()), jnp.asarray(ib), *dims)
         P13, packL, packR = J._un_planes(U, pp)
         (rel2, mm, rescue), stub = _stubbed(
             [(a1.numpy(), m1.numpy()), (a2.numpy(), m2.numpy())],
@@ -465,7 +579,7 @@ def _jax_alldev(case: str):
             "flag": np.asarray(flag) > 0}
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + EDGES)
 def test_rel_prep_alldev(case):
     """rel_prep's shim in the all-device layout == alldev.prep_ref == the
     planes JAX's _rel_pipeline hands its DP and its _un_planes, bit for
@@ -499,7 +613,7 @@ def test_rel_prep_alldev(case):
     assert_bits(un["gate"], np.array(GATE_UNFLAGGED)[:, None].repeat(Bn, 1))
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + EDGES)
 def test_rel_settle(case):
     """rel_settle's shim == alldev.settle_ref (sweep assignments and
     margin gate, bit for bit) == JAX's _demotes_dev + _reconcile_dev +
@@ -565,6 +679,47 @@ def test_random_cases_reach_the_branches():
     assert took and tie and zero and flagged and unflagged and full
 
 
+@pytest.mark.parametrize("case", EDGES)
+def test_edge_cases_reach_their_edges(case):
+    """Each edge chunk has what it was made for: the geometry of its
+    spec, padding pairs (dropped: their interval rows keep N_STATE), a
+    live pair with m = 0, and live pairs whose reconciliation takes the
+    bw row (in "tail", one with columns past the pair cache; in "wide",
+    one that also scatters padding columns)."""
+    from classpro_tpu_torch import kernels
+
+    TILE, THREADS, CACHE = 256, 128, 4096
+    Bn, max_n, R, max_m, m, kinds = EDGE_SPECS[case]
+    dims = _alldev_case(case)[2]
+    assert dims == (Bn, max_n, 2 * R, max_m)
+    cells = (2 * R * max_m, Bn * max_n)
+    geo = kernels.glue_geometry("rel_settle", R, "host", n2=max_m)
+    cache = (geo["smem_bytes"] - 560) // 7
+    if case == "ragged":
+        assert all(c % TILE and TILE % w for c, w in zip(cells, (max_m,
+                                                                max_n)))
+        assert max_m < THREADS
+    if case == "wide":
+        assert THREADS < max_m and max_m % THREADS
+    if case == "tail":
+        assert cache == CACHE < max_m
+    else:
+        assert cache == max_m
+
+    J = _jax_alldev(case)
+    rel2, out = J["rel2"], J["rel_out"]
+    mm = np.array(m)
+    live = np.array([k == "x" for k in kinds])
+    assert (~live).any() and (live & (mm == 0)).any()
+    inb = np.arange(max_m)[None, :] < mm[:, None]
+    took = ((out != rel2[:R]) & inb).any(1) & live
+    assert took.any()
+    if case == "tail":
+        assert (took & (mm > CACHE)).any()
+    if case == "wide":
+        assert took[0] and mm[0] < max_m
+
+
 # ------------------------------------------------- wrappers, geometry, gpu
 
 def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
@@ -594,17 +749,31 @@ def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
 
 
 def test_glue_geometry():
-    """One thread per cell in blocks of 256, grid-stride past 2112
-    blocks; one warp per row (read pair) in blocks of four warps."""
+    """Main-layout prep: one thread per cell in blocks of 256, grid-stride
+    past 2112 blocks; all-device prep: a block of 256 per tile of 256
+    rel-plane cells, then per tile of interval cells, its records staged
+    in 38,944 bytes of shared memory; rel_rescue / rel_pack: one warp per
+    row in blocks of four warps; rel_settle: a block of 128 per read pair,
+    560 bytes of the warps' partials and a pair cache of 7 x min(max_m,
+    4096) bytes (int32 rel_cols, both rows' int8 states, the scatter's
+    candidates)."""
     from classpro_tpu_torch import kernels
 
     assert kernels.glue_geometry("rel_prep", 512 * 128, "host") == {
-        "threads_per_block": 256, "blocks": 256}
+        "threads_per_block": 256, "blocks": 256, "smem_bytes": 0}
     assert kernels.glue_geometry("rel_prep", 10 ** 7, "host")["blocks"] \
         == 132 * 16
-    for name in ("rel_rescue", "rel_pack", "rel_settle"):
+    assert kernels.glue_geometry("rel_prep", 512 * 128, "host",
+                                 n2=256 * 192 + 1, alldev=True) == {
+        "threads_per_block": 256, "blocks": 256 + 193, "smem_bytes": 38944}
+    for name in ("rel_rescue", "rel_pack"):
         assert kernels.glue_geometry(name, 511, "host") == {
-            "threads_per_block": 128, "blocks": 128}
+            "threads_per_block": 128, "blocks": 128, "smem_bytes": 0}
+    for max_m, cache in ((128, 7 * 128), (8224, 7 * 4096)):
+        assert kernels.glue_geometry("rel_settle", 511, "host",
+                                     n2=max_m) == {
+            "threads_per_block": 128, "blocks": 511,
+            "smem_bytes": 560 + cache}
 
 
 def _card_params(case):
@@ -643,10 +812,13 @@ def test_main_glue_kernels_match_plain_on_card(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ("medium0", "psum0", "rand0", "rand1"))
+@pytest.mark.parametrize("case", ("medium0", "psum0", "rand0", "rand1")
+                         + EDGES)
 def test_alldev_glue_kernels_match_plain_on_card(case):
     """rel_prep (all-device layout) and rel_settle on the card against
-    their plain versions on the same card inputs, bit for bit."""
+    their plain versions on the same card inputs, bit for bit (the EDGES
+    chunks: ragged tiles, a block's part-full trip, the pair cache's global
+    tail, padding pairs, m = 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from classpro_tpu_torch import kernels
