@@ -6,35 +6,49 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
-2. build   - nvcc builds csrc/rel_dp.cu, csrc/unrel.cu and csrc/glue.cu
-             (the four glue kernels) for sm_90a (printing -Xptxas -v)
-             while g++ builds the C++ host library, all four at once,
-             from the checkout; each entry function's registers, static
-             shared bytes, stack and spill bytes (rel_dp_kernel,
-             unrel_kernel, rel_prep_main_kernel, rel_prep_alldev_kernel,
-             rel_rescue_kernel, rel_pack_kernel, rel_settle_kernel) are
-             parsed from the log, and a stack or a spill fails the run.
+2. build   - nvcc builds csrc/rel_dp.cu (the DP kernel with its rescue
+             and pack tails), csrc/unrel.cu and csrc/glue.cu (the two
+             glue kernels) for sm_90a (printing -Xptxas -v) while g++
+             builds the C++ host library, all four at once, from the
+             checkout; each entry function's registers, static shared
+             bytes, stack and spill bytes (rel_dp_kernel, unrel_kernel,
+             rel_prep_main_kernel, rel_prep_alldev_kernel,
+             rel_settle_kernel) are parsed from the log, and a stack or a
+             spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets), a pack whose rows the
              no-H rescue re-runs (branch/search9) and the all-dead row
              (branch/psum0); then the whole per-chunk stage (rel.rel_only:
-             the glue kernels and the DP kernel, five launches) against
-             rel_only with the plain versions.  Tolerance: asgn bit-equal
-             on rows whose plain margin is >= 1e-5, finite margins within
-             1e-9, the inf / 1e-30 margin patterns equal, rescue equal,
-             risky equal except where the margin lies within 1e-9 of
-             1e-5.  On the same packs the main-path glue kernels against
+             rel_prep and the DP kernel's two launches with their tails,
+             three launches) against rel_only with the plain versions.
+             Tolerance: asgn bit-equal on rows whose plain margin is >=
+             1e-5, finite margins within 1e-9, the inf / 1e-30 margin
+             patterns equal, rescue equal, risky equal except where the
+             margin lies within 1e-9 of 1e-5.  On the same packs, against
              their plain versions on the kernel chain's own inputs, bit
-             for bit: rel_prep (rel.prep_ref), rel_rescue
-             (rel.rescue_rows), rel_pack (rel.pack_ref; a NaN margin's
-             bytes only NaN on both sides), and rel_pack on margins at
-             the f32 conversion's edges (inf, NaN, 0, -0, 1e-30, 1e-300,
-             the smallest double, 1e-5 and the double below it, 3.5e38).
-             Times the DP kernel (CUDA events; us per step of the longest
-             row) and each glue kernel (CUDA events around a CUDA graph
-             of 20 launches), with their plain versions and bounds, at
-             the medium shapes, with the launch geometry.
+             for bit: rel_prep (rel.prep_ref); the first DP launch with
+             its rescue and pack tails (rel_dp_rescue: its pass against
+             rel_dp's without tails, rescue and cov2 against
+             rel.rescue_rows); the rescue launch with its pack tail
+             (rel_dp_pack) and the packed buffer against rel.pack_ref (a
+             NaN margin's bytes only NaN on both sides); and the pack
+             tail's merge on every pair of margins at the f32
+             conversion's edges (inf, -inf, NaN, 0, -0, 1e-30, 1e-300,
+             the smallest double, 1e-5 and the double below it, 3.5e38;
+             kernels.rel_tail_probe), and the rescue launch's pack tail
+             on first-pass margins at those edges.  Times the DP kernel
+             (CUDA events; us per step of the longest row), rel_prep and
+             the two DP launches with their tails beside the DP launch
+             without them (CUDA events around a CUDA graph of 20
+             launches), with their plain versions and bounds, at the
+             medium shapes, with the launch geometry.  With --parent DIR
+             (a checkout of an earlier commit, its rel_dp.cu and glue.cu
+             built too): its DP first pass + rel_rescue and its rescue
+             pass + rel_pack (from a tree with the tails, its two DP
+             launches with them), held against the fused launches bit
+             for bit and timed in turns with them (parent, this tree,
+             this tree, parent).
    k1profile, k5profile, settleprofile (only when named) - K1 (medium
              chunks), K5 (medium alldev chunks and the long-row chunk) or
              rel_settle (medium alldev chunks) built with its per-phase
@@ -45,7 +59,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              fixtures writes .class files byte-identical to their
              golden.class.gz; the launch counts are reset just before and
              read just after, and every kernel of the path (rel_prep,
-             rel_dp, rel_rescue, rel_pack) must have launched.
+             rel_dp) must have launched and the DP kernel must have run
+             its rescue and pack tails (kernels.TAIL_LAUNCHES).
 5. stream  - steady stream over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
              pipeline), every chunk checked against the golden: a warm-up
@@ -54,21 +69,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              enqueue_h2d_dp_d2h among them), rel_only's span on the card
              per chunk and the glue's share of it (span less the DP
              launches), the DP kernel's ms per launch (CUDA events), the
-             DP and glue kernels' launches per chunk (5 in all),
+             DP and glue kernels' launches per chunk (3 in all),
              guard_flagged (must be 0) and max_memory_allocated.
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
              against its plain version (unrel_ref) on the card, asgn and
              margins bit-equal; rel_prep in the all-device layout
-             (alldev.prep_ref) and rel_settle (alldev.settle_ref: the
+             (alldev.prep_ref), the DP's first pass with its rescue tail
+             (rel.rescue_rows) and rel_settle (alldev.settle_ref: the
              sweeps' assignment rows and the margin gate) against their
              plain versions, bit for bit; and the whole classify_batch
              with the kernels against it with the plain versions,
              outputs and flags equal; times each (every chunk kept),
              the glue kernels with their launch geometry (threads and
              blocks, shared bytes per block).  With --parent DIR (a
-             checkout of an earlier commit), that checkout's glue.cu is
-             built too and its rel_prep and rel_settle are held against
+             checkout of an earlier commit), that checkout's rel_prep and
+             rel_settle are held against
              this tree's on every chunk, bit for bit, and timed in turns
              with them (parent, this tree, this tree, parent).
              Then one synthetic long-row chunk (the tests'
@@ -76,10 +92,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              rows' state in the global scratch) through the sweep kernel,
              bit-equal and timed.  Then TorchEngine(alldev=True) over tiny
              and medium writes the golden bytes (launch counts reset just
-             before and read after: every kernel of the path > 0), and the
-             alldev stream over medium (a warm-up pass, three turns of
-             --alldev-passes passes), with each kernel's launches per
-             chunk (six in all), the K4+K6 glue's card ms per chunk
+             before and read after: every kernel of the path > 0, the
+             rescue tail run, the pack tail not), and the alldev stream
+             over medium (a warm-up pass, three turns of --alldev-passes
+             passes), with each kernel's launches per chunk (five in
+             all), the K4+K6 glue's card ms per chunk
              (classify_batch's span less the DP and sweep kernels') and
              where the main thread's time goes.
    glue_ab (only when named) - both streams with the two compositions of
@@ -141,13 +158,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              parity against the exact oracle (0 mismatches), the two-shard
              merge's byte equality and the served job's wall.
 
-It prints one {"kernels": [...]} line (all six kernels: rel_dp,
-unrel_sweeps, rel_prep, rel_rescue, rel_pack, rel_settle, each with its
-registers, shared bytes, stack and spill bytes and launch geometry;
-rel_prep's all-device layout and rel_settle with the parent's times
-when --parent is given), {"stream": {...}},
-{"alldev_stream": {...}}, {"glue_ab": {...}} (when named),
-{"shard": {...}} and {"serve": {...}} lines
+It prints one {"kernels": [...]} line (all four kernels: rel_dp, with
+its two tails (rel_rescue, rel_pack: each fused launch's time beside the
+DP launch's without it, the plain versions' times, the fused bounds, and
+with --parent the parent's unfused pairs in turns), unrel_sweeps,
+rel_prep, rel_settle, each with its registers, shared bytes, stack and
+spill bytes and launch geometry; rel_prep's all-device layout and
+rel_settle with the parent's times when --parent is given),
+{"stream": {...}}, {"alldev_stream": {...}}, {"glue_ab": {...}} (when
+named), {"shard": {...}} and {"serve": {...}} lines
 (ready_s, each job's wall_s and k-mers/s, table_uploads, launches, the
 trace's busy share), {"tools": {...}} and {"soak": {...}} lines, the card's
 name and power limit, and, as
@@ -158,6 +177,7 @@ its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import os
@@ -213,14 +233,29 @@ OPS_SETTLE_CELL = 40
 # each kernel's entry functions in its nvcc build log
 ENTRIES = {"rel_dp": ("rel_dp_kernel",), "unrel_sweeps": ("unrel_kernel",),
            "rel_prep": ("rel_prep_main_kernel", "rel_prep_alldev_kernel"),
-           "rel_rescue": ("rel_rescue_kernel",),
-           "rel_pack": ("rel_pack_kernel",),
            "rel_settle": ("rel_settle_kernel",)}
-GLUE = ("rel_prep", "rel_rescue", "rel_pack", "rel_settle")
-# the kernels each path launches
-MAIN_PATH = ("rel_prep", "rel_dp", "rel_rescue", "rel_pack")
-ALLDEV_PATH = ("rel_prep", "rel_dp", "rel_rescue", "rel_settle",
-               "unrel_sweeps")
+GLUE = ("rel_prep", "rel_settle")
+# the kernels each path launches, and the DP kernel's row tails each path
+# runs (kernels.TAIL_LAUNCHES: launches of rel_dp that ran the tail)
+MAIN_PATH = ("rel_prep", "rel_dp")
+ALLDEV_PATH = ("rel_prep", "rel_dp", "rel_settle", "unrel_sweeps")
+MAIN_TAILS = ("rel_rescue", "rel_pack")
+ALLDEV_TAILS = ("rel_rescue",)
+# the JAX function each tail replaces (device_pipeline.py: _rel_pipeline's
+# rescue predicate and merge, _pack_out); until the tails they were glue
+# kernels of their own, which --parent holds and times beside them
+TAIL_REPLACES = {"rel_rescue": "classpro_tpu/tpu/device_pipeline.py:153",
+                 "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638"}
+# the C argument lists of a tree before the tails (its glue library
+# exports rel_rescue_launch): its DP kernel's and its rel_rescue and
+# rel_pack kernels' (rel_dp.cu RD_ARGS_DECL, glue.cu GR_ARGS_DECL and
+# GK_ARGS_DECL)
+_P_, _I_, _D_, _L_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                      ctypes.c_longlong)
+UNFUSED_ARGTYPES = {
+    "rel_dp": [_P_] * 17 + [_I_, _I_, _P_, _P_, _I_, _D_, _L_] + [_D_] * 4,
+    "rel_rescue": [_P_] * 7 + [_I_, _I_, _P_, _P_],
+    "rel_pack": [_P_] * 5 + [_I_, _I_, _P_]}
 
 
 def fail(msg: str) -> None:
@@ -230,6 +265,31 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _reset_launches() -> None:
+    """Every kernel's launch count and the DP kernel's tail counts to 0."""
+    from classpro_tpu_torch import kernels
+
+    for counts in (kernels.LAUNCHES, kernels.TAIL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _path_launches(path: str, kernels_of, tails_of) -> dict:
+    """The launch counts since the last _reset_launches, with the DP
+    kernel's tail counts under "tails"; fails unless each kernel of
+    ``kernels_of`` and each tail of ``tails_of`` ran at least once."""
+    from classpro_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES, tails=dict(kernels.TAIL_LAUNCHES))
+    for k in kernels_of:
+        if launches[k] <= 0:
+            fail(f"{path} launched kernel {k} no time")
+    for k in tails_of:
+        if launches["tails"][k] <= 0:
+            fail(f"{path} ran the DP kernel's {k} tail no time")
+    return launches
 
 
 def smi_line() -> str:
@@ -449,7 +509,7 @@ def _bound_ms(planes, cov, P) -> dict:
     return {"ms": max(t_b, t_o),
             "by": "bytes" if t_b >= t_o else "operations",
             "bytes_ms": t_b, "ops_ms": t_o, "records": records,
-            "steps": steps}
+            "steps": steps, "bytes": nbytes, "ops": steps * OPS_PER_STEP}
 
 
 def _k4_bound(fb, ib, R: int, max_m: int) -> dict:
@@ -494,26 +554,26 @@ def _bound(nbytes: int, ops: int) -> dict:
             else "operations", "bytes": nbytes, "ops": ops}
 
 
-def _check_pack(tag: str, args) -> float:
-    """rel_pack against pack_ref, every byte; a NaN margin's four bytes
-    only need to be NaN on both sides.  Returns the largest difference of
-    the assignment and flag bytes and of the f32 margins (_diff)."""
-    from classpro_tpu_torch import kernels
+def _check_pack(tag: str, got, args) -> float:
+    """The packed buffer ``got`` against pack_ref(*args), every byte; a NaN
+    margin's four bytes only need to be NaN on both sides.  Returns the
+    largest difference of the assignment and flag bytes and of the f32
+    margins (_diff)."""
     from classpro_tpu_torch.rel import pack_ref
 
-    got, want = kernels.rel_pack(*args), pack_ref(*args)
+    want = pack_ref(*args)
     M = args[0].shape[1]
     mm = lambda t: t[:, M + 1:].contiguous().view(torch.float32)[:, 0]
     err = max(_diff(got[:, :M + 1], want[:, :M + 1]),
               _diff(mm(got), mm(want)))
     nan = torch.isnan(mm(want))
     if not torch.equal(torch.isnan(mm(got)), nan):
-        fail(f"{tag}: rel_pack's NaN margins differ from its plain version")
+        fail(f"{tag}: the packed NaN margins differ from the plain version")
     bad = ((got != want).any(1) & ~nan) | (got[:, :M + 1]
                                            != want[:, :M + 1]).any(1)
     if bool(bad.any()):
         r = int(bad.nonzero()[0, 0])
-        fail(f"{tag}: rel_pack differs from its plain version on "
+        fail(f"{tag}: the pack tails differ from their plain version on "
              f"{int(bad.sum())} row(s); row {r}: margins "
              f"{float(args[2][r])!r}, {float(args[3][r])!r}, rescue "
              f"{bool(args[4][r])}: {got[r, M:].tolist()} against "
@@ -522,10 +582,9 @@ def _check_pack(tag: str, args) -> float:
 
 
 def _glue_main(tag, fb_d, ib_d, P, R: int, max_m: int) -> dict:
-    """rel_prep, rel_rescue and rel_pack against their plain versions on
-    one main-path pack, bit for bit, each on the kernel chain's own inputs
-    (the DP kernel's passes); returns each kernel's arguments and, under
-    "err", each one's largest difference."""
+    """rel_prep against its plain version on one main-path pack, bit for
+    bit; returns its arguments, planes and, under "err", its largest
+    difference."""
     from classpro_tpu_torch import kernels, rel
 
     planes, cov = kernels.rel_prep(fb_d, ib_d, P, R, max_m)
@@ -533,63 +592,149 @@ def _glue_main(tag, fb_d, ib_d, P, R: int, max_m: int) -> dict:
     err = {"rel_prep": max(_same(tag, f"rel_prep output {k}", a, b)
                            for k, (a, b) in enumerate(
                                zip(planes + (cov,), p_r + (c_r,))))}
-    asgn1, _, mm1 = kernels.rel_dp(*planes, cov, P)
-    rescue, cov2 = kernels.rel_rescue(planes, asgn1, P)
-    r_r, c2_r = rel.rescue_rows(planes, asgn1, P, max_m)
-    err["rel_rescue"] = max(_same(tag, "rel_rescue's rescue", rescue, r_r),
-                            _same(tag, "rel_rescue's cov2", cov2, c2_r))
-    asgn2, _, mm2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
-    err["rel_pack"] = _check_pack(tag, (asgn1, asgn2, mm1, mm2, rescue))
-    return {"rel_prep": (fb_d, ib_d, P, R, max_m),
-            "rel_rescue": (planes, asgn1, P),
-            "rel_pack": (asgn1, asgn2, mm1, mm2, rescue),
-            "rescued": int(rescue.sum()), "err": err}
+    return {"rel_prep": (fb_d, ib_d, P, R, max_m), "planes": planes,
+            "cov": cov, "err": err}
+
+
+def _tails_main(tag, planes, cov, P) -> dict:
+    """The DP kernel's two launches with their tails on one main-path
+    pack, as rel_only runs them (rel_dp_rescue with pack, then
+    rel_dp_pack), each held against its plain version on the kernel
+    chain's own inputs, bit for bit: the first pass against rel_dp's
+    launch without tails, its rescue and cov2 against rel.rescue_rows on
+    its assignments, the rescue pass against rel_dp's (on the rows it
+    runs), the packed buffer against rel.pack_ref of the two passes.
+    Returns the outputs and, under "err", each tail's largest
+    difference."""
+    from classpro_tpu_torch import kernels, rel
+
+    M = planes[0].shape[1]
+    a1, d1, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov,
+                                                            P, pack=True)
+    b1, e1, n1 = kernels.rel_dp(*planes, cov, P)
+    for what, a, b in (("assignments", a1, b1), ("final cells", d1, e1),
+                       ("margins", m1, n1)):
+        _same(tag, f"the first pass's {what} with its tails against "
+              f"rel_dp's", a, b)
+    r_r, c_r = rel.rescue_rows(planes, a1, P, M)
+    err = {"rel_rescue": max(_same(tag, "the rescue tail's rescue", rescue,
+                                   r_r),
+                             _same(tag, "the rescue tail's cov2", cov2,
+                                   c_r))}
+    a2, d2, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
+    b2, e2, n2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
+    for what, a, b in (("assignments", a2, b2), ("final cells", d2, e2),
+                       ("margins", m2, n2)):
+        _same(tag, f"the rescue pass's {what} with its tail against "
+              f"rel_dp's", a[rescue], b[rescue])
+    err["rel_pack"] = _check_pack(tag, packed, (a1, a2, m1, m2, rescue))
+    return {"a1": a1, "m1": m1, "rescue": rescue, "cov2": cov2, "a2": a2,
+            "m2": m2, "packed": packed, "rescued": int(rescue.sum()),
+            "err": err}
+
+
+def _one_state_chunk(R: int, max_m: int = 4):
+    """A main-layout chunk (fblob, iblob on the card) whose every row the
+    DP leaves with one live state, so an infinite margin: one interval a
+    read (m = 1) of counts 30000 (H and D dead, R alive), no error
+    evidence."""
+    b = torch.zeros((R, max_m), dtype=torch.int32)
+    b[:, 0] = 1 + 7 * torch.arange(R, dtype=torch.int32)
+    e = b + 20
+    cc = torch.full((R, max_m), 30000, dtype=torch.int32)
+    ib = torch.cat([b.ravel(), e.ravel(), cc.ravel(), cc.ravel(),
+                    torch.ones(R, dtype=torch.int32),
+                    torch.full((R,), 1000, dtype=torch.int32)])
+    fb = torch.full((R * max_m,), -float("inf"), dtype=torch.float64)
+    return fb.cuda(), ib.cuda()
 
 
 def _check_pack_specials() -> float:
-    """rel_pack on margins at the f32 conversion's edges (inf, -inf,
+    """The pack tail on margins at the f32 conversion's edges (inf, -inf,
     NaN, 0, -0, the smallest double, 1e-300, 1e-30, 1e-5 and the double
-    below it, 3.5e38), both passes, rescued or not."""
+    below it, 3.5e38): (a) its merge and conversion (rel_tail.cuh
+    row_tail_byte, through kernels.rel_tail_probe on the card) on every
+    pair of them, as the first pass writes a row it keeps and as the
+    rescue pass writes a rescued row; (b) the rescue pass's DP launch
+    with its pack tail (rel_dp_pack) on first-pass margins at the edges,
+    every row rescued, on a chunk whose own margins are all inf
+    (``_one_state_chunk``, the tiny model), so that each merged margin is
+    its edge value.  Every byte against rel.pack_ref."""
     import math
 
-    dev = torch.device("cuda")
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.params import build_rel_params
+
+    P = build_rel_params(_model("tiny")[0], "cuda")
     vals = [math.inf, -math.inf, math.nan, 0.0, -0.0, math.ulp(0.0),
             1e-300, 1e-30, 1e-5, math.nextafter(1e-5, 0.0), 3.5e38, 0.25]
-    n = len(vals)
-    mm1 = torch.tensor([a for a in vals for _ in vals], dtype=torch.float64)
-    mm2 = torch.tensor([b for _ in vals for b in vals], dtype=torch.float64)
-    R2 = 2 * n * n
-    gen = torch.Generator().manual_seed(3)
-    args = (torch.randint(0, 4, (R2, 33), generator=gen).to(torch.int8),
-            torch.randint(0, 4, (R2, 33), generator=gen).to(torch.int8),
-            torch.cat([mm1, mm1]), torch.cat([mm2, mm2]),
-            torch.arange(R2) < n * n)
-    return _check_pack("margin edge cases", tuple(t.to(dev) for t in args))
+    p1 = torch.tensor([a for a in vals for _ in vals], dtype=torch.float64,
+                      device="cuda")
+    p2 = torch.tensor([b for _ in vals for b in vals], dtype=torch.float64,
+                      device="cuda")
+    none = torch.zeros((p1.shape[0], 0), dtype=torch.int8, device="cuda")
+    err = 0.0
+    for tag, got, rescued in (
+            ("the first pass", kernels.rel_tail_probe(p1), False),
+            ("the rescue pass", kernels.rel_tail_probe(p2, p1), True)):
+        err = max(err, _check_pack(
+            f"margin edge pairs, {tag}", got,
+            (none, none, p1, p2, torch.full_like(p1, rescued,
+                                                 dtype=torch.bool))))
+    R, M = len(vals), 4
+    fb, ib = _one_state_chunk(R, M)
+    planes, cov = kernels.rel_prep(fb, ib, P, R, M)
+    every = torch.ones(2 * R, dtype=torch.bool, device="cuda")
+    mm1 = torch.tensor(vals + vals, dtype=torch.float64, device="cuda")
+    packed = torch.zeros((2 * R, M + 5), dtype=torch.uint8, device="cuda")
+    a2, _, m2 = kernels.rel_dp_pack(*planes, cov, P, every, mm1, packed)
+    if not bool(torch.isinf(m2).all()):
+        fail("the one-state chunk's rescue pass left a finite margin")
+    return max(err, _check_pack("margin edge cases", packed,
+                                (a2, a2, mm1, m2, every)))
 
 
-def _main_bounds(fb, ib, planes, cov, P, asgn1) -> dict:
-    """The main-path glue kernels' bounds on one pack: each input read
-    once (the log-factorial entries its counts select; of the planes,
-    what the warp kernels read: rel_rescue reads the first pass ``asgn1``
-    at the live cells and the four int64 planes at its D cells only),
-    each output written once, against their operations per cell (OPS_*
-    above)."""
+def _main_bounds(fb, ib, planes, cov, P, t, k1) -> dict:
+    """Bounds on one pack (each input read once, each output written once,
+    against the operations per cell of OPS_*): rel_prep (the log-factorial
+    entries its counts select); the rescue tail and the pack tail as the
+    glue kernels they were (rel_rescue reads the first pass's assignments
+    at the live cells and the four int64 planes at its D cells only;
+    rel_pack the two passes); and the two fused launches, each a DP pass
+    (_bound_ms) plus only what its tail adds to the pass's own bytes: the
+    first pass (``k1``) writes the rescue flags, cov2 and the packed rows
+    of the rows it keeps (it reads gcov); the rescue pass (the DP on the
+    rescued rows) reads its active flags and those rows' first-pass
+    margins and writes their packed rows.  The tails' reads of the
+    assignments and planes are the pass's own bytes, on chip already."""
     R2, M = planes[0].shape
     cells = R2 * M
-    inb = torch.arange(M, device=asgn1.device)[None, :] < planes[7][:, None]
+    inb = torch.arange(M, device=planes[0].device)[None, :] \
+        < planes[7][:, None]
     live = int(inb.sum())
-    n_d = int(((asgn1 == 3) & inb).sum())
+    n_d = int(((t["a1"] == 3) & inb).sum())
     counts = torch.cat([planes[1], planes[3]]).clamp(0, 32767)
     lf = int(torch.unique(counts).numel())
+    res = t["rescue"]
+    n_res = int(res.sum())
+    k1r = (_bound_ms(tuple(x[res] for x in planes), t["cov2"][res], P)
+           if n_res else {"bytes": 0, "ops": 0})
+    rescue_out = 32 + R2 * (1 + 32)         # gcov; rescue, cov2 written
+    rescue_b = live + n_d * 4 * 8 + R2 * 8 + rescue_out
+    rescue_o = live * OPS_RESCUE_TEST + n_d * OPS_RESCUE_CELL
+    row_b = M + 8 + 8 + 1 + (M + 5)         # a packed row, read and written
     return {
         "rel_prep": _bound(fb.nbytes + ib.nbytes + lf * 8 + 32
                            + cells * 7 * 8 + R2 * (8 + 8 + 1 + 32),
                            cells * OPS_PREP_CELL),
-        "rel_rescue": _bound(live + n_d * 4 * 8 + R2 * 8 + 32
-                             + R2 * (1 + 32),
-                             live * OPS_RESCUE_TEST + n_d * OPS_RESCUE_CELL),
-        "rel_pack": _bound(cells + R2 * (8 + 8 + 1) + R2 * (M + 5),
-                           cells * OPS_PACK_CELL)}
+        "rel_rescue": _bound(rescue_b, rescue_o),
+        "rel_pack": _bound(R2 * row_b, cells * OPS_PACK_CELL),
+        "fused_rel_rescue": _bound(
+            k1["bytes"] + rescue_out + (R2 - n_res) * (M + 5),
+            k1["ops"] + rescue_o + (R2 - n_res) * M * OPS_PACK_CELL),
+        "fused_rel_pack": _bound(
+            k1r["bytes"] + R2 + n_res * (8 + M + 5),
+            k1r["ops"] + n_res * M * OPS_PACK_CELL)}
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -624,11 +769,143 @@ def _time_glue(rec: dict, name: str, args, plain, bnd: dict) -> None:
     r["bound"].append(bnd)
 
 
+def _parent_pairs(fns, planes, cov, P, t, tag) -> dict:
+    """The parent tree's launches on one pack, into buffers of their own:
+    from a tree before the tails (``fns`` holds its rel_rescue) its DP
+    first pass + rel_rescue and its DP rescue pass (on this tree's rescue
+    rows and cov2) + rel_pack, from a later tree its two DP launches with
+    their tails; their outputs held against this tree's fused launches'
+    (``t``) bit for bit.  Returns the two pairs as callables (ctypes
+    launches on the current stream)."""
+    R2, M = planes[0].shape
+    dev = planes[0].device
+    unfused = "rel_rescue" in fns
+    keep = []
+
+    def new(shape, dt):
+        x = torch.empty(shape, dtype=dt, device=dev)
+        keep.append(x)
+        return x
+
+    def dp_args(c, active, tail):
+        outs = (new((R2, M), torch.int8), new((R2, 4), torch.float64),
+                new((R2,), torch.float64),
+                new((R2, max(M - 1, 1), 4), torch.int8),
+                new((R2, M), torch.uint8))
+        ptr = lambda x: x.data_ptr() if x is not None else None
+        return ([x.data_ptr() for x in planes]
+                + [c.data_ptr(), ptr(active)] + [x.data_ptr() for x in outs]
+                + ([] if unfused else [ptr(x) for x in tail])
+                + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
+                   int(P.lf_small.shape[0]), float(P.read_len),
+                   int(P.offset), float(P.r_logp), float(P.log_1m_pe_mean),
+                   float(P.log_pe_mean), float(P.dr_ratio)]), outs
+
+    res, cov2 = new((R2,), torch.bool), new((R2, 4), torch.int64)
+    out = new((R2, M + 5), torch.uint8)
+    args1, o1 = dp_args(cov, None, (res, cov2, P.gcov, out, None))
+    args2, o2 = dp_args(t["cov2"], t["rescue"], (None, None, None, out,
+                                                 o1[2]))
+    args_r = ([planes[k].data_ptr() for k in (0, 1, 2, 3, 7)]
+              + [o1[0].data_ptr(), P.gcov.data_ptr(), R2, M,
+                 res.data_ptr(), cov2.data_ptr()])
+    args_p = ([x.data_ptr() for x in (o1[0], o2[0], o1[2], o2[2],
+                                      t["rescue"])] + [R2, M,
+                                                       out.data_ptr()])
+
+    def launch(name, args):
+        err = fns[name](*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"parent {name} launch failed: CUDA error {err}")
+
+    def pair1():
+        launch("rel_dp", args1)
+        if unfused:
+            launch("rel_rescue", args_r)
+
+    def pair2():
+        launch("rel_dp", args2)
+        if unfused:
+            launch("rel_pack", args_p)
+
+    pair1()
+    pair2()
+    torch.cuda.synchronize()
+    rows = t["rescue"]
+    for what, a, b in (("first pass's assignments", o1[0], t["a1"]),
+                       ("first pass's margins", o1[2], t["m1"]),
+                       ("rel_rescue's rescue", res, t["rescue"]),
+                       ("rel_rescue's cov2", cov2, t["cov2"]),
+                       ("rescue pass's assignments", o2[0][rows],
+                        t["a2"][rows]),
+                       ("packed buffer", out, t["packed"])):
+        _same(tag, f"the parent's {what} against this tree's", a, b)
+    return {"rel_rescue": pair1, "rel_pack": pair2, "keep": keep,
+            "what": "K1 + {}" if unfused else "K1 with its {} tail"}
+
+
+def _time_tails(rec: dict, t: dict, planes, cov, P, bnds: dict, parent,
+                tag: str) -> None:
+    """The DP kernel's two launches with their tails on one medium pack:
+    ms per launch on the card (``_graph_ms``, 20 launches) beside this
+    tree's DP launch without tails on the same pass; the tails' plain
+    versions' ms per call (rel.rescue_rows, rel.pack_ref; CUDA events, 5
+    calls); the fused and the tails' own bounds.  With ``parent`` (the
+    parent tree's launch entries) its pairs (``_parent_pairs``)
+    held against this tree's and timed in turns with the fused launches
+    (parent, this tree, this tree, parent), appended to
+    rec[name]["parent_ab_ms"]."""
+    from classpro_tpu_torch import kernels, rel
+
+    M = planes[0].shape[1]
+    pk = t["packed"]
+    fused = {"rel_rescue": lambda: kernels.rel_dp_rescue(*planes, cov, P,
+                                                         pack=True),
+             "rel_pack": lambda: kernels.rel_dp_pack(
+                 *planes, t["cov2"], P, t["rescue"], t["m1"], pk)}
+    alone = {"rel_rescue": lambda: kernels.rel_dp(*planes, cov, P),
+             "rel_pack": lambda: kernels.rel_dp(*planes, t["cov2"], P,
+                                                active=t["rescue"])}
+    plain = {"rel_rescue": lambda: rel.rescue_rows(planes, t["a1"], P, M),
+             "rel_pack": lambda: rel.pack_ref(t["a1"], t["a2"], t["m1"],
+                                              t["m2"], t["rescue"])}
+    pairs = _parent_pairs(parent, planes, cov, P, t, tag) if parent \
+        else None
+    for name in ("rel_rescue", "rel_pack"):
+        r = rec.setdefault(name, {"ms": [], "k1_ms": [], "plain_ms": [],
+                                  "bound": [], "tail_bound": [],
+                                  "parent_ab_ms": []})
+        if pairs is not None:
+            ab = [_graph_ms(pairs[name], 20), _graph_ms(fused[name], 20),
+                  _graph_ms(fused[name], 20), _graph_ms(pairs[name], 20)]
+            r["parent_ab_ms"].append(ab)
+            r["ms"].append(min(ab[1:3]))
+        else:
+            r["ms"].append(_graph_ms(fused[name], 20))
+        r["k1_ms"].append(_graph_ms(alone[name], 20))
+        if name == "rel_rescue":     # the all-device path's first pass
+            r.setdefault("no_pack_ms", []).append(_graph_ms(
+                lambda: kernels.rel_dp_rescue(*planes, cov, P), 20))
+        r["plain_ms"].append(_time_cuda(plain[name], 5))
+        r["bound"].append(bnds["fused_" + name])
+        r["tail_bound"].append(bnds[name])
+        say(f"  K1 with its {name[4:]} tail: {r['ms'][-1]:.4f} ms per "
+            f"launch on the card, without the tail {r['k1_ms'][-1]:.4f}"
+            + (f", with the rescue tail alone {r['no_pack_ms'][-1]:.4f}"
+               if name == "rel_rescue" else "") + "; "
+            + (f"the parent's {pairs['what'].format(name)}: "
+               f"{ab[0]:.4f}, {ab[3]:.4f} ms, "
+               f"this tree {ab[1]:.4f}, {ab[2]:.4f} (in turns); "
+               if pairs is not None else "")
+            + f"plain {name[4:]} {r['plain_ms'][-1]:.3f} ms; bound "
+            f"{r['bound'][-1]['ms']:.6f} ms ({r['bound'][-1]['by']}, "
+            f"{r['bound'][-1]['bytes']} B; the tail alone "
+            f"{r['tail_bound'][-1]['ms']:.6f} ms)")
+
+
 # the JAX function each glue kernel replaces (device_pipeline.py:
-# _rel_only_core, _rel_pipeline, _pack_out, _demotes_dev)
+# _rel_only_core, _demotes_dev)
 GLUE_REPLACES = {"rel_prep": "classpro_tpu/tpu/device_pipeline.py:541",
-                 "rel_rescue": "classpro_tpu/tpu/device_pipeline.py:153",
-                 "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638",
                  "rel_settle": "classpro_tpu/tpu/device_pipeline.py:257"}
 
 
@@ -651,7 +928,38 @@ def _glue_entry(name: str, g: dict, launches: int, err: float,
             **res[ENTRIES[name][0]], "resources": res, **g["geometry"]}
 
 
-def phase_kernel():
+def _tails_entry(krec: dict, tails: dict) -> dict:
+    """The DP kernel's tails for its entry of the {"kernels": [...]} line:
+    per tail, the glue kernel it replaces and that one's JAX function, the
+    launches that ran it on the main path, its largest difference from
+    its plain version, the fused launch's ms (the medium chunk timed
+    last) beside K1's without the tail, the plain version's ms, the fused
+    launch's bound and the tail's own, and with --parent the parent's
+    unfused pair and this tree's fused launch in turns."""
+    out = {}
+    for name, r in krec["tails"].items():
+        out[name] = {
+            "replaces": TAIL_REPLACES[name], "launches": tails[name],
+            "max_abs_err": krec["tail_err"][name], "ms": r["ms"][-1],
+            "k1_ms": r["k1_ms"][-1], "plain_ms": r["plain_ms"][-1],
+            **({"no_pack_ms": r["no_pack_ms"][-1]} if "no_pack_ms" in r
+               else {}),
+            "bound_ms": r["bound"][-1]["ms"],
+            "bound_by": r["bound"][-1]["by"],
+            "bound_bytes": r["bound"][-1]["bytes"],
+            "tail_bound_ms": r["tail_bound"][-1]["ms"],
+            "ms_per_chunk": r["ms"], "parent_ab_ms": r["parent_ab_ms"]}
+    return out
+
+
+def phase_kernel(parent=None):
+    """K1 against its plain version on every pack of medium, search9 and
+    psum0 (both passes), rel_only with the kernels against the plain
+    versions, rel_prep and K1's tails against theirs, bit for bit; times
+    at the medium shapes.  ``parent``: the parent tree's launch entries
+    (``_parent_kernels``), whose unfused K1 + rel_rescue and K1 +
+    rel_pack are held against the fused launches and timed in turns with
+    them."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch import rel as rel_mod
     from classpro_tpu_torch.engine import TorchEngine
@@ -660,12 +968,10 @@ def phase_kernel():
 
     dev = torch.device("cuda")
     rec = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
-           "glue": {}, "glue_err": {"rel_pack": _check_pack_specials()}}
-    say("kernel == plain: rel_pack on the margin edge cases, every byte")
-    plains = {"rel_prep": rel_mod.prep_ref,
-              "rel_rescue": lambda pl, a, P: rescue_rows(pl, a, P,
-                                                         a.shape[1]),
-              "rel_pack": rel_mod.pack_ref}
+           "glue": {}, "glue_err": {}, "tails": {},
+           "tail_err": {"rel_pack": _check_pack_specials()}}
+    say("kernel == plain: the pack tail's merge on every pair of margin "
+        "edge cases and the rescue pass's pack tail on them, every byte")
     for fx in ("medium", "branch/search9", "branch/psum0"):
         gm, seqs, profs = _model(fx)
         eng = TorchEngine(gm, device=dev)
@@ -689,29 +995,35 @@ def phase_kernel():
                 rec["max_abs_err"] = max(rec["max_abs_err"], err2)
             n_res2 = _compare_rel_only(tag, fb_d, ib_d, P, R, max_m)
             gargs = _glue_main(tag, fb_d, ib_d, P, R, max_m)
+            t = _tails_main(tag, gargs["planes"], gargs["cov"], P)
             for name, e in gargs["err"].items():
                 rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0),
                                             e)
+            for name, e in t["err"].items():
+                rec["tail_err"][name] = max(rec["tail_err"].get(name, 0.0),
+                                            e)
             say(f"kernel == plain: {tag}: {n} rows ({n_ok} unflagged), "
                 f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}; "
-                f"rel_prep, rel_rescue ({gargs['rescued']} rescued), "
-                f"rel_pack bit-equal")
+                f"rel_prep, K1's rescue tail ({t['rescued']} rescued) and "
+                f"pack tails bit-equal")
             if fx == "medium":
-                bnds = _main_bounds(fb, ib, planes, cov, P,
-                                    gargs["rel_rescue"][1])
-                for name in ("rel_prep", "rel_rescue", "rel_pack"):
-                    _time_glue(rec["glue"], name, gargs[name], plains[name],
-                               bnds[name])
-                    g = rec["glue"][name]
-                    g["geometry"] = kernels.glue_geometry(
-                        name, 2 * R * max_m if name == "rel_prep" else 2 * R)
-                    say(f"  {name}: {g['ms'][-1]:.4f} ms per launch on the "
-                        f"card ({g['call_ms'][-1]:.4f} ms per wrapper call), "
-                        f"plain torch {g['plain_ms'][-1]:.3f} ms, bound "
-                        f"{g['bound'][-1]['ms']:.6f} ms "
-                        f"({g['bound'][-1]['by']}, "
-                        f"{g['bound'][-1]['bytes']} B), geometry "
-                        f"{json.dumps(g['geometry'])}")
+                bnd = _bound_ms(planes, cov, P)
+                bnds = _main_bounds(fb, ib, gargs["planes"], gargs["cov"], P,
+                                    t, bnd)
+                _time_glue(rec["glue"], "rel_prep", gargs["rel_prep"],
+                           rel_mod.prep_ref, bnds["rel_prep"])
+                g = rec["glue"]["rel_prep"]
+                g["geometry"] = kernels.glue_geometry("rel_prep",
+                                                      2 * R * max_m)
+                say(f"  rel_prep: {g['ms'][-1]:.4f} ms per launch on the "
+                    f"card ({g['call_ms'][-1]:.4f} ms per wrapper call), "
+                    f"plain torch {g['plain_ms'][-1]:.3f} ms, bound "
+                    f"{g['bound'][-1]['ms']:.6f} ms "
+                    f"({g['bound'][-1]['by']}, "
+                    f"{g['bound'][-1]['bytes']} B), geometry "
+                    f"{json.dumps(g['geometry'])}")
+                _time_tails(rec["tails"], t, gargs["planes"], gargs["cov"],
+                            P, bnds, parent, tag)
                 ms = _time_cuda(lambda: kernels.rel_dp(*planes, cov, P), 20)
                 t0 = time.perf_counter()
                 rel_dp_ref(*planes, cov, P)
@@ -719,7 +1031,6 @@ def phase_kernel():
                 plain = (time.perf_counter() - t0) * 1e3
                 rec["ms"].append(ms)
                 rec["plain_ms"].append(plain)
-                bnd = _bound_ms(planes, cov, P)
                 rec["bound"].append(bnd)
                 stage = _time_cuda(lambda: rel_only(fb_d, ib_d, P, R, max_m,
                                                     impl="cuda"), 10)
@@ -735,9 +1046,9 @@ def phase_kernel():
                     f"({bnd['by']}; bytes {bnd['bytes_ms']:.6f} ms with "
                     f"{bnd['records']} distinct table records, operations "
                     f"{bnd['ops_ms']:.6f} ms for {bnd['steps']} steps); "
-                    f"whole rel_only stage (glue + 2 launches) {stage:.3f} "
-                    f"ms per chunk; K4 glue bound {k4['ms']:.6f} ms "
-                    f"({k4['by']}, {k4['bytes']} B)")
+                    f"whole rel_only stage (rel_prep + 2 K1 launches) "
+                    f"{stage:.3f} ms per chunk; K4 glue bound "
+                    f"{k4['ms']:.6f} ms ({k4['by']}, {k4['bytes']} B)")
         if fx == "branch/search9" and not n_res2:
             fail("branch/search9 pack rescued no row")
     return rec
@@ -759,8 +1070,6 @@ def _clock_profile(name: str, entry: str, parts, cases,
     launches by default) and reads the clock sums (cycles per step of the
     warp's loop, lane 0 of each row; per read pair, thread 0 of its
     block, for rel_settle)."""
-    import ctypes
-
     from classpro_tpu_torch import kernels
 
     lib = ctypes.CDLL(kernels.build("cuda", name, True, clocks=True))
@@ -869,14 +1178,12 @@ def phase_settleprofile() -> dict:
 
 # --------------------------------------------------------------------- 4
 def phase_e2e():
-    from classpro_tpu_torch import kernels
     from classpro_tpu_torch.engine import classify_file_torch
     from classpro_tpu_torch.io.classfile import write_class
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
+        _reset_launches()
         for fx in ("tiny", "medium"):
             d = os.path.join(FIX, fx)
             out = os.path.join(tmp, fx + ".class")
@@ -895,10 +1202,7 @@ def phase_e2e():
             say(f"e2e {fx}: byte-identical to golden ({len(got)} bytes, "
                 f"{wall:.2f} s incl. set-up, guard_flagged "
                 f"{st['guard_flagged']})")
-        launches = dict(kernels.LAUNCHES)
-        for k in MAIN_PATH:
-            if launches[k] <= 0:
-                fail(f"main path launched kernel {k} no time")
+        launches = _path_launches("main path", MAIN_PATH, MAIN_TAILS)
         say(f"e2e launches: {launches}")
         return launches
     finally:
@@ -1397,11 +1701,13 @@ def _alldev_chunks():
 
 
 def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
-    """rel_prep (all-device layout) and rel_settle against their plain
-    versions on one chunk, bit for bit, rel_settle on the kernel chain's
-    own DP passes; returns each kernel's arguments, bounds and, under
-    "err", largest difference."""
+    """rel_prep (all-device layout), the DP's first pass with its rescue
+    tail and rel_settle against their plain versions on one chunk, bit
+    for bit, the rescue tail and rel_settle on the kernel chain's own DP
+    passes; returns each kernel's arguments, bounds and, under "err",
+    largest difference."""
     from classpro_tpu_torch import alldev, kernels
+    from classpro_tpu_torch.rel import rescue_rows
 
     Bn, max_n, R2, max_m = dims
     R = R2 // 2
@@ -1412,8 +1718,11 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
          for k, (a, b) in enumerate(zip(planes + (cov,), p_r + (c_r,)))]
         + [_same(tag, f"rel_prep (alldev) {k}", un[k], un_r[k])
            for k in un])}
-    asgn1, _, mm1 = kernels.rel_dp(*planes, cov, P)
-    rescue, cov2 = kernels.rel_rescue(planes, asgn1, P)
+    asgn1, _, mm1, rescue, cov2, _ = kernels.rel_dp_rescue(*planes, cov, P)
+    r_r, c_r = rescue_rows(planes, asgn1, P, max_m)
+    err["rel_rescue"] = max(_same(tag, "the rescue tail's rescue", rescue,
+                                  r_r),
+                            _same(tag, "the rescue tail's cov2", cov2, c_r))
     asgn2, _, mm2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
     V = kernels.blob_views(fb_d, ib_d, *dims)
     sargs = (asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],
@@ -1443,36 +1752,57 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
                 live * OPS_SETTLE_CELL)}}
 
 
-def _parent_glue(parent: str) -> dict:
-    """The launch entries of rel_prep and rel_settle in the checkout
-    ``parent`` (an earlier commit of this repository): its
-    classpro_tpu_torch/csrc/glue.cu built with this tree's nvcc flags into
-    a library of its own, each entry bound with this tree's argument
-    list (the kernels' C interface did not change)."""
-    import ctypes
-
+def _parent_kernels(parent: str) -> dict:
+    """The launch entries of the checkout ``parent`` (an earlier commit of
+    this repository): its classpro_tpu_torch/csrc/rel_dp.cu and glue.cu
+    built with this tree's nvcc flags into libraries of their own, both at
+    once; its rel_prep and rel_settle bound with this tree's argument
+    lists (their C interface did not change since they were written).
+    Its DP kernel: where its glue library exports rel_rescue_launch (a
+    tree before the tails), bound with the argument list of then, beside
+    its rel_rescue and rel_pack (UNFUSED_ARGTYPES); else with this
+    tree's."""
     from classpro_tpu_torch import kernels
 
     csrc = os.path.join(parent, "classpro_tpu_torch", "csrc")
-    so = os.path.join(HERE, "classpro_tpu_torch", "_build",
-                      "libglue_parent.so")
-    os.makedirs(os.path.dirname(so), exist_ok=True)
+    out = os.path.join(HERE, "classpro_tpu_torch", "_build")
+    os.makedirs(out, exist_ok=True)
     t0 = time.time()
-    r = subprocess.run([kernels._nvcc()] + kernels.NVCC_FLAGS
-                       + ["-I", csrc, os.path.join(csrc, "glue.cu"), "-o",
-                          so], capture_output=True, text=True)
-    if r.returncode != 0:
-        fail(f"nvcc failed on the parent's glue.cu:\n{r.stderr}")
-    lib = ctypes.CDLL(so)
+    procs = {src: subprocess.Popen(
+        [kernels._nvcc()] + kernels.NVCC_FLAGS
+        + ["-I", csrc, os.path.join(csrc, src), "-o",
+           os.path.join(out, f"lib{src[:-3]}_parent.so")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("rel_dp.cu", "glue.cu")}
+    logs = {src: p.communicate()[0] for src, p in procs.items()}
+    for src, p in procs.items():
+        if p.returncode != 0:
+            fail(f"nvcc failed on the parent's {src}:\n{logs[src]}")
+    libs = {src: ctypes.CDLL(os.path.join(out, f"lib{src[:-3]}_parent.so"))
+            for src in procs}
+    unfused = hasattr(libs["glue.cu"], "rel_rescue_launch")
+    binds = [("rel_dp", "rel_dp.cu", "rel_dp_kernel",
+              UNFUSED_ARGTYPES["rel_dp"] if unfused
+              else kernels._ARGTYPES["rel_dp"]),
+             ("rel_prep", "glue.cu", "rel_prep_alldev_kernel",
+              kernels._ARGTYPES["rel_prep"]),
+             ("rel_settle", "glue.cu", "rel_settle_kernel",
+              kernels._ARGTYPES["rel_settle"])]
+    if unfused:
+        binds += [("rel_rescue", "glue.cu", "rel_rescue_kernel",
+                   UNFUSED_ARGTYPES["rel_rescue"]),
+                  ("rel_pack", "glue.cu", "rel_pack_kernel",
+                   UNFUSED_ARGTYPES["rel_pack"])]
     fns = {}
-    for name in ("rel_prep", "rel_settle"):
-        fn = getattr(lib, f"{name}_launch")
+    for name, src, entry, argtypes in binds:
+        fn = getattr(libs[src], f"{name}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = kernels._ARGTYPES[name] + [ctypes.c_void_p]
+        fn.argtypes = argtypes + [ctypes.c_void_p]
         fns[name] = fn
-        res = ptxas_resources(r.stdout + r.stderr, ENTRIES[name][-1])
-        say(f"build: parent {ENTRIES[name][-1]} {json.dumps(res)}")
-    say(f"build: nvcc {parent}'s glue.cu {time.time() - t0:.1f} s")
+        res = ptxas_resources(logs[src], entry)
+        say(f"build: parent {entry} {json.dumps(res)}")
+    say(f"build: nvcc {parent}'s rel_dp.cu and glue.cu "
+        f"{time.time() - t0:.1f} s")
     return fns
 
 
@@ -1518,16 +1848,15 @@ def _time_parent(g: dict, name: str, args, fn, fresh, tag: str) -> None:
         f"bit-equal to this tree's")
 
 
-def phase_alldev(parent_dir: str | None = None):
+def phase_alldev(parent: dict | None = None):
     """Sweep kernel vs plain, the all-device glue kernels vs plain and
     classify_batch kernels vs plain on every medium chunk, and the sweep
-    kernel on a long-row chunk, with times and bounds; with
-    ``parent_dir`` (a checkout of an earlier commit), its rel_prep and
-    rel_settle against this tree's on every chunk, timed in turns.
-    Returns the record."""
+    kernel on a long-row chunk, with times and bounds; with ``parent``
+    (the launch entries of an earlier commit, ``_parent_kernels``), its
+    rel_prep and rel_settle against this tree's on every chunk, timed in
+    turns.  Returns the record."""
     from classpro_tpu_torch import alldev, kernels
 
-    parent = _parent_glue(parent_dir) if parent_dir else None
     rec = {"max_abs_err": 0.0, "chunks": [], "glue": {}, "glue_err": {}}
     plains = {"rel_prep": lambda fb, ib, P, R, M, ad: alldev.prep_ref(
         fb, ib, P, R, M, *ad), "rel_settle": alldev.settle_ref}
@@ -1555,9 +1884,10 @@ def phase_alldev(parent_dir: str | None = None):
         for name, e in gargs["err"].items():
             rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0), e)
         say(f"kernel == plain: {tag}: sweeps bit-equal on {Bn} rows "
-            f"({changed} intervals decided by the sweeps), rel_prep and "
-            f"rel_settle bit-equal ({gargs['flagged']} reads with a risky "
-            f"rel margin), classify_batch equal ({int(f_k.sum())} flagged)")
+            f"({changed} intervals decided by the sweeps), rel_prep, K1's "
+            f"rescue tail and rel_settle bit-equal ({gargs['flagged']} reads "
+            f"with a risky rel margin), classify_batch equal "
+            f"({int(f_k.sum())} flagged)")
         for name in ("rel_prep", "rel_settle"):
             _time_glue(rec["glue"], name, gargs[name], plains[name],
                        gargs["bounds"][name])
@@ -1634,12 +1964,10 @@ def _read_records(fx: str):
 def phase_alldev_e2e():
     """TorchEngine(alldev=True) over tiny and medium: golden bytes; both
     kernels launched by that run."""
-    from classpro_tpu_torch import kernels
     from classpro_tpu_torch.engine import TorchEngine
     from classpro_tpu_torch.io.classfile import class_header
 
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    _reset_launches()
     for fx in ("tiny", "medium"):
         gm, seqs, profs = _model(fx)
         reads = _read_records(fx)
@@ -1658,10 +1986,9 @@ def phase_alldev_e2e():
         say(f"alldev e2e {fx}: byte-identical to golden ({len(text)} bytes, "
             f"{time.time() - t0:.2f} s incl. set-up, guard_flagged "
             f"{eng.guard_flagged})")
-    launches = dict(kernels.LAUNCHES)
-    for k in ALLDEV_PATH:
-        if launches[k] <= 0:
-            fail(f"alldev path launched kernel {k} no time")
+    launches = _path_launches("alldev path", ALLDEV_PATH, ALLDEV_TAILS)
+    if launches["tails"]["rel_pack"]:
+        fail("alldev path ran the DP kernel's pack tail")
     say(f"alldev e2e launches: {launches}")
     return launches
 
@@ -1784,13 +2111,6 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-def _reset_launches() -> None:
-    from classpro_tpu_torch import kernels
-
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
 
 
 def _gold_bytes(fx: str) -> bytes:
@@ -2503,9 +2823,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sort-window", type=int, default=8,
                     help="steady stream: classify_stream's sort_window")
     ap.add_argument("--parent", metavar="DIR",
-                    help="alldev phase: a checkout of an earlier commit "
-                    "whose rel_prep and rel_settle kernels are held "
-                    "against this tree's and timed in turns with them")
+                    help="a checkout of an earlier commit: the kernel "
+                    "phase holds its unfused DP + rel_rescue and DP + "
+                    "rel_pack launches (or, from a tree with the tails, "
+                    "its DP launches with them) against this tree's DP "
+                    "launches with their tails and times them in turns, "
+                    "the alldev phase its rel_prep and rel_settle")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2530,7 +2853,9 @@ def main(argv=None) -> int:
     t_all = time.time()
 
     brec = phase_build() if "build" in phases else None
-    krec = phase_kernel() if "kernel" in phases else None
+    parent = (_parent_kernels(args.parent)
+              if args.parent and phases & {"kernel", "alldev"} else None)
+    krec = phase_kernel(parent) if "kernel" in phases else None
     if "k1profile" in phases:
         say(json.dumps({"k1_profile": phase_k1profile(), "card": smi}))
     if "k5profile" in phases:
@@ -2544,7 +2869,7 @@ def main(argv=None) -> int:
             if "stream" in phases else None)
     arec = alaunch = asrec = None
     if "alldev" in phases:
-        arec = phase_alldev(args.parent)
+        arec = phase_alldev(parent)
         alaunch = phase_alldev_e2e()
         asrec = phase_alldev_stream(args.alldev_passes)
     if "profiled" in phases:                 # the child of _profiled_process
@@ -2573,6 +2898,9 @@ def main(argv=None) -> int:
     if abrec is not None:
         say(json.dumps({"glue_ab": abrec, "card": smi}))
     kern = []
+    if krec is not None and arec is not None:   # the alldev rescue tails
+        krec["tail_err"]["rel_rescue"] = max(krec["tail_err"]["rel_rescue"],
+                                             arec["glue_err"]["rel_rescue"])
     if krec is not None and launches is not None:
         k = len(krec["ms"]) - 1              # the medium shape timed last
         kern.append({
@@ -2585,6 +2913,7 @@ def main(argv=None) -> int:
             "bound_ms": krec["bound"][k]["ms"],
             "bound_by": krec["bound"][k]["by"],
             "library_ms": None, "us_per_step": krec["us_per_step"],
+            "tails": _tails_entry(krec, launches["tails"]),
             **(brec or {}).get("rel_dp_kernel", {}), **krec["geometry"]})
     if arec is not None:
         ch = arec["chunks"][-1]              # the medium chunk timed last
@@ -2604,23 +2933,22 @@ def main(argv=None) -> int:
                 arec["long_row"]["us_per_active_step"],
             **(brec or {}).get("unrel_kernel", {}), **arec["geometry"]})
     if krec is not None and launches is not None:
-        for name in ("rel_prep", "rel_rescue", "rel_pack"):
-            err = krec["glue_err"][name]
-            if name == "rel_prep" and arec is not None:
-                err = max(err, arec["glue_err"]["rel_prep"])
-            e = _glue_entry(name, krec["glue"][name], launches[name], err,
-                            brec)
-            if name == "rel_prep" and arec is not None:
-                g = arec["glue"]["rel_prep"]
-                e.update(alldev_ms=g["ms"][-1], alldev_plain_ms=
-                         g["plain_ms"][-1], alldev_bound_ms=g["bound"][-1]
-                         ["ms"], alldev_bound_by=g["bound"][-1]["by"],
-                         alldev_ms_per_chunk=g["ms"],
-                         alldev_call_ms=g["call_ms"][-1],
-                         alldev_geometry=g["geometry"],
-                         **({"alldev_parent_ab_ms": g["ab"]}
-                            if "ab" in g else {}))
-            kern.append(e)
+        err = krec["glue_err"]["rel_prep"]
+        if arec is not None:
+            err = max(err, arec["glue_err"]["rel_prep"])
+        e = _glue_entry("rel_prep", krec["glue"]["rel_prep"],
+                        launches["rel_prep"], err, brec)
+        if arec is not None:
+            g = arec["glue"]["rel_prep"]
+            e.update(alldev_ms=g["ms"][-1], alldev_plain_ms=
+                     g["plain_ms"][-1], alldev_bound_ms=g["bound"][-1]
+                     ["ms"], alldev_bound_by=g["bound"][-1]["by"],
+                     alldev_ms_per_chunk=g["ms"],
+                     alldev_call_ms=g["call_ms"][-1],
+                     alldev_geometry=g["geometry"],
+                     **({"alldev_parent_ab_ms": g["ab"]}
+                        if "ab" in g else {}))
+        kern.append(e)
     if arec is not None:
         g = arec["glue"]["rel_settle"]
         kern.append(dict(_glue_entry("rel_settle", g, alaunch["rel_settle"],

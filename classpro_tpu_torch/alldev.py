@@ -23,9 +23,10 @@ divides in IEEE float64, so it equals the host ``rel.reconcile_fwbw`` on
 every row; the ``mode="drop"`` scatters send their sentinel indices to a
 spare row or column that is then cut off.
 
-On a card (``impl="cuda"``) a chunk is six launches and two torch ops
+On a card (``impl="cuda"``) a chunk is five launches and two torch ops
 (``classify_glued``): the glue kernels of csrc/glue.cu (rel_prep in this
-layout, rel_rescue, rel_settle) around the DP and sweep kernels.  The
+layout, rel_settle) around the DP kernel's two passes (the first with
+its rescue tail) and the sweep kernel.  The
 torch functions here are their plain versions (``prep_ref``,
 ``settle_ref`` built from ``dp_planes``, ``un_planes``, ``demotes_dev``,
 ``reconcile_dev`` and ``sweep_inputs``' scatter).
@@ -313,16 +314,16 @@ def settle_ref(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols,
 
 def classify_glued(fblob, iblob, P: PipelineParams, Bn: int, max_n: int,
                    R2: int, max_m: int, ops):
-    """classify_batch as six launches and two torch ops: ``ops`` holds
-    rel_prep, rel_dp, rel_rescue, rel_settle and unrel_sweeps with the
+    """classify_batch as five launches and two torch ops: ``ops`` holds
+    rel_prep, rel_dp_rescue, rel_dp, rel_settle and unrel_sweeps with the
     contracts of the kernels module's wrappers (the kernels on a card; the
     tests pass the g++ shims)."""
     R = R2 // 2
     V = blob_views(fblob, iblob, Bn, max_n, R2, max_m)
     planes, cov, un = ops.rel_prep(fblob, iblob, P.rel, R, max_m,
                                    alldev=(Bn, max_n))
-    asgn1, _dp1, mm1 = ops.rel_dp(*planes, cov, P.rel)
-    rescue, cov2 = ops.rel_rescue(planes, asgn1, P.rel)
+    asgn1, _dp1, mm1, rescue, cov2, _ = ops.rel_dp_rescue(*planes, cov,
+                                                          P.rel)
     asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P.rel, active=rescue)
     gate = un["gate"]
     ops.rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],

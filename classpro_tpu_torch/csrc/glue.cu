@@ -1,20 +1,19 @@
 // The per-chunk glue around the DP kernel (K4, main path) and around the
-// sweep kernel (K6, all-device path) as four kernels for sm_90a, bound
+// sweep kernel (K6, all-device path) as two kernels for sm_90a, bound
 // with ctypes:
 //   rel_prep   the DP's planes from a chunk's blobs (both layouts; in the
 //              all-device layout also the sweeps' planes);
-//   rel_rescue the no-H rescue predicate and the rescue pass's
-//              coverages, one warp per scan row;
-//   rel_pack   the pass merge and the packed (2R, max_m + 5) result of
-//              the main path, one warp per scan row;
 //   rel_settle the pass merge, demotions, fw/bw reconciliation, the
 //              scatter into the sweeps' assignments and the read's rel
 //              flag (all-device path), one block per read pair.
 // Replaces the JAX package's device_pipeline._rel_only_core :541,
-// _rel_pipeline :153, _pack_out :638, _unpack :119, _demotes_dev :257,
+// _rel_pipeline :153, _unpack :119, _demotes_dev :257,
 // _reconcile_dev :401, _un_planes :511 and classify_batch_dev's tail
 // :686-704, which XLA fused into one program per chunk.  The bodies are
-// glue_row.cuh.
+// glue_row.cuh.  The rest of K4, the rescue predicate and the pack, are
+// the DP kernel's row tails (rel_dp.cu, rel_tail.cuh): as kernels of
+// their own (one warp per row) they cost a launch each for a few
+// operations per cell.
 //
 // What bounds them on the card: bytes.  A chunk's glue reads its blobs
 // and writes the DP's and the sweeps' planes once, a few MB to some 17 MB
@@ -38,8 +37,6 @@
 //     reconciliation and the scatter run on that cache with two block
 //     reductions (redux.sync) in all.  Its time is a chain of latencies
 //     per pair, not bytes.
-//   - rel_rescue and rel_pack: one warp per row, one pass each; they sit
-//     at a launch's cost on this card.
 
 // Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
@@ -102,46 +99,6 @@ static long long gp_cells(const gl::Prep& a) {
   return 2LL * a.R * a.M + (long long)a.Bn * a.N;
 }
 
-#define GR_ARGS_DECL                                                       \
-  const void *bpos, const void *bcnt, const void *epos, const void *ecnt,  \
-      const void *m, const void *asgn, const void *gcov, int R2, int M,    \
-      void *rescue, void *cov2
-#define GR_ARGS_PASS bpos, bcnt, epos, ecnt, m, asgn, gcov, R2, M, rescue, cov2
-
-static gl::Rescue gr_make_args(GR_ARGS_DECL) {
-  gl::Rescue a;
-  a.bpos = (const long long*)bpos;
-  a.bcnt = (const long long*)bcnt;
-  a.epos = (const long long*)epos;
-  a.ecnt = (const long long*)ecnt;
-  a.m = (const long long*)m;
-  a.asgn = (const signed char*)asgn;
-  a.gcov = (const long long*)gcov;
-  a.R2 = R2;
-  a.M = M;
-  a.rescue = (unsigned char*)rescue;
-  a.cov2 = (long long*)cov2;
-  return a;
-}
-
-#define GK_ARGS_DECL                                                       \
-  const void *asgn1, const void *asgn2, const void *mm1, const void *mm2,  \
-      const void *rescue, int R2, int M, void *out
-#define GK_ARGS_PASS asgn1, asgn2, mm1, mm2, rescue, R2, M, out
-
-static gl::Pack gk_make_args(GK_ARGS_DECL) {
-  gl::Pack a;
-  a.asgn1 = (const signed char*)asgn1;
-  a.asgn2 = (const signed char*)asgn2;
-  a.mm1 = (const double*)mm1;
-  a.mm2 = (const double*)mm2;
-  a.rescue = (const unsigned char*)rescue;
-  a.R2 = R2;
-  a.M = M;
-  a.out = (unsigned char*)out;
-  return a;
-}
-
 #define GS_ARGS_DECL                                                       \
   const void *asgn1, const void *asgn2, const void *mm1, const void *mm2,  \
       const void *rescue, const void *bpos, const void *bcnt,              \
@@ -181,19 +138,14 @@ static gl::Settle gs_make_args(GS_ARGS_DECL) {
 // blocks of GL_PREP_THREADS, grid-stride beyond GL_PREP_BLOCKS blocks; the
 // all-device prep one block per tile of gl::PREP_TILE cells (the rel
 // planes' tiles, then the interval planes'), its records staged in static
-// shared memory; rel_rescue and rel_pack one warp per row in blocks of
-// four warps; rel_settle one block of gl::SETTLE_THREADS per read pair,
-// its row cache in dynamic shared memory.
+// shared memory; rel_settle one block of gl::SETTLE_THREADS per read
+// pair, its row cache in dynamic shared memory.
 constexpr int GL_PREP_THREADS = 256;
 constexpr long long GL_PREP_BLOCKS = 132 * 16;
-constexpr int GL_WARP_THREADS = 4 * rd::WARP;
 
 static int gl_prep_blocks(long long cells) {
   const long long b = (cells + GL_PREP_THREADS - 1) / GL_PREP_THREADS;
   return (int)(b < GL_PREP_BLOCKS ? b : GL_PREP_BLOCKS);
-}
-static int gl_warp_blocks(long long rows) {
-  return (int)((rows * rd::WARP + GL_WARP_THREADS - 1) / GL_WARP_THREADS);
 }
 static long long gl_alldev_blocks(long long rel_cells, long long un_cells) {
   return gl::prep_tiles(rel_cells) + gl::prep_tiles(un_cells);
@@ -202,8 +154,7 @@ static long long gl_alldev_blocks(long long rel_cells, long long un_cells) {
 // out[0..2] = threads per block, blocks and shared bytes per block (static
 // and dynamic) of a launch of ``kernel``: 0 the main-layout prep over n
 // cells, 1 the all-device prep over n rel-plane and n2 interval cells, 2
-// rel_rescue / rel_pack over n rows, 3 rel_settle over n read pairs of
-// max_m n2.
+// rel_settle over n read pairs of max_m n2.
 extern "C" int glue_geometry(int kernel, long long n, long long n2,
                              int* out) {
   switch (kernel) {
@@ -218,11 +169,6 @@ extern "C" int glue_geometry(int kernel, long long n, long long n2,
       out[2] = (int)sizeof(gl::PrepShared);
       return 0;
     case 2:
-      out[0] = GL_WARP_THREADS;
-      out[1] = gl_warp_blocks(n);
-      out[2] = 0;
-      return 0;
-    case 3:
       out[0] = gl::SETTLE_THREADS;
       out[1] = (int)n;
       out[2] = (int)sizeof(gl::SettleShared) + gl::settle_dyn_bytes((int)n2);
@@ -248,16 +194,6 @@ rel_prep_alldev_kernel(gl::Prep a) {
   gl::prep_alldev_block<1>(a, blockIdx.x, threadIdx.x, sh);
 }
 
-__global__ void __launch_bounds__(GL_WARP_THREADS)
-rel_rescue_kernel(gl::Rescue a) {
-  gl::rescue_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
-}
-
-__global__ void __launch_bounds__(GL_WARP_THREADS)
-rel_pack_kernel(gl::Pack a) {
-  gl::pack_warp<1>(a, blockIdx.x * (long long)blockDim.x + threadIdx.x);
-}
-
 __global__ void __launch_bounds__(gl::SETTLE_THREADS)
 rel_settle_kernel(gl::Settle a) {
   __shared__ gl::SettleShared sh;
@@ -278,20 +214,6 @@ extern "C" int rel_prep_launch(GP_ARGS_DECL, void* stream) {
       rel_prep_main_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
                              (cudaStream_t)stream>>>(a, cells);
   }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rel_rescue_launch(GR_ARGS_DECL, void* stream) {
-  if (R2 > 0)
-    rel_rescue_kernel<<<gl_warp_blocks(R2), GL_WARP_THREADS, 0,
-                        (cudaStream_t)stream>>>(gr_make_args(GR_ARGS_PASS));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rel_pack_launch(GK_ARGS_DECL, void* stream) {
-  if (R2 > 0)
-    rel_pack_kernel<<<gl_warp_blocks(R2), GL_WARP_THREADS, 0,
-                      (cudaStream_t)stream>>>(gk_make_args(GK_ARGS_PASS));
   return (int)cudaGetLastError();
 }
 
@@ -322,7 +244,7 @@ extern "C" int rel_settle_phase_clocks(unsigned long long* out, int reset) {
 
 // Host test shims: the same bodies; a main-layout prep cell by cell, an
 // all-device prep or rel_settle block with all its threads, phase by
-// phase, and rel_rescue / rel_pack one warp's 32 lanes per call.
+// phase.
 extern "C" int rel_prep_host(GP_ARGS_DECL) {
   const gl::Prep a = gp_make_args(GP_ARGS_PASS);
   if (alldev) {
@@ -335,20 +257,6 @@ extern "C" int rel_prep_host(GP_ARGS_DECL) {
   }
   const long long cells = gp_cells(a);
   for (long long k = 0; k < cells; ++k) gl::prep_main_cell(a, k);
-  return 0;
-}
-
-extern "C" int rel_rescue_host(GR_ARGS_DECL) {
-  const gl::Rescue a = gr_make_args(GR_ARGS_PASS);
-  for (long long g0 = 0; g0 < (long long)R2 * rd::WARP; g0 += rd::WARP)
-    gl::rescue_warp<rd::WARP>(a, g0);
-  return 0;
-}
-
-extern "C" int rel_pack_host(GK_ARGS_DECL) {
-  const gl::Pack a = gk_make_args(GK_ARGS_PASS);
-  for (long long g0 = 0; g0 < (long long)R2 * rd::WARP; g0 += rd::WARP)
-    gl::pack_warp<rd::WARP>(a, g0);
   return 0;
 }
 

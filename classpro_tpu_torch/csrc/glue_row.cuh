@@ -1,9 +1,9 @@
 // The per-chunk glue around the DP kernel (K4) and the sweep kernel (K6):
-// the per-cell, per-row and per-block bodies of the four glue kernels of
-// glue.cu.  Shared by the CUDA kernels (nvcc: one thread is one lane) and
-// the host test shim (the same file under g++ -x c++: one call runs a
-// warp's 32 lanes, or a block's threads, phase by phase), so the CPU
-// tests exercise the kernels' own arithmetic, lane and block reductions.
+// the per-cell and per-block bodies of the two glue kernels of glue.cu.
+// Shared by the CUDA kernels (nvcc: one thread is one lane) and the host
+// test shim (the same file under g++ -x c++: one call runs a block's
+// threads, phase by phase), so the CPU tests exercise the kernels' own
+// arithmetic and block reductions.
 //
 // Replaces, in the JAX package's device_pipeline.py:
 //   prep_main_cell     _rel_only_core :572-626 (both scan directions from
@@ -12,15 +12,14 @@
 //   prep_alldev_block  _unpack :119 (the rel planes as int64), the E
 //                      emission, _un_planes :511-538 and the sweeps'
 //                      N_STATE assignment rows of classify_batch_dev :686;
-//   rescue_warp        the no-H rescue predicate and cov2 (:198-234);
-//   pack_warp          the pass merge (:237-241) and _pack_out :638-651;
 //   settle_block       the pass merge, _demotes_dev :257-294,
 //                      _reconcile_dev :401-447, the scatter of the
 //                      reconciled rows into the sweeps' assignments
 //                      (:686-689) and the per-read rel risky flag
 //                      (:700-704).
-// The plain torch versions are rel.prep_ref / rescue_ref / pack_ref and
-// alldev.prep_ref / settle_ref.
+// The plain torch versions are rel.prep_ref and alldev.prep_ref /
+// settle_ref.  The rescue predicate and the pack, once glue kernels of
+// their own, are the DP kernel's row tails (rel_tail.cuh).
 //
 // Numerics (built with --fmad=false / -ffp-contract=off, never fast
 // math): the E emission and the Poisson planes keep the torch code's
@@ -32,13 +31,6 @@
 // divides in IEEE f64; the f32 margin rounds to nearest
 // (__double2float_rn, as a C cast on the host).
 //
-// Warp bodies (rel_rescue, rel_pack): a row's columns are dealt to the
-// warp's 32 lanes, c = c0 + lane for c0 = 0, 32, ... < max_m (the loop
-// bound is a kernel argument, so every lane runs every trip); each lane
-// accumulates its columns and a butterfly of shuffles (rd::from_xor)
-// gives every lane the row's total, so every lane takes the same row
-// decisions.  A warp takes one row, so a warp leaves the kernel whole.
-//
 // Block bodies (the all-device rel_prep, rel_settle): template <int NT>
 // runs threads t0 .. t0 + NT - 1 of a block, NT = 1 on the card and the
 // whole block in the shim; each phase between two barriers (block_sync)
@@ -48,9 +40,8 @@
 
 #pragma once
 
-#include <string.h>
-
 #include "rd_math.cuh"
+#include "rel_tail.cuh"
 #include "warp_lanes.cuh"
 
 namespace gl {
@@ -62,15 +53,14 @@ using rd::NST;
 using rd::REP;
 using rd::WARP;
 
-// the warp kernels' column loops stay rolled: unrolled, their passes
-// over a row spill registers (rel_settle)
+// rel_settle's column loops stay rolled: unrolled, their passes over a
+// row spill registers
 #ifdef __CUDACC__
 #define GL_ROLLED _Pragma("unroll 1")
 #else
 #define GL_ROLLED
 #endif
 
-constexpr double EPS = 1e-5;       // rel.REL_MARGIN_EPS
 constexpr long long LF_MAX = 32767;
 constexpr int P13_N = 13;
 
@@ -95,25 +85,6 @@ struct Prep {
   int* asgn;
   double *P13, *packL, *packR, *gate;
 };
-
-// torch.maximum / torch.minimum: NaN when either operand is NaN; of two
-// zeros, on the card the one fmax / fmin pick (PTX max.f64 / min.f64, as
-// torch's CUDA kernels: +0 / -0), on the host the second operand (as its
-// vectorized CPU kernels)
-RD_FN double tmax(double a, double b) {
-#ifdef __CUDA_ARCH__
-  return (rd::isnan_(a) || rd::isnan_(b)) ? RD_NAN : fmax(a, b);
-#else
-  return rd::max_(a, b);
-#endif
-}
-RD_FN double tmin(double a, double b) {
-#ifdef __CUDA_ARCH__
-  return (rd::isnan_(a) || rd::isnan_(b)) ? RD_NAN : fmin(a, b);
-#else
-  return rd::min_(a, b);
-#endif
-}
 
 RD_FN double lf_at(const double* logfact, long long k) {
   return RD_LDG(logfact + rd::clampi(k, 0, LF_MAX));
@@ -343,47 +314,7 @@ RD_FN void prep_alldev_block(const Prep& a, long long blk, int t0,
   }
 }
 
-// ------------------------------------------------------ lane reductions
-
-// int64 sum that wraps, as torch's does
-RD_FN long long wadd(long long a, long long b) {
-  return (long long)((unsigned long long)a + (unsigned long long)b);
-}
-
-// every lane of the warp gets the warp's sum / min of v
-template <int NL>
-RD_FN void warp_sum(long long (&v)[NL], const int (&wl)[NL]) {
-  RD_UNROLL
-  for (int off = WARP / 2; off > 0; off >>= 1) {
-    long long o[NL];
-    rd::from_xor<NL>(v, wl, off, o);
-    for (int l = 0; l < NL; ++l) v[l] = wadd(v[l], o[l]);
-  }
-}
-template <int NL>
-RD_FN void warp_min(long long (&v)[NL], const int (&wl)[NL]) {
-  RD_UNROLL
-  for (int off = WARP / 2; off > 0; off >>= 1) {
-    long long o[NL];
-    rd::from_xor<NL>(v, wl, off, o);
-    for (int l = 0; l < NL; ++l) v[l] = rd::mini(v[l], o[l]);
-  }
-}
-
-template <int NL>
-RD_FN void fill(long long (&v)[NL], long long x) {
-  for (int l = 0; l < NL; ++l) v[l] = x;
-}
-
-// the warp lanes of the launch's threads g0 .. g0 + NL - 1 and their row
-// (one row per warp; the host shim's g0 is a multiple of 32)
-template <int NL>
-RD_FN long long lanes_of(long long g0, int (&wl)[NL]) {
-  for (int l = 0; l < NL; ++l) wl[l] = (int)((g0 + l) & (WARP - 1));
-  return g0 / WARP;
-}
-
-RD_FN bool risky(double v) { return v > 0.0 && v < EPS; }
+// ------------------------------------------------------ settle helpers
 
 // IEEE division, as torch divides two f64 tensors
 RD_FN double div_(double a, double b) { return a / b; }
@@ -392,137 +323,6 @@ RD_FN double div_(double a, double b) { return a / b; }
 // csum / lsum nearer (or as near) gH than gD
 RD_FN long long dist(long long csum, long long g, long long lsum) {
   return rd::wabs(rd::wsub(csum, rd::wmul(g, lsum)));
-}
-
-// interval length |epos - bpos| + 1 and the half count floor((bcnt +
-// ecnt) * l / 2), of values or of plane cell i
-RD_FN long long seg_len(long long bpos, long long epos) {
-  return wadd(rd::wabs(rd::wsub(epos, bpos)), 1);
-}
-RD_FN long long seg_half(long long bcnt, long long ecnt, long long l) {
-  return rd::floordiv2(rd::wmul(wadd(bcnt, ecnt), l));
-}
-RD_FN long long cell_len(const long long* bpos, const long long* epos,
-                         long long i) {
-  return seg_len(RD_LDG(bpos + i), RD_LDG(epos + i));
-}
-RD_FN long long cell_half(const long long* bcnt, const long long* ecnt,
-                          long long i, long long l) {
-  return seg_half(RD_LDG(bcnt + i), RD_LDG(ecnt + i), l);
-}
-
-// -------------------------------------------------------------- rescue
-
-struct Rescue {
-  const long long *bpos, *bcnt, *epos, *ecnt, *m;   // the DP's planes
-  const signed char* asgn;                           // first pass (R2, M)
-  const long long* gcov;
-  int R2, M;
-  unsigned char* rescue;                             // (R2,)
-  long long* cov2;                                   // (R2, 4)
-};
-
-// rel.rescue_rows on row g0 / 32: the D intervals' length sum, half-count
-// sum and first column (keyed min (col << 16) + bcnt, bcnt <= 32767), the
-// H count; rescue = no H, some D, csum < gD * lsum.
-template <int NL>
-RD_FN void rescue_warp(const Rescue& a, long long g0) {
-  int wl[NL];
-  const long long row = lanes_of<NL>(g0, wl);
-  if (row >= a.R2) return;
-  const long long mr = RD_LDG(a.m + row);
-  const long long big = (long long)a.M << 16;
-  long long lsum[NL], csum[NL], nh[NL], key[NL];
-  fill<NL>(lsum, 0);
-  fill<NL>(csum, 0);
-  fill<NL>(nh, 0);
-  fill<NL>(key, big);
-  GL_ROLLED
-  for (int c0 = 0; c0 < a.M; c0 += WARP) {
-    for (int l = 0; l < NL; ++l) {
-      const int c = c0 + wl[l];
-      if (c >= a.M || c >= mr) continue;
-      const long long i = row * a.M + c;
-      const int v = RD_LDG(a.asgn + i);
-      if (v == HAP) nh[l] += 1;
-      if (v != DIP) continue;
-      const long long len = cell_len(a.bpos, a.epos, i);
-      lsum[l] = wadd(lsum[l], len);
-      csum[l] = wadd(csum[l], cell_half(a.bcnt, a.ecnt, i, len));
-      key[l] = rd::mini(key[l], ((long long)c << 16) + RD_LDG(a.bcnt + i));
-    }
-  }
-  warp_sum<NL>(lsum, wl);
-  warp_sum<NL>(csum, wl);
-  warp_sum<NL>(nh, wl);
-  warp_min<NL>(key, wl);
-  for (int l = 0; l < NL; ++l) {
-    if (wl[l] != 0) continue;
-    const long long gH = RD_LDG(a.gcov + HAP), gD = RD_LDG(a.gcov + DIP);
-    const bool res = nh[l] == 0 && key[l] < big
-                     && csum[l] < rd::wmul(gD, lsum[l]);
-    const long long anchor = key[l] & 0xFFFF;
-    a.rescue[row] = res ? 1 : 0;
-    long long* cv = a.cov2 + 4 * row;
-    cv[ERR] = RD_LDG(a.gcov + ERR);
-    cv[REP] = RD_LDG(a.gcov + REP);
-    cv[HAP] = res ? anchor : gH;
-    cv[DIP] = res ? wadd(anchor, gH) : gD;
-  }
-}
-
-// ---------------------------------------------------------------- pack
-
-struct Pack {
-  const signed char *asgn1, *asgn2;   // the two passes (R2, M)
-  const double *mm1, *mm2;            // their margins (R2,)
-  const unsigned char* rescue;        // (R2,)
-  int R2, M;
-  unsigned char* out;                 // (R2, M + 5)
-};
-
-// the margin of a row after both passes: rescued rows' decisions came
-// from both, so theirs is the min of the two
-RD_FN double merged_mm(const double* mm1, const double* mm2, bool res,
-                       long long row) {
-  const double m1 = RD_LDG(mm1 + row);
-  return res ? tmin(m1, RD_LDG(mm2 + row)) : m1;
-}
-
-RD_FN unsigned f32_bits(double v) {
-#ifdef __CUDA_ARCH__
-  return __float_as_uint(__double2float_rn(v));
-#else
-  const float f = (float)v;
-  unsigned u;
-  memcpy(&u, &f, 4);
-  return u;
-#endif
-}
-
-// rel.pack_ref on row g0 / 32: [asgn bytes of the pass the row keeps |
-// flags (bit 0 risky, bit 1 rescue) | f32(margin), little-endian]
-template <int NL>
-RD_FN void pack_warp(const Pack& a, long long g0) {
-  int wl[NL];
-  const long long row = lanes_of<NL>(g0, wl);
-  if (row >= a.R2) return;
-  const bool res = RD_LDG(a.rescue + row) != 0;
-  const signed char* src = (res ? a.asgn2 : a.asgn1) + row * a.M;
-  unsigned char* dst = a.out + row * (a.M + 5);
-  GL_ROLLED
-  for (int c0 = 0; c0 < a.M; c0 += WARP)
-    for (int l = 0; l < NL; ++l) {
-      const int c = c0 + wl[l];
-      if (c < a.M) dst[c] = (unsigned char)RD_LDG(src + c);
-    }
-  for (int l = 0; l < NL; ++l) {
-    if (wl[l] > 4) continue;
-    const double mm = merged_mm(a.mm1, a.mm2, res, row);
-    dst[a.M + wl[l]] = wl[l] == 0
-        ? (unsigned char)((risky(mm) ? 1 : 0) | (res ? 2 : 0))
-        : (unsigned char)(f32_bits(mm) >> (8 * (wl[l] - 1)));
-  }
 }
 
 // -------------------------------------------------------------- settle

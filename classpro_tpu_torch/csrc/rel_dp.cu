@@ -1,9 +1,15 @@
 // Reliable-interval Viterbi DP (K1), its inlined log-Skellam lookup (K2)
-// and the traceback (K3) as one kernel for sm_90a, bound with ctypes.
+// and the traceback (K3) as one kernel for sm_90a, bound with ctypes,
+// with two optional row tails: the no-H rescue predicate (on the first
+// pass) and the packed result (on both passes of the main path), so that
+// a main-path chunk is rel_prep and two launches of this kernel.
 //
 // Replaces the JAX package's rel_dev2.rel_dp_pass2 (rel_dev2.py:636-787)
-// with skellam_dev.skellam_args/skellam_value (skellam_dev.py:284-323);
-// the row body is rel_dp_row.cuh, the shared arithmetic rd_math.cuh.
+// with skellam_dev.skellam_args/skellam_value (skellam_dev.py:284-323),
+// and in its tails device_pipeline._rel_pipeline's rescue predicate and
+// pass merge (device_pipeline.py:198-241) and _pack_out (:638-651); the
+// row body is rel_dp_row.cuh, the tails' cells and rows rel_tail.cuh, the
+// shared arithmetic rd_math.cuh.
 //
 // Design: eight lanes per DP row (read x scan direction) in two mirrored
 // groups of four, lane c of each group holding DP cell c and its path
@@ -34,6 +40,15 @@
 // shuffle rounds.  Left for later: computing step i+1's lookups for each
 // of the four possible predecessors while step i decides (32 lanes per
 // row), and shorter compare chains in phase B.
+//
+// The tails replace two glue kernels of one warp per row whose bodies
+// were a few operations per cell but which cost a launch each (~3 and
+// ~2 us in a CUDA graph, and a wrapper call of Python on the host).  A
+// row's tails need only that row's assignments, just written by its
+// traceback, so they run in the epilogue, when the step loop's registers
+// are dead: the row's eight lanes deal its columns, a three-round shuffle
+// reduction gives each lane the row's sums, and the row's lanes write its
+// packed bytes.
 
 // Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
@@ -47,10 +62,11 @@
       const void *max_cc, const void *lf_bcnt, const void *logpE,          \
       const void *m, const void *plen, const void *fwd, const void *cov,   \
       const void *active, void *asgn, void *dp_out, void *mm_out,          \
-      void *bp, void *rpos, int R2, int max_m, const void *tab,            \
-      const void *lf_small, int n1, double read_len, long long offset,     \
-      double r_logp, double log_1m_pe_mean, double log_pe_mean,            \
-      double dr_ratio
+      void *bp, void *rpos, void *rescue, void *cov2, const void *gcov,    \
+      void *packed, const void *mm_prev, int R2, int max_m,                \
+      const void *tab, const void *lf_small, int n1, double read_len,      \
+      long long offset, double r_logp, double log_1m_pe_mean,              \
+      double log_pe_mean, double dr_ratio
 
 static rd::Args rd_make_args(RD_ARGS_DECL) {
   rd::Args a;
@@ -71,6 +87,11 @@ static rd::Args rd_make_args(RD_ARGS_DECL) {
   a.mm_out = (double*)mm_out;
   a.bp = (signed char*)bp;
   a.rpos = (unsigned char*)rpos;
+  a.rescue = (unsigned char*)rescue;
+  a.cov2 = (long long*)cov2;
+  a.gcov = (const long long*)gcov;
+  a.packed = (unsigned char*)packed;
+  a.mm_prev = (const double*)mm_prev;
   a.R2 = R2;
   a.max_m = max_m;
   a.P.tab = (const double*)tab;
@@ -87,8 +108,9 @@ static rd::Args rd_make_args(RD_ARGS_DECL) {
 
 #define RD_ARGS_PASS                                                      \
   bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd, cov,      \
-      active, asgn, dp_out, mm_out, bp, rpos, R2, max_m, tab, lf_small,   \
-      n1, read_len, offset, r_logp, log_1m_pe_mean, log_pe_mean, dr_ratio
+      active, asgn, dp_out, mm_out, bp, rpos, rescue, cov2, gcov, packed, \
+      mm_prev, R2, max_m, tab, lf_small, n1, read_len, offset, r_logp,    \
+      log_1m_pe_mean, log_pe_mean, dr_ratio
 
 // Launch geometry: one warp per block, ROWS_PER_WARP rows per block.
 constexpr int RD_THREADS = rd::WARP;
@@ -115,9 +137,35 @@ extern "C" int rel_dp_geometry(int R2, int max_m, int* out) {
   return 0;
 }
 
+// The pack tail's five bytes of rows whose margins are given
+// (gl::row_tail_byte: the first pass's where mm_prev is null, else the
+// rescue pass's), row i into out[5i .. 5i+4]: the check of the margin
+// merge and the f32 conversion on margins no DP pass gives (NaN, -0,
+// subnormals).  No path runs it.
+RD_FN void rd_tail_probe_row(const double* mm_prev, const double* mm,
+                              long long i, unsigned char* out) {
+  for (int k = 0; k < 5; ++k)
+    out[5 * i + k] = gl::row_tail_byte(k, mm_prev, i, mm[i]);
+}
+
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
+
+__global__ void rel_tail_probe_kernel(const double* mm_prev,
+                                      const double* mm, int n,
+                                      unsigned char* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) rd_tail_probe_row(mm_prev, mm, i, out);
+}
+
+extern "C" int rel_tail_probe_launch(const void* mm_prev, const void* mm,
+                                     int n, void* out, void* stream) {
+  if (n > 0)
+    rel_tail_probe_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        (const double*)mm_prev, (const double*)mm, n, (unsigned char*)out);
+  return (int)cudaGetLastError();
+}
 
 __global__ void __launch_bounds__(RD_THREADS)
 rel_dp_kernel(rd::Args a, int use_smem) {
@@ -164,6 +212,14 @@ extern "C" int rel_dp_host(RD_ARGS_DECL) {
   const rd::Scratch scr{a.bp, a.rpos, 0};
   const int lanes = rd_blocks(R2) * RD_THREADS;
   for (int g0 = 0; g0 < lanes; g0 += rd::WARP) rd::warp_rows<rd::WARP>(a, g0, scr);
+  return 0;
+}
+
+extern "C" int rel_tail_probe_host(const void* mm_prev, const void* mm,
+                                   int n, void* out) {
+  for (long long i = 0; i < n; ++i)
+    rd_tail_probe_row((const double*)mm_prev, (const double*)mm, i,
+                      (unsigned char*)out);
   return 0;
 }
 

@@ -27,6 +27,9 @@
 //       lane), target c's best predecessor sel[c] and margins;
 //   exchange 3: lane c takes lane sel[c]'s registers and cand;
 //   (C) phase_c: lane c updates its own cell.
+// After the loop, one lane per row runs the traceback, and the row's lanes
+// run its tails (row_tails: the rescue predicate on the first pass, the
+// packed row on the main path's two passes; rel_tail.cuh).
 // No tree reduction reorders a NaN-propagating max_ or the first-wins
 // maxarg4: a lane gathers the four values and runs the reference's
 // expression.  Every value a lane holds is a scalar or a statically indexed
@@ -40,6 +43,7 @@
 #pragma once
 
 #include "rd_math.cuh"
+#include "rel_tail.cuh"
 #include "warp_lanes.cuh"
 
 namespace rd {
@@ -50,6 +54,13 @@ constexpr int CELLS = 4;
 constexpr int LANES = 2 * CELLS;   // lanes per DP row
 constexpr int ROWS_PER_WARP = WARP / LANES;
 constexpr double LOG_QUARTER = -1.3862943611198906;  // log(0.25)
+// The tails' column trips whose loads go out together (a tail's time is
+// its loads' latency, one warp per SM): every load of a batch is issued,
+// in bounds whether used or not, before any is used.  A batch of the
+// rescue tail covers 8 x 8 columns (five loads a column), of the pack
+// tail 16 x 8 (one byte a column).
+constexpr int RESCUE_BATCH = 8;
+constexpr int PACK_BATCH = 16;
 
 // path-register slots (rel_dev2.py regs_i / regs_b)
 enum { SP = 0, SC = 4, LH = 8, LD = 10, LHBD = 12, LDBH = 14, NI = 16 };
@@ -77,6 +88,13 @@ struct Args {
   double* mm_out;                  // out (R2,)
   signed char* bp;                 // scratch (R2, max_m-1, 4)
   unsigned char* rpos;             // scratch (R2, max_m)
+  // the row tails (rel_tail.cuh, row_tails); a null output skips its tail
+  unsigned char* rescue;           // out (R2,): the rescue predicate
+  long long* cov2;                 // out (R2, 4): the rescue pass's coverages
+  const long long* gcov;           // (4,) the model's coverages
+  unsigned char* packed;           // out (R2, max_m + 5): the packed rows
+  const double* mm_prev;           // (R2,) the first pass's margins: set
+                                   // on the rescue pass, null on the first
   int R2, max_m;
   Params P;
 };
@@ -596,6 +614,112 @@ RD_FN void traceback(const Args& a, int b, long long m, const double dp[4],
     if (rpos[j]) asgn[j] = REP;
 }
 
+// The row's tails (rel_tail.cuh), after its traceback, on its eight
+// lanes, lane j of the row taking columns j, j + 8, ... (mw, the warp's
+// longest row, bounds every lane's trips): on the first pass the rescue
+// predicate over the columns within m, its sums reduced over the row's
+// lanes, so that every lane takes the row's decision; then the packed row
+// of a row this launch does not rescue (the rescue pass: every row it
+// runs, with the min of both passes' margins).  The assignments are read
+// with plain loads after warp_sync, which orders the traceback lane's
+// stores before them: this launch wrote them, and the non-coherent path
+// (RD_LDG) may return stale bytes.
+template <int NL>
+RD_FN void row_tails(const Args& a, const Lane (&L)[NL], const int (&wl)[NL],
+                     const double (&mmv)[NL], int mw) {
+  const int M = a.max_m;
+  gl::RescueSums s[NL];
+  bool res[NL];
+  for (int l = 0; l < NL; ++l) {
+    s[l] = gl::rescue_start(M);
+    res[l] = false;
+  }
+  warp_sync();   // the traceback's assignment stores
+  if (a.rescue) {
+    for (int c0 = 0; c0 < mw; c0 += RESCUE_BATCH * LANES)
+      for (int l = 0; l < NL; ++l) {
+        const Lane& x = L[l];
+        const long long row = (long long)x.row * M;
+        int v[RESCUE_BATCH];
+        long long bp[RESCUE_BATCH], bc[RESCUE_BATCH], ep[RESCUE_BATCH],
+            ec[RESCUE_BATCH];
+        RD_UNROLL
+        for (int t = 0; t < RESCUE_BATCH; ++t) {
+          const int c = c0 + t * LANES + (wl[l] & (LANES - 1));
+          const long long i = row + (c < M ? c : M - 1);
+          v[t] = a.asgn[i];
+          bp[t] = RD_LDG(a.bpos + i);
+          bc[t] = RD_LDG(a.bcnt + i);
+          ep[t] = RD_LDG(a.epos + i);
+          ec[t] = RD_LDG(a.ecnt + i);
+        }
+        RD_UNROLL
+        for (int t = 0; t < RESCUE_BATCH; ++t) {
+          const int c = c0 + t * LANES + (wl[l] & (LANES - 1));
+          if (x.valid && c < x.m && c < M)
+            gl::rescue_cell(s[l], v[t], c, bp[t], bc[t], ep[t], ec[t]);
+        }
+      }
+    RD_UNROLL
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      long long v[4][NL], o[4][NL];
+      for (int l = 0; l < NL; ++l) {
+        v[0][l] = s[l].lsum;
+        v[1][l] = s[l].csum;
+        v[2][l] = s[l].nh;
+        v[3][l] = s[l].key;
+      }
+      RD_UNROLL
+      for (int k = 0; k < 4; ++k) from_xor<NL>(v[k], wl, off, o[k]);
+      for (int l = 0; l < NL; ++l) {
+        s[l].lsum = gl::wadd(s[l].lsum, o[0][l]);
+        s[l].csum = gl::wadd(s[l].csum, o[1][l]);
+        s[l].nh = gl::wadd(s[l].nh, o[2][l]);
+        s[l].key = mini(s[l].key, o[3][l]);
+      }
+    }
+    for (int l = 0; l < NL; ++l) {
+      const Lane& x = L[l];
+      if (!x.valid) continue;
+      long long cv[4];
+      res[l] = gl::rescue_decide(s[l], a.gcov, M, cv);
+      if ((wl[l] & (LANES - 1)) != 0) continue;
+      a.rescue[x.row] = res[l] ? 1 : 0;
+      RD_UNROLL
+      for (int k = 0; k < 4; ++k) a.cov2[4LL * x.row + k] = cv[k];
+    }
+  }
+  if (!a.packed) return;
+  // a warp none of whose rows packs (the rescue pass's rows not rescued)
+  // skips the pack loop
+  int packs[NL];
+  for (int l = 0; l < NL; ++l) packs[l] = L[l].valid && !res[l];
+  if (!warp_max(packs)) return;
+  for (int c0 = 0; c0 < M; c0 += PACK_BATCH * LANES)
+    for (int l = 0; l < NL; ++l) {
+      const Lane& x = L[l];
+      signed char v[PACK_BATCH];
+      RD_UNROLL
+      for (int t = 0; t < PACK_BATCH; ++t) {
+        const int c = c0 + t * LANES + (wl[l] & (LANES - 1));
+        v[t] = a.asgn[(long long)x.row * M + (c < M ? c : M - 1)];
+      }
+      RD_UNROLL
+      for (int t = 0; t < PACK_BATCH; ++t) {
+        const int c = c0 + t * LANES + (wl[l] & (LANES - 1));
+        if (x.valid && !res[l] && c < M)
+          a.packed[(long long)x.row * (M + 5) + c] = (unsigned char)v[t];
+      }
+    }
+  for (int l = 0; l < NL; ++l) {
+    const Lane& x = L[l];
+    const int j = wl[l] & (LANES - 1);
+    if (!x.valid || res[l] || j >= 5) continue;
+    a.packed[(long long)x.row * (M + 5) + M + j] =
+        gl::row_tail_byte(j, a.mm_prev, x.row, mmv[l]);
+  }
+}
+
 // Lanes g0 .. g0+NL-1 of the launch (lane g: cell g % 4 of row g / 4).
 // NL lanes run in this thread: 1 on the card (the thread's own lane), a
 // whole warp of 32 in the host shim (g0 a multiple of 32), phase by phase
@@ -789,14 +913,24 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   }
   RD_FLUSH(L[0].valid && L[0].c == 0 && L[0].h == 0, mw > 1 ? mw - 1 : 0);
 
-  // the row's final cell and running margins on every lane of the row
-  double dp[NL], mm[NL], dpa[NL][4], mma[NL][4];
+  // the row's final cell and running margins, and its margin, on every
+  // lane of the row
+  double dp[NL], mm[NL], dpa[NL][4], mma[NL][4], mmv[NL];
   for (int l = 0; l < NL; ++l) {
     dp[l] = L[l].dp;
     mm[l] = L[l].mmin;
   }
   gather4<CELLS>(dp, wl, dpa);
   gather4<CELLS>(mm, wl, mma);
+  for (int l = 0; l < NL; ++l) {
+    // row margin: min FIRST, then the all-dead force flag (an exact-tie
+    // step margin of 0.0 must not mask it)
+    mmv[l] = min_(min4(mma[l][0], mma[l][1], mma[l][2], mma[l][3]),
+                  top2_margin(dpa[l]));
+    if (dpa[l][0] == -RD_INF && dpa[l][1] == -RD_INF
+        && dpa[l][2] == -RD_INF && dpa[l][3] == -RD_INF)
+      mmv[l] = 1e-30;
+  }
   warp_sync();   // the row's backpointers, written by its 4 lanes
   for (int l = 0; l < NL; ++l) {
     const Lane& x = L[l];
@@ -804,18 +938,12 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     const int b = x.row;
     a.dp_out[(long long)b * 4 + x.c] = x.dp;
     if (x.c != 0) continue;
-    // row margin: min FIRST, then the all-dead force flag (an exact-tie
-    // step margin of 0.0 must not mask it)
-    double mmv = min_(min4(mma[l][0], mma[l][1], mma[l][2], mma[l][3]),
-                      top2_margin(dpa[l]));
-    if (dpa[l][0] == -RD_INF && dpa[l][1] == -RD_INF
-        && dpa[l][2] == -RD_INF && dpa[l][3] == -RD_INF)
-      mmv = 1e-30;
-    a.mm_out[b] = mmv;
+    a.mm_out[b] = mmv[l];
     const long long r = b - scr.row0;
     traceback(a, b, x.m, dpa[l], scr.bp + r * (M - 1) * 4,
               scr.rpos + r * M);
   }
+  if (a.rescue || a.packed) row_tails<NL>(a, L, wl, mmv, mw);
 }
 
 }  // namespace rd

@@ -1,14 +1,15 @@
 """Build and bind the hand-written CUDA kernels (csrc/).
 
-``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP), ``unrel_sweeps``
-(csrc/unrel.cu: the two relaxation sweeps) and the per-chunk glue around
-them (csrc/glue.cu: ``rel_prep``, ``rel_rescue``, ``rel_pack``,
-``rel_settle``) are the wrappers the paths call: on CUDA tensors they
-launch the sm_90a kernel on the current stream and count the launch in
-``LAUNCHES``; on CPU tensors they run the plain torch version (rel_ref,
-unrel_ref, rel.prep_ref / rescue_rows / pack_ref, alldev.prep_ref /
-settle_ref).  There is no fallback between the two: a failed nvcc build
-or a refused launch raises.
+``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP; ``rel_dp_rescue``
+and ``rel_dp_pack`` launch it with its row tails, the no-H rescue
+predicate and the packed result), ``unrel_sweeps`` (csrc/unrel.cu: the
+two relaxation sweeps) and the per-chunk glue around them (csrc/glue.cu:
+``rel_prep``, ``rel_settle``) are the wrappers the paths call: on CUDA
+tensors they launch the sm_90a kernel on the current stream and count
+the launch in ``LAUNCHES``; on CPU tensors they run the plain torch
+version (rel_ref, unrel_ref, rel.prep_ref / rescue_rows / pack_out /
+pack_ref, alldev.prep_ref / settle_ref).  There is no fallback between
+the two: a failed nvcc build or a refused launch raises.
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
 interface, loaded with ctypes), never at import.  The ``*_host`` functions
@@ -20,6 +21,7 @@ kernels' arithmetic and lane exchanges and never run on a path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import subprocess
@@ -35,14 +37,15 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 # kernel -> (source, headers it includes)
 SOURCES = {
-    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rd_math.cuh",
-                             "warp_lanes.cuh")),
+    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rel_tail.cuh",
+                             "rd_math.cuh", "warp_lanes.cuh")),
     "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh",
                                   "warp_lanes.cuh")),
 }
-# the four glue kernels share one source and one library
-_GLUE = ("glue.cu", ("glue_row.cuh", "rd_math.cuh", "warp_lanes.cuh"))
-GLUE_KERNELS = ("rel_prep", "rel_rescue", "rel_pack", "rel_settle")
+# the two glue kernels share one source and one library
+_GLUE = ("glue.cu", ("glue_row.cuh", "rel_tail.cuh", "rd_math.cuh",
+                     "warp_lanes.cuh"))
+GLUE_KERNELS = ("rel_prep", "rel_settle")
 SOURCES.update({name: _GLUE for name in GLUE_KERNELS})
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +56,9 @@ HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
 
 # launches of the CUDA kernels (plain-version calls on the CPU do not count)
 LAUNCHES = {name: 0 for name in SOURCES}
+# of LAUNCHES["rel_dp"], those that ran the DP kernel's rescue tail and
+# its pack tail (rel_tail.cuh)
+TAIL_LAUNCHES = {"rel_rescue": 0, "rel_pack": 0}
 # compiler output of the last build in this process, by (kernel, kind)
 # (nvcc's -Xptxas -v lines)
 BUILD_LOG: dict = {}
@@ -66,15 +72,13 @@ _D = ctypes.c_double
 _LL = ctypes.c_longlong
 # C argument lists: rel_dp.cu RD_ARGS_DECL, unrel.cu UR_ARGS_DECL
 _ARGTYPES = {
-    "rel_dp": [_PTR] * 17 + [_I, _I, _PTR, _PTR, _I, _D, _LL] + [_D] * 4,
+    "rel_dp": [_PTR] * 22 + [_I, _I, _PTR, _PTR, _I, _D, _LL] + [_D] * 4,
     "unrel_sweeps": ([_PTR] * 12 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
                      + [_D] * 5 + [_LL] * 3),
 }
-# glue.cu GP_ARGS_DECL, GR_ARGS_DECL, GK_ARGS_DECL, GS_ARGS_DECL
+# glue.cu GP_ARGS_DECL, GS_ARGS_DECL
 _ARGTYPES.update({
     "rel_prep": [_PTR] * 4 + [_D] + [_I] * 4 + [_D] * 2 + [_PTR] * 18 + [_I],
-    "rel_rescue": [_PTR] * 7 + [_I, _I, _PTR, _PTR],
-    "rel_pack": [_PTR] * 5 + [_I, _I, _PTR],
     "rel_settle": [_PTR] * 14 + [_I] * 4 + [_PTR, _PTR],
 })
 _ENTRY = {("rel_dp", "cuda"): "rel_dp_launch", ("rel_dp", "host"): "rel_dp_host",
@@ -226,29 +230,77 @@ def _check(planes, cov, active, device):
     return R2, M
 
 
-def _args(planes, cov, P: RelParams, active, R2, M):
-    """Outputs, scratch and the flat C argument list (RD_ARGS_DECL)."""
+@functools.lru_cache(maxsize=None)
+def _needs_scratch(max_m: int) -> bool:
+    """Whether a DP block's backpointers and only_r flags at ``max_m``
+    overflow its shared memory into the global scratch (the card's
+    choice, rel_dp_geometry)."""
+    return rel_dp_geometry(1, max_m, "cuda")["smem_bytes"] == 0
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _args(planes, cov, P: RelParams, active, R2, M, kind="cuda",
+          tail=(None,) * 5):
+    """Outputs, scratch and the flat C argument list (RD_ARGS_DECL).  The
+    global backpointer scratch is allocated only where the card needs it
+    (``_needs_scratch``); the host shim always takes it.  ``tail``: the
+    row tails' (rescue, cov2, gcov, packed, mm_prev), None where a tail
+    does not run."""
     dev = planes[0].device
     asgn = torch.empty((R2, M), dtype=torch.int8, device=dev)
     dp = torch.empty((R2, 4), dtype=torch.float64, device=dev)
     mm = torch.empty((R2,), dtype=torch.float64, device=dev)
-    bp = torch.empty((R2, max(M - 1, 1), 4), dtype=torch.int8, device=dev)
-    rpos = torch.empty((R2, M), dtype=torch.uint8, device=dev)
+    bp = rpos = None
+    if kind == "host" or _needs_scratch(M):
+        bp = torch.empty((R2, max(M - 1, 1), 4), dtype=torch.int8,
+                         device=dev)
+        rpos = torch.empty((R2, M), dtype=torch.uint8, device=dev)
     if P.tab.device != dev or P.lf_small.device != dev:
         raise ValueError("RelParams must live on the kernel's device")
     if P.tab.dtype != torch.float64 or not P.tab.is_contiguous():
         raise ValueError("packed table must be contiguous f64")
-    ptrs = [t.data_ptr() for t in planes] + [cov.data_ptr(),
-                                            active.data_ptr()
-                                            if active is not None else None]
-    ptrs += [asgn.data_ptr(), dp.data_ptr(), mm.data_ptr(), bp.data_ptr(),
-             rpos.data_ptr()]
-    args = ptrs + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
-                   int(P.lf_small.shape[0]), float(P.read_len),
-                   int(P.offset), float(P.r_logp), float(P.log_1m_pe_mean),
-                   float(P.log_pe_mean), float(P.dr_ratio)]
+    args = ([t.data_ptr() for t in planes] + [cov.data_ptr(), _ptr(active)]
+            + [_ptr(t) for t in (asgn, dp, mm, bp, rpos) + tuple(tail)]
+            + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
+               int(P.lf_small.shape[0]), float(P.read_len), int(P.offset),
+               float(P.r_logp), float(P.log_1m_pe_mean),
+               float(P.log_pe_mean), float(P.dr_ratio)])
     keep = (asgn, dp, mm, bp, rpos)
     return args, keep
+
+
+def _dp_run(kind, planes, cov, P: RelParams, active=None,
+            tail=(None,) * 5):
+    """Check the DP's inputs, then launch the kernel (``cuda``) or run its
+    shim (``host``) with the row tails' ``tail`` (as ``_args``); returns
+    the pass's (asgn, dp, margin)."""
+    if kind == "host":
+        planes = tuple(t.contiguous() for t in planes)
+        cov = cov.contiguous()
+    dev = planes[0].device
+    R2, M = _check(planes, cov, active, dev)
+    args, keep = _args(planes, cov, P, active, R2, M, kind, tail)
+    if kind == "cuda":
+        _launch("rel_dp", dev, args)
+        TAIL_LAUNCHES["rel_rescue"] += tail[0] is not None
+        TAIL_LAUNCHES["rel_pack"] += tail[3] is not None
+    elif _fn("rel_dp", "host")(*args) != 0:
+        raise RuntimeError("host shim failed")
+    return keep[:3]
+
+
+def _plain_dp(planes, cov, P: RelParams):
+    from classpro_tpu_torch.rel_ref import rel_dp_ref
+
+    return rel_dp_ref(*planes, cov, P)
+
+
+def _need_cuda(t) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
 
 
 def rel_dp(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd,
@@ -261,15 +313,9 @@ def rel_dp(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd,
     current stream; CPU tensors run the plain torch version."""
     planes = (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd)
     if bpos.device.type == "cpu":
-        from classpro_tpu_torch.rel_ref import rel_dp_ref
-
-        return rel_dp_ref(*planes, cov, P)
-    if bpos.device.type != "cuda":
-        raise ValueError(f"no kernel for device {bpos.device}")
-    R2, M = _check(planes, cov, active, bpos.device)
-    args, keep = _args(planes, cov, P, active, R2, M)
-    _launch("rel_dp", bpos.device, args)
-    return keep[0], keep[1], keep[2]
+        return _plain_dp(planes, cov, P)
+    _need_cuda(bpos)
+    return _dp_run("cuda", planes, cov, P, active)
 
 
 def rel_dp_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
@@ -277,14 +323,122 @@ def rel_dp_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
     """The kernel's warp body compiled by g++ and run on CPU tensors, a
     warp's 32 lanes phase by phase (test-only; same contract as
     ``rel_dp``)."""
-    planes = tuple(t.contiguous() for t in (bpos, bcnt, epos, ecnt, max_cc,
-                                             lf_bcnt, logpE, m, plen, fwd))
-    cov = cov.contiguous()
-    R2, M = _check(planes, cov, active, torch.device("cpu"))
-    args, keep = _args(planes, cov, P, active, R2, M)
-    if _fn("rel_dp", "host")(*args) != 0:
-        raise RuntimeError("host shim failed")
-    return keep[0], keep[1], keep[2]
+    return _dp_run("host", (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE,
+                            m, plen, fwd), cov, P, active)
+
+
+def _rescue_run(kind, planes, cov, P: RelParams, pack: bool):
+    R2, M = planes[0].shape
+    dev = planes[0].device
+    _need("gcov", P.gcov, torch.int64, (4,), dev)
+    rescue = torch.empty(R2, dtype=torch.bool, device=dev)
+    cov2 = torch.empty((R2, 4), dtype=torch.int64, device=dev)
+    packed = (torch.empty((R2, M + 5), dtype=torch.uint8, device=dev)
+              if pack else None)
+    out = _dp_run(kind, planes, cov, P,
+                  tail=(rescue, cov2, P.gcov, packed, None))
+    return out + (rescue, cov2, packed)
+
+
+def rel_dp_rescue(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
+                  fwd, cov, P: RelParams, pack: bool = False):
+    """The first DP pass with its rescue tail (the tail replaces
+    device_pipeline._rel_pipeline's no-H rescue predicate, :198-234) and,
+    with ``pack``, its pack tail (_pack_out :638-651) on the rows it does
+    not rescue: returns (asgn, dp, margin as rel_dp, rescue bool (R2,),
+    the rescue pass's coverages int64 (R2, 4), packed uint8 (R2,
+    max_m + 5) or None).  The rescued rows of ``packed`` are
+    ``rel_dp_pack``'s to write.  CUDA tensors launch the kernel (one
+    launch); CPU tensors run the plain versions (rel_ref, rel.rescue_rows
+    and rel.pack_out, which packs every row)."""
+    planes = (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd)
+    if bpos.device.type == "cpu":
+        from classpro_tpu_torch.rel import pack_out, rescue_rows
+
+        a, d, mm = _plain_dp(planes, cov, P)
+        rescue, cov2 = rescue_rows(planes, a, P, a.shape[1])
+        packed = (pack_out(a, mm, torch.zeros_like(rescue), a.shape[1])
+                  if pack else None)
+        return a, d, mm, rescue, cov2, packed
+    _need_cuda(bpos)
+    return _rescue_run("cuda", planes, cov, P, pack)
+
+
+def rel_dp_rescue_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m,
+                       plen, fwd, cov, P: RelParams, pack: bool = False):
+    """rel_dp_rescue's kernel body with its tails compiled by g++
+    (test-only; same contract)."""
+    return _rescue_run("host", (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt,
+                                logpE, m, plen, fwd), cov, P, pack)
+
+
+def _pack_run(kind, planes, cov2, P: RelParams, rescue, mm1, packed):
+    R2, M = planes[0].shape
+    _need("mm1", mm1, torch.float64, (R2,), planes[0].device)
+    _need("packed", packed, torch.uint8, (R2, M + 5), planes[0].device)
+    return _dp_run(kind, planes, cov2, P, rescue,
+                   tail=(None, None, None, packed, mm1))
+
+
+def rel_dp_pack(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
+                fwd, cov2, P: RelParams, rescue, mm1, packed):
+    """The rescue pass with its pack tail (the tail replaces the pass
+    merge of device_pipeline._rel_pipeline :237-241 and _pack_out
+    :638-651): the DP on the rows ``rescue`` flags, with the coverages
+    ``cov2``, writes each such row of ``packed`` (uint8 (R2, max_m + 5),
+    as rel_dp_rescue(pack=True) returned it) in place: its assignments,
+    flags risky(min(mm1, margin)) | 2, f32 of that margin.  Returns the
+    pass's (asgn, dp, margin), the other rows' unwritten.  CUDA tensors
+    launch the kernel (one launch); CPU tensors run the plain versions
+    (rel_ref and rel.pack_ref)."""
+    planes = (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd)
+    if bpos.device.type == "cpu":
+        from classpro_tpu_torch.rel import pack_ref
+
+        a, d, mm = _plain_dp(planes, cov2, P)
+        packed[rescue] = pack_ref(a, a, mm1, mm, rescue)[rescue]
+        return a, d, mm
+    _need_cuda(bpos)
+    return _pack_run("cuda", planes, cov2, P, rescue, mm1, packed)
+
+
+def rel_dp_pack_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m,
+                     plen, fwd, cov2, P: RelParams, rescue, mm1, packed):
+    """rel_dp_pack's kernel body with its pack tail compiled by g++
+    (test-only; same contract)."""
+    return _pack_run("host", (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt,
+                              logpE, m, plen, fwd), cov2, P, rescue, mm1,
+                     packed)
+
+
+def rel_tail_probe(mm, mm_prev=None):
+    """The five tail bytes of packed rows (flags, f32 margin) whose margins
+    are given, as the DP kernel's pack tail writes them (rel_tail.cuh
+    row_tail_byte): the first pass's rows (``mm_prev`` None, margin
+    ``mm``) or the rescue pass's (the min of ``mm_prev`` and ``mm``,
+    rescued).  Test-only: it holds the merge and the f32 conversion on
+    margins no DP pass gives (NaN, -0, subnormals) against
+    rel.pack_ref; no path runs it.  CUDA tensors launch the probe kernel
+    built with the DP kernel (not counted in LAUNCHES), CPU tensors run
+    its g++ build.  Returns uint8 (n, 5)."""
+    dev = mm.device
+    n = mm.shape[0]
+    _need("mm", mm, torch.float64, (n,), dev)
+    if mm_prev is not None:
+        _need("mm_prev", mm_prev, torch.float64, (n,), dev)
+    out = torch.empty((n, 5), dtype=torch.uint8, device=dev)
+    args = [_ptr(mm_prev), mm.data_ptr(), n, out.data_ptr()]
+    if dev.type == "cuda":
+        fn = _entry("rel_dp", "cuda", "rel_tail_probe_launch",
+                    [_PTR, _PTR, _I, _PTR, _PTR])
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = _entry("rel_dp", "host", "rel_tail_probe_host",
+                     [_PTR, _PTR, _I, _PTR])(*args)
+    if err != 0:
+        raise RuntimeError(f"rel_tail_probe failed: error {err}")
+    return out
 
 
 _UNREL_IN = (("is_rel", torch.bool, ()), ("asgn", torch.int32, ()),
@@ -345,8 +499,7 @@ def unrel_sweeps(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live,
         from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
 
         return unrel_sweeps_ref(*ins, n, P)
-    if asgn.device.type != "cuda":
-        raise ValueError(f"no kernel for device {asgn.device}")
+    _need_cuda(asgn)
     args, out, mm, _scratch = _unrel_args(ins, n, P, asgn.device, "cuda")
     _launch("unrel_sweeps", asgn.device, args)
     return out, mm
@@ -428,7 +581,7 @@ def _shim(name: str, args) -> None:
         raise RuntimeError(f"{name} host shim failed")
 
 
-_GLUE_GEO = {"rel_prep": 0, "rel_rescue": 2, "rel_pack": 2, "rel_settle": 3}
+_GLUE_GEO = {"rel_prep": 0, "rel_settle": 2}
 
 
 def glue_geometry(kernel: str, n: int, kind: str = "cuda", n2: int = 0,
@@ -436,8 +589,8 @@ def glue_geometry(kernel: str, n: int, kind: str = "cuda", n2: int = 0,
     """Threads per block, blocks and shared bytes per block (static and
     dynamic) of a glue launch, as glue.cu computes them: ``rel_prep``
     over ``n`` cells (with ``alldev``: ``n`` rel-plane and ``n2``
-    interval cells), ``rel_rescue`` / ``rel_pack`` over ``n`` rows,
-    ``rel_settle`` over ``n`` read pairs of max_m ``n2``."""
+    interval cells), ``rel_settle`` over ``n`` read pairs of max_m
+    ``n2``."""
     out = (ctypes.c_int * 3)()
     code = 1 if alldev else _GLUE_GEO[kernel]
     _entry("rel_prep", kind, "glue_geometry", [_I, _LL, _LL, _PTR])(
@@ -525,8 +678,7 @@ def rel_prep(fblob, iblob, P: RelParams, R: int, max_m: int, alldev=None):
         from classpro_tpu_torch.alldev import prep_ref
 
         return prep_ref(fblob, iblob, P, R, max_m, *alldev)
-    if iblob.device.type != "cuda":
-        raise ValueError(f"no kernel for device {iblob.device}")
+    _need_cuda(iblob)
     args, planes, cov, un = _prep_args(fblob, iblob, P, R, max_m, alldev)
     _launch("rel_prep", iblob.device, args)
     return _prep_out(planes, cov, un)
@@ -544,50 +696,14 @@ def rel_prep_host(fblob, iblob, P: RelParams, R: int, max_m: int,
 
 
 def _row_planes(planes, device):
-    """Checks of the planes the warp kernels read (bpos, bcnt, epos, ecnt,
-    m, fwd); returns (R2, max_m)."""
+    """Checks of the planes rel_settle reads (bpos, bcnt, epos, ecnt, m,
+    fwd); returns (R2, max_m)."""
     R2, M = planes[0].shape
     for k, name in ((0, "bpos"), (1, "bcnt"), (2, "epos"), (3, "ecnt")):
         _need(name, planes[k], torch.int64, (R2, M), device)
     _need("m", planes[7], torch.int64, (R2,), device)
     _need("fwd", planes[9], torch.bool, (R2,), device)
     return R2, M
-
-
-def _rescue_args(planes, asgn1, P: RelParams):
-    dev = asgn1.device
-    R2, M = _row_planes(planes, dev)
-    _need("asgn", asgn1, torch.int8, (R2, M), dev)
-    _need("gcov", P.gcov, torch.int64, (4,), dev)
-    rescue = torch.empty(R2, dtype=torch.bool, device=dev)
-    cov2 = torch.empty((R2, 4), dtype=torch.int64, device=dev)
-    args = [planes[k].data_ptr() for k in (0, 1, 2, 3, 7)] + [
-        asgn1.data_ptr(), P.gcov.data_ptr(), R2, M, rescue.data_ptr(),
-        cov2.data_ptr()]
-    return args, rescue, cov2
-
-
-def rel_rescue(planes, asgn1, P: RelParams):
-    """The no-H rescue predicate on a first DP pass (the kernel replaces
-    device_pipeline._rel_pipeline :198-234): returns (rescue bool (R2,),
-    the rescue pass's coverages int64 (R2, 4)).  CUDA tensors launch the
-    kernel; CPU tensors run the plain version (rel.rescue_rows)."""
-    if asgn1.device.type == "cpu":
-        from classpro_tpu_torch.rel import rescue_rows
-
-        return rescue_rows(planes, asgn1, P, asgn1.shape[1])
-    if asgn1.device.type != "cuda":
-        raise ValueError(f"no kernel for device {asgn1.device}")
-    args, rescue, cov2 = _rescue_args(planes, asgn1, P)
-    _launch("rel_rescue", asgn1.device, args)
-    return rescue, cov2
-
-
-def rel_rescue_host(planes, asgn1, P: RelParams):
-    """rel_rescue's warp body compiled by g++ (test-only; same contract)."""
-    args, rescue, cov2 = _rescue_args(planes, asgn1, P)
-    _shim("rel_rescue", args)
-    return rescue, cov2
 
 
 def _passes(asgn1, asgn2, mm1, mm2, rescue):
@@ -601,37 +717,6 @@ def _passes(asgn1, asgn2, mm1, mm2, rescue):
                                ("rescue", rescue, torch.bool, (R2,))):
         _need(name, t, dt, shape, dev)
     return R2, M
-
-
-def _pack_args(asgn1, asgn2, mm1, mm2, rescue):
-    R2, M = _passes(asgn1, asgn2, mm1, mm2, rescue)
-    out = torch.empty((R2, M + 5), dtype=torch.uint8, device=asgn1.device)
-    args = [t.data_ptr() for t in (asgn1, asgn2, mm1, mm2, rescue)] + [
-        R2, M, out.data_ptr()]
-    return args, out
-
-
-def rel_pack(asgn1, asgn2, mm1, mm2, rescue):
-    """The pass merge and the packed result of the main path (the kernel
-    replaces device_pipeline._rel_pipeline :237-241 and _pack_out
-    :638-651): returns uint8 (R2, max_m + 5).  CUDA tensors launch the
-    kernel; CPU tensors run the plain version (rel.pack_ref)."""
-    if asgn1.device.type == "cpu":
-        from classpro_tpu_torch.rel import pack_ref
-
-        return pack_ref(asgn1, asgn2, mm1, mm2, rescue)
-    if asgn1.device.type != "cuda":
-        raise ValueError(f"no kernel for device {asgn1.device}")
-    args, out = _pack_args(asgn1, asgn2, mm1, mm2, rescue)
-    _launch("rel_pack", asgn1.device, args)
-    return out
-
-
-def rel_pack_host(asgn1, asgn2, mm1, mm2, rescue):
-    """rel_pack's warp body compiled by g++ (test-only; same contract)."""
-    args, out = _pack_args(asgn1, asgn2, mm1, mm2, rescue)
-    _shim("rel_pack", args)
-    return out
 
 
 def _settle_args(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows,
@@ -671,8 +756,7 @@ def rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols,
 
         return settle_ref(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows,
                           rel_cols, P, asgn, gate)
-    if asgn1.device.type != "cuda":
-        raise ValueError(f"no kernel for device {asgn1.device}")
+    _need_cuda(asgn1)
     _launch("rel_settle", asgn1.device, _settle_args(
         asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols, P, asgn,
         gate))

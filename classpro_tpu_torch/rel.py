@@ -5,12 +5,13 @@ plus the host steps that follow it.
 (``_rel_only_core`` + ``_rel_pipeline(demotes=False)`` + ``_pack_out``):
 it takes the C++ ``pack_rel`` blobs, derives both scan directions, runs
 the DP, the no-H rescue predicate and the rescue pass, and packs one
-uint8 array (2R, max_m+5).  On a card (``impl="cuda"``) that is five
-launches per chunk: the glue kernels of csrc/glue.cu around the DP
-kernel of csrc/rel_dp.cu (``rel_glued``).  ``impl="ref"`` runs the plain
-versions: ``rel_planes`` (``prep_ref``), the plain DP (rel_ref),
-``rescue_rows`` and ``pack_ref``, which are what the glue kernels are
-held against.  ``unpack_out``, ``demote_host`` and ``reconcile_fwbw`` are
+uint8 array (2R, max_m+5).  On a card (``impl="cuda"``) that is three
+launches per chunk (``rel_glued``): the glue kernel rel_prep of
+csrc/glue.cu, then the DP kernel of csrc/rel_dp.cu twice, the first pass
+with its rescue and pack tails, the rescue pass with its pack tail.
+``impl="ref"`` runs the plain versions: ``rel_planes`` (``prep_ref``),
+the plain DP (rel_ref), ``rescue_rows`` and ``pack_ref``, which are what
+the kernels are held against.  ``unpack_out``, ``demote_host`` and ``reconcile_fwbw`` are
 numpy copies of the JAX package's host steps.
 """
 
@@ -110,7 +111,8 @@ def prep_ref(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
 def rescue_rows(planes, asgn8, P: RelParams, max_m: int):
     """The no-H rescue predicate (class_rel.c:630-672 / 744-784) on a
     first pass's assignments: returns (rescue bool (R2,), the rescue
-    pass's coverages cov2 int64 (R2, 4))."""
+    pass's coverages cov2 int64 (R2, 4)).  The plain version of
+    kernels.rel_dp_rescue's rescue tail."""
     bpos, bcnt, epos, ecnt = planes[:4]
     m = planes[7]
     R2 = bpos.shape[0]
@@ -164,7 +166,9 @@ def merge_passes(asgn1, mm1, asgn2, mm2, rescue):
 
 
 def pack_ref(asgn1, asgn2, mm1, mm2, rescue) -> torch.Tensor:
-    """kernels.rel_pack's plain version: the pass merge and pack_out."""
+    """The pass merge and pack_out: the plain version of the pack tails of
+    kernels.rel_dp_rescue (the rows not rescued) and rel_dp_pack (the
+    rescued rows)."""
     asgn, mm = merge_passes(asgn1, mm1, asgn2, mm2, rescue)
     return pack_out(asgn, mm, rescue, asgn.shape[1])
 
@@ -196,16 +200,17 @@ def rel_only(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
 
 
 def rel_glued(fblob, iblob, P: RelParams, R: int, max_m: int, ops):
-    """rel_only as five launches: ``ops`` holds rel_prep, rel_dp,
-    rel_rescue and rel_pack with the contracts of the kernels module's
-    wrappers (the kernels on a card; the tests pass the g++ shims).  The
-    rescue pass runs the rescued rows only (the others exit at once), so
-    no host sync tests any(rescue)."""
+    """rel_only as three launches: ``ops`` holds rel_prep, rel_dp_rescue
+    and rel_dp_pack with the contracts of the kernels module's wrappers
+    (the kernels on a card; the tests pass the g++ shims).  The first
+    pass packs the rows it does not rescue, the rescue pass runs and
+    packs the rescued rows only (the others exit at once), so no host
+    sync tests any(rescue)."""
     planes, cov = ops.rel_prep(fblob, iblob, P, R, max_m)
-    asgn1, _dp1, mm1 = ops.rel_dp(*planes, cov, P)
-    rescue, cov2 = ops.rel_rescue(planes, asgn1, P)
-    asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P, active=rescue)
-    return ops.rel_pack(asgn1, asgn2, mm1, mm2, rescue)
+    _a1, _dp1, mm1, rescue, cov2, packed = ops.rel_dp_rescue(
+        *planes, cov, P, pack=True)
+    ops.rel_dp_pack(*planes, cov2, P, rescue, mm1, packed)
+    return packed
 
 
 def unpack_out(buf, max_m: int):

@@ -1,15 +1,21 @@
-"""The glue kernels (csrc/glue.cu: rel_prep, rel_rescue, rel_pack,
-rel_settle) through their g++ shims, against their plain torch versions
-and against the JAX package's device_pipeline functions, on the CPU.
+"""The glue kernels (csrc/glue.cu: rel_prep, rel_settle) and the DP
+kernel's row tails (csrc/rel_tail.cuh: the rescue predicate and the pack,
+run by kernels.rel_dp_rescue and rel_dp_pack) through their g++ shims,
+against their plain torch versions and against the JAX package's
+device_pipeline functions, on the CPU.
 
 Inputs: the chunk packs of medium at batch 200 (the main layout staged by
 the C++ pack_rel, the all-device layout by pack.pack_chunk), branch/search9
-(rows the rescue re-runs) and branch/psum0 (the all-dead row), each with
-the first and rescue DP passes of the DP kernel's shim; and chunks made
-with numpy from a seed that reach m = 0 and m = max_m rows, all-H rows,
-rows with >= 70% H, no-H rows with D, symmetric reads (the hdrr tie),
-zero counts (an inf or NaN hdrr), counts at and past 32767, and margins
-of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.  The EDGES
+(rows the rescue re-runs) and branch/psum0 (the all-dead row); and chunks
+made with numpy from a seed that reach m = 0 and m = max_m rows, all-H
+rows, rows with >= 70% H, no-H rows with D, symmetric reads (the hdrr
+tie), zero counts (an inf or NaN hdrr), counts at and past 32767, and
+margins of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.  The
+main-layout cases run the DP shim's own two passes with their tails; two
+more numpy chunks reach the tails' edges (TAIL_CASES): every row rescued,
+and max_m past the DP kernel's shared-memory cap (its backpointers in the
+global scratch on the card).  The all-device cases take the DP shim's
+passes (fixtures) or numpy passes.  The EDGES
 chunks (numpy, in the all-device layout) sit at the edges of the
 all-device rel_prep's and rel_settle's launch geometry: tiles of 256
 cells that end mid-row and a last tile part full, max_m below and not a
@@ -58,6 +64,10 @@ SPECIAL_MM = (0.0, -0.0, 1e-30, math.nextafter(1e-5, 0.0), 1e-5, math.inf,
 FIXTURES = ("medium0", "medium1", "search9", "psum0")
 RANDOM = ("rand0", "rand1", "rand2", "rand3")
 CASES = FIXTURES + RANDOM
+# main-layout chunks at the DP tails' edges: every row's first pass
+# rescued; max_m past the 2458 columns whose backpointers fit a block's
+# shared memory
+TAIL_CASES = ("rescued", "scratch")
 # all-device chunks made with numpy at the edges of the all-device prep's
 # and rel_settle's launch geometry (tiles of 256 cells, blocks of 128
 # threads, a pair cache of 4096 columns): name -> (Bn, max_n, R, max_m,
@@ -229,25 +239,29 @@ def _counts(rng, n, gH, gD, sym):
 
 @functools.lru_cache(maxsize=None)
 def _main_case(case: str):
-    """(fblob, iblob, R, max_m, asgn1, mm1, asgn2, mm2) of a main-layout
-    case: a fixture's chunk with the DP shim's passes, or a numpy chunk."""
-    from classpro_tpu_torch.rel import rel_planes
-
-    P = _P(case)
+    """(fblob, iblob, R, max_m) of a main-layout case: a fixture's chunk,
+    or a numpy chunk."""
     if case in FIXTURES:
         fx, k = _fixture(case)
         fb, ib, R, max_m = _staged(fx)[0][k]
-        fb, ib = torch.from_numpy(fb), torch.from_numpy(ib)
-        planes = rel_planes(fb, ib, P, R, max_m)
-        cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
-        return (fb, ib, R, max_m) + _dp_passes(planes, cov, P)
-    seed = int(case[-1])
-    rng = np.random.default_rng(100 + seed)
-    R, max_m = 16, 32
+        return torch.from_numpy(fb), torch.from_numpy(ib), R, max_m
+    P = _P(case)
     gH, gD = int(P.gcov[HAPLO]), int(P.gcov[DIPLO])
-    m = rng.integers(0, max_m + 1, R)
-    m[:3] = [0, max_m, 1]
-    sym = rng.random(R) < 0.25
+    if case in TAIL_CASES:
+        # "rescued": counts just below gD and no error evidence, so that
+        # every row's first pass is D without H; "scratch": two reads of
+        # more than 2458 intervals
+        rng = np.random.default_rng(150 + TAIL_CASES.index(case))
+        R, max_m = (16, 32) if case == "rescued" else (2, 2500)
+        m = (rng.integers(1, max_m + 1, R) if case == "rescued"
+             else np.array([max_m, max_m - 37]))
+        sym = np.zeros(R, bool)
+    else:
+        rng = np.random.default_rng(100 + int(case[-1]))
+        R, max_m = 16, 32
+        m = rng.integers(0, max_m + 1, R)
+        m[:3] = [0, max_m, 1]
+        sym = rng.random(R) < 0.25
     b = np.zeros((R, max_m), np.int32)
     e = np.ones((R, max_m), np.int32)
     ccb = np.ones((R, max_m), np.int32)
@@ -258,17 +272,42 @@ def _main_case(case: str):
         starts = np.cumsum(rng.integers(1, 60, n))
         b[j, :n] = starts
         e[j, :n] = starts + rng.integers(1, 50, n)
+        if case == "rescued":
+            ccb[j, :n] = gD - 2 + rng.integers(-1, 2, n)
+            cce[j, :n] = ccb[j, :n] + rng.integers(-1, 2, n)
+            continue
         ccb[j, :n], cce[j, :n] = _counts(rng, n, gH, gD, sym[j])
         pe[j, :n] = np.where(rng.random(n) < 0.1, -np.inf,
                              -rng.random(n) * 40)
     plen = rng.integers(100, 5000, R)
     ib = np.concatenate([b.ravel(), e.ravel(), ccb.ravel(), cce.ravel(), m,
                          plen]).astype(np.int32)
-    asgn = [_row_patterns(rng, m, R, max_m, sym) for _ in range(2)]
-    mm = [_margins(rng, 2 * R) for _ in range(2)]
-    t = torch.from_numpy
-    return (t(pe.ravel()), t(ib), R, max_m, t(asgn[0]), t(mm[0]),
-            t(asgn[1]), t(mm[1]))
+    return torch.from_numpy(pe.ravel()), torch.from_numpy(ib), R, max_m
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_main(case: str):
+    """The DP shim's two passes with their tails on a main-layout case:
+    the first (rel_dp_rescue_host, pack=True), then the rescue pass
+    (rel_dp_pack_host) into a copy of its packed buffer.  Returns a dict
+    of the planes, both passes, rescue, cov2 and both packed buffers."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import prep_ref
+
+    fb, ib, R, max_m = _main_case(case)
+    P = _P(case)
+    planes, cov = prep_ref(fb, ib, P, R, max_m)
+    a1, _, m1, rescue, cov2, packed1 = kernels.rel_dp_rescue_host(
+        *planes, cov, P, pack=True)
+    packed = packed1.clone()
+    a2, _, m2 = kernels.rel_dp_pack_host(*planes, cov2, P, rescue, m1,
+                                         packed)
+    # the rows the rescue pass does not run hold no second pass
+    a2 = torch.where(rescue[:, None], a2, a1)
+    m2 = torch.where(rescue, m2, m1)
+    return {"planes": planes, "a1": a1, "m1": m1, "rescue": rescue,
+            "cov2": cov2, "a2": a2, "m2": m2, "packed1": packed1,
+            "packed": packed}
 
 
 class _StubDP:
@@ -298,13 +337,16 @@ def _stubbed(passes, fn, *args, **kw):
 
 @functools.lru_cache(maxsize=None)
 def _jax_main(case: str):
-    """JAX's _rel_only_core and _pack_out on a main-layout case: (the
-    planes handed to its DP, its rescue pass's coverages or None, its
-    (asgn, margin, rescue), its packed result)."""
+    """JAX's _rel_only_core and _pack_out on a main-layout case, its DP
+    returning the DP shim's two passes (_fused_main): (the planes handed
+    to its DP, its rescue pass's coverages or None, its (asgn, margin,
+    rescue), its packed result)."""
     jax, jnp, J = _jax()
-    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case(case)
+    fb, ib, R, max_m = _main_case(case)
+    F = _fused_main(case)
     pp = _jax_model(_fx(case))
-    passes = [(a1.numpy(), m1.numpy()), (a2.numpy(), m2.numpy())]
+    passes = [(F["a1"].numpy(), F["m1"].numpy()),
+              (F["a2"].numpy(), F["m2"].numpy())]
     core, stub = _stubbed(passes, J._rel_only_core, jnp.asarray(fb.numpy()),
                           jnp.asarray(ib.numpy()), pp, R, max_m)
     cov2 = stub.calls[1]["cov"] if len(stub.calls) > 1 else None
@@ -332,7 +374,7 @@ def test_rel_prep_main(case):
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import prep_ref
 
-    fb, ib, R, max_m = _main_case(case)[:4]
+    fb, ib, R, max_m = _main_case(case)
     P = _P(case)
     planes, cov = kernels.rel_prep_host(fb, ib, P, R, max_m)
     p_r, c_r = prep_ref(fb, ib, P, R, max_m)
@@ -348,51 +390,184 @@ def test_rel_prep_main(case):
         assert (planes[1].numpy() > 32767).any()
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + TAIL_CASES)
 def test_rel_rescue(case):
-    """rel_rescue's shim == rel.rescue_rows == JAX's rescue flags and
-    rescue-pass coverages, on the first pass's assignments."""
+    """The first pass's rescue tail (rel_dp_rescue's shim): rescue and
+    cov2 == rel.rescue_rows on that pass's assignments == JAX's rescue
+    flags and rescue-pass coverages; the pass itself bit-equal to the DP
+    shim without tails."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import prep_ref, rescue_rows
 
-    fb, ib, R, max_m, a1 = _main_case(case)[:5]
+    fb, ib, R, max_m = _main_case(case)
     P = _P(case)
-    planes, _ = prep_ref(fb, ib, P, R, max_m)
-    rescue, cov2 = kernels.rel_rescue_host(planes, a1, P)
-    r_r, c_r = rescue_rows(planes, a1, P, max_m)
-    assert_bits(rescue, r_r)
-    assert_bits(cov2, c_r)
+    F = _fused_main(case)
+    planes, cov = prep_ref(fb, ib, P, R, max_m)
+    a, _, mm = kernels.rel_dp_host(*planes, cov, P)
+    assert_bits(F["a1"], a)
+    assert_bits(F["m1"], mm)
+    r_r, c_r = rescue_rows(planes, F["a1"], P, max_m)
+    assert_bits(F["rescue"], r_r)
+    assert_bits(F["cov2"], c_r)
     _, j_cov2, (_, _, j_res), _ = _jax_main(case)
-    assert_bits(rescue, j_res)
+    assert_bits(F["rescue"], j_res)
     if j_cov2 is not None:
-        assert_bits(cov2, j_cov2)
+        assert_bits(F["cov2"], j_cov2)
     else:
-        assert not bool(rescue.any())
-    if case == "search9":
-        assert bool(rescue.any())
+        assert not bool(F["rescue"].any())
+    if case in ("search9",) + RANDOM:
+        assert bool(F["rescue"].any())
+    if case == "rescued":
+        assert bool(F["rescue"].all())
+    if case == "scratch":
+        assert kernels.rel_dp_geometry(2 * R, max_m, "host")[
+            "smem_bytes"] == 0
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + TAIL_CASES)
 def test_rel_pack(case):
-    """rel_pack's shim == rel.pack_ref == JAX's _pack_out of its merged
-    passes, every byte (NaN margins: NaN on both sides)."""
+    """The two passes' pack tails (rel_dp_rescue's shim with pack=True,
+    then rel_dp_pack's): the packed buffer == rel.pack_ref of the two
+    passes == JAX's _pack_out of its merged passes, every byte (NaN
+    margins: NaN on both sides); the first pass alone writes the rows it
+    does not rescue as pack_ref with no row rescued, and a rescue pass
+    that runs no row writes nothing."""
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch.rel import pack_ref, prep_ref, rescue_rows
+    from classpro_tpu_torch.rel import pack_ref, prep_ref
 
-    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case(case)
+    fb, ib, R, max_m = _main_case(case)
     P = _P(case)
-    planes, _ = prep_ref(fb, ib, P, R, max_m)
-    rescue, _ = rescue_rows(planes, a1, P, max_m)
-    args = (a1, a2, m1, m2, rescue)
-    got = kernels.rel_pack_host(*args).numpy()
-    assert_packed(got, pack_ref(*args).numpy(), max_m)
+    F = _fused_main(case)
+    a1, m1, a2, m2, rescue = (F[k] for k in ("a1", "m1", "a2", "m2",
+                                             "rescue"))
+    got = F["packed"].numpy()
+    assert_packed(got, pack_ref(a1, a2, m1, m2, rescue).numpy(), max_m)
     assert_packed(got, _jax_main(case)[3], max_m)
-    if case in RANDOM:       # every margin edge case through the pack
-        none = torch.zeros_like(rescue)
-        assert set(m1.numpy().view(np.int64)) >= set(
-            np.array(SPECIAL_MM).view(np.int64))
-        assert_packed(kernels.rel_pack_host(a1, a2, m1, m2, none).numpy(),
-                      pack_ref(a1, a2, m1, m2, none).numpy(), max_m)
+    none = torch.zeros_like(rescue)
+    kept = (~rescue).numpy()
+    assert_packed(F["packed1"].numpy()[kept],
+                  pack_ref(a1, a2, m1, m2, none).numpy()[kept], max_m)
+    planes, _ = prep_ref(fb, ib, P, R, max_m)
+    again = F["packed"].clone()
+    kernels.rel_dp_pack_host(*planes, F["cov2"], P, none, m1, again)
+    assert_bits(again, F["packed"])
+
+
+def _one_state_chunk(R: int = 16, max_m: int = 4):
+    """A main-layout numpy chunk whose every row the DP leaves with one
+    live state and so an infinite margin: one interval each (m = 1),
+    counts of 30000 (H and D dead, R alive) and no error evidence."""
+    m = np.ones(R, np.int64)
+    b = np.zeros((R, max_m), np.int32)
+    e = np.ones((R, max_m), np.int32)
+    b[:, 0] = 1 + 7 * np.arange(R)
+    e[:, 0] = b[:, 0] + 20
+    cc = np.full((R, max_m), 30000, np.int32)
+    ib = np.concatenate([b.ravel(), e.ravel(), cc.ravel(), cc.ravel(), m,
+                         np.full(R, 1000)]).astype(np.int32)
+    fb = np.full(R * max_m, -np.inf)
+    return torch.from_numpy(fb), torch.from_numpy(ib), R, max_m
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pack_tail_margin_edges(seed):
+    """The rescue pass's pack tail on first-pass margins at the f32
+    conversion's and the risky test's edges (SPECIAL_MM: 0, -0, 1e-30,
+    the double below 1e-5, 1e-5, inf, NaN, 1e-300, 3.5e38, ...; and -inf
+    and the smallest double), every row rescued, on a chunk whose own
+    margins are all inf (so that the merged margin is the edge value):
+    every byte == rel.pack_ref == JAX's _pack_out of the merged margins
+    (NaN: NaN on both sides).  JAX is held to it on the rows whose merged
+    margin is not subnormal: XLA's CPU backend flushes subnormal doubles
+    to zero, so its risky test (v > 0) fails on the smallest double, which
+    the card and torch keep."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref, prep_ref
+
+    jax, jnp, J = _jax()
+    fb, ib, R, max_m = _one_state_chunk()
+    P = _P("rand0")
+    planes, cov = prep_ref(fb, ib, P, R, max_m)
+    rng = np.random.default_rng(400 + seed)
+    edges = SPECIAL_MM + (-math.inf, math.ulp(0.0))
+    m1 = rng.permutation(np.concatenate([_margins(rng, 2 * R - 2),
+                                         edges[-2:]]))
+    assert set(m1.view(np.int64)) >= set(np.array(edges).view(np.int64))
+    m1 = torch.from_numpy(m1)
+    every = torch.ones(2 * R, dtype=torch.bool)
+    packed = torch.zeros((2 * R, max_m + 5), dtype=torch.uint8)
+    a2, _, m2 = kernels.rel_dp_pack_host(*planes, cov, P, every, m1, packed)
+    assert bool(torch.isinf(m2).all())
+    got = packed.numpy()
+    assert_packed(got, pack_ref(a2, a2, m1, m2, every).numpy(), max_m)
+    with jax.disable_jit():
+        want = J._pack_out(jnp.asarray(a2.numpy()),
+                           jnp.minimum(jnp.asarray(m1.numpy()),
+                                       jnp.asarray(m2.numpy())),
+                           jnp.asarray(every.numpy()), max_m)
+    sub = (m1 != 0) & (m1.abs() < np.finfo(np.float64).tiny)
+    assert int(sub.sum()) == 1
+    keep = (~sub).numpy()
+    assert_packed(got[keep], np.asarray(want)[keep], max_m)
+
+
+# the margins at the f32 conversion's and the risky test's edges
+EDGE_MM = SPECIAL_MM + (-math.inf, math.ulp(0.0), 0.25)
+
+
+def _edge_pairs():
+    """Every (first-pass, rescue-pass) pair of EDGE_MM margins, as two f64
+    tensors."""
+    mm1 = torch.tensor([a for a in EDGE_MM for _ in EDGE_MM],
+                       dtype=torch.float64)
+    mm2 = torch.tensor([b for _ in EDGE_MM for b in EDGE_MM],
+                       dtype=torch.float64)
+    return mm1, mm2
+
+
+@pytest.mark.parametrize("pass_", ("first", "rescue"))
+def test_pack_tail_margin_pairs(pass_):
+    """The pack tail's merge and f32 conversion (rel_tail.cuh
+    row_tail_byte, through its g++ probe) on every pair of margins at
+    the edges (EDGE_MM: 0, -0, NaN, +-inf, the smallest double, 1e-300,
+    1e-30, 1e-5 and the double below it, 3.5e38, ...), as the first pass
+    writes a row it keeps (its own margin, not rescued) and as the
+    rescue pass writes a rescued row (the min of both passes' margins):
+    the five bytes == rel.pack_ref's == JAX's _pack_out of the merged
+    margin (NaN: NaN on both sides; JAX on the rows whose merged margin
+    is not subnormal, which XLA's CPU backend flushes to zero)."""
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref
+
+    jax, jnp, J = _jax()
+    mm1, mm2 = _edge_pairs()
+    n = mm1.shape[0]
+    rescued = torch.full((n,), pass_ == "rescue")
+    none = torch.zeros((n, 0), dtype=torch.int8)
+    got = (kernels.rel_tail_probe(mm2, mm1) if pass_ == "rescue"
+           else kernels.rel_tail_probe(mm1)).numpy()
+    want = pack_ref(none, none, mm1, mm2, rescued).numpy()
+    assert_packed(got, want, 0)
+    merged = np.minimum(mm1.numpy(), mm2.numpy()) if pass_ == "rescue" \
+        else mm1.numpy()
+    with jax.disable_jit():
+        jw = np.asarray(J._pack_out(jnp.asarray(none.numpy()),
+                                    jnp.asarray(merged),
+                                    jnp.asarray(rescued.numpy()), 0))
+    keep = ~((merged != 0) & (np.abs(merged) < np.finfo(np.float64).tiny))
+    assert 0 < int(keep.sum()) < n
+    assert_packed(got[keep], jw[keep], 0)
+
+
+def test_rel_tail_probe_checks_inputs():
+    """The probe refuses margins of another dtype or length."""
+    from classpro_tpu_torch import kernels
+
+    mm = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        kernels.rel_tail_probe(mm.float())
+    with pytest.raises(ValueError):
+        kernels.rel_tail_probe(mm, mm[:3])
 
 
 # -------------------------------------------------- the all-device layout
@@ -724,27 +899,45 @@ def test_edge_cases_reach_their_edges(case):
 
 def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
     """Wrong dtypes, shapes or blob lengths raise; on CPU tensors the
-    wrappers run the plain versions and count no launch."""
+    wrappers run the plain versions and count no launch (rel_dp_rescue's
+    plain version packs every row; its rescued rows are rel_dp_pack's)."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import pack_ref, prep_ref
 
-    fb, ib, R, max_m, a1, m1, a2, m2 = _main_case("rand0")
+    fb, ib, R, max_m = _main_case("rand0")
     P = _P("rand0")
+    F = _fused_main("rand0")
     with pytest.raises(ValueError, match="iblob"):
         kernels.rel_prep_host(fb, ib[:-1], P, R, max_m)
     with pytest.raises(ValueError, match="fblob"):
         kernels.rel_prep_host(fb.to(torch.float32), ib, P, R, max_m)
     planes, cov = prep_ref(fb, ib, P, R, max_m)
-    with pytest.raises(ValueError, match="asgn"):
-        kernels.rel_rescue_host(planes, a1.to(torch.int32), P)
-    rescue = torch.zeros(2 * R, dtype=torch.bool)
-    with pytest.raises(ValueError, match="mm2"):
-        kernels.rel_pack_host(a1, a2, m1, m2[:-1], rescue)
+    with pytest.raises(ValueError, match="cov"):
+        kernels.rel_dp_rescue_host(*planes, cov[:, :3].contiguous(), P)
+    with pytest.raises(ValueError, match="mm1"):
+        kernels.rel_dp_pack_host(*planes, F["cov2"], P, F["rescue"],
+                                 F["m1"][:-1], F["packed"].clone())
+    with pytest.raises(ValueError, match="packed"):
+        kernels.rel_dp_pack_host(*planes, F["cov2"], P, F["rescue"],
+                                 F["m1"], F["packed"][:, :-1].clone())
+    with pytest.raises(ValueError, match="active"):
+        kernels.rel_dp_pack_host(*planes, F["cov2"], P,
+                                 F["rescue"].to(torch.uint8), F["m1"],
+                                 F["packed"].clone())
     n0 = dict(kernels.LAUNCHES)
     for a, b in zip(kernels.rel_prep(fb, ib, P, R, max_m)[0], planes):
         assert_bits(a, b)
-    assert_bits(kernels.rel_pack(a1, a2, m1, m2, rescue),
-                pack_ref(a1, a2, m1, m2, rescue))
+    a1, _, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov, P,
+                                                            pack=True)
+    for a, b in zip((a1, m1, rescue, cov2),
+                    (F["a1"], F["m1"], F["rescue"], F["cov2"])):
+        assert_bits(a, b)
+    assert_packed(packed.numpy(), pack_ref(a1, a1, m1, m1,
+                                           torch.zeros_like(rescue)).numpy(),
+                  max_m)
+    a2, _, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
+    assert_packed(packed.numpy(), F["packed"].numpy(), max_m)
+    assert kernels.rel_dp_rescue(*planes, cov, P)[5] is None
     assert kernels.LAUNCHES == n0
 
 
@@ -752,8 +945,8 @@ def test_glue_geometry():
     """Main-layout prep: one thread per cell in blocks of 256, grid-stride
     past 2112 blocks; all-device prep: a block of 256 per tile of 256
     rel-plane cells, then per tile of interval cells, its records staged
-    in 38,944 bytes of shared memory; rel_rescue / rel_pack: one warp per
-    row in blocks of four warps; rel_settle: a block of 128 per read pair,
+    in 38,944 bytes of shared memory; rel_settle: a block of 128 per read
+    pair,
     560 bytes of the warps' partials and a pair cache of 7 x min(max_m,
     4096) bytes (int32 rel_cols, both rows' int8 states, the scatter's
     candidates)."""
@@ -766,9 +959,6 @@ def test_glue_geometry():
     assert kernels.glue_geometry("rel_prep", 512 * 128, "host",
                                  n2=256 * 192 + 1, alldev=True) == {
         "threads_per_block": 256, "blocks": 256 + 193, "smem_bytes": 38944}
-    for name in ("rel_rescue", "rel_pack"):
-        assert kernels.glue_geometry(name, 511, "host") == {
-            "threads_per_block": 128, "blocks": 128, "smem_bytes": 0}
     for max_m, cache in ((128, 7 * 128), (8224, 7 * 4096)):
         assert kernels.glue_geometry("rel_settle", 511, "host",
                                      n2=max_m) == {
@@ -783,42 +973,92 @@ def _card_params(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ("medium0", "search9", "rand0", "rand1"))
+@pytest.mark.parametrize("case", ("medium0", "search9", "rand0", "rand1")
+                         + TAIL_CASES)
 def test_main_glue_kernels_match_plain_on_card(case):
-    """rel_prep, rel_rescue and rel_pack on the card against their plain
-    versions on the same card inputs, bit for bit; each launch counted."""
+    """rel_prep and the DP kernel's two launches with their tails
+    (rel_dp_rescue, rel_dp_pack) on the card against their plain versions
+    on the same card inputs, bit for bit: the planes, the first pass's
+    rescue and cov2 on its own assignments (rel.rescue_rows), the packed
+    buffer on its own two passes (rel.pack_ref), and the rescue pass's
+    pack tail on margins at the f32 conversion's edges; each launch
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import pack_ref, prep_ref, rescue_rows
 
-    fb, ib, R, max_m, a1, m1, a2, m2 = (
-        t.cuda() if isinstance(t, torch.Tensor) else t
-        for t in _main_case(case))
+    fb, ib, R, max_m = (t.cuda() if isinstance(t, torch.Tensor) else t
+                        for t in _main_case(case))
     P = _card_params(case)
     n0 = dict(kernels.LAUNCHES)
     planes, cov = kernels.rel_prep(fb, ib, P, R, max_m)
     p_r, c_r = prep_ref(fb, ib, P, R, max_m)
-    rescue, cov2 = kernels.rel_rescue(planes, a1, P)
+    a1, _, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov, P,
+                                                            pack=True)
     r_r, c2_r = rescue_rows(planes, a1, P, max_m)
-    got = kernels.rel_pack(a1, a2, m1, m2, rescue)
+    a2, _, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
     want = pack_ref(a1, a2, m1, m2, rescue)
+    # the f32 edges through the rescue pass's pack tail, on a chunk whose
+    # own margins are all inf
+    efb, eib, eR, eM = (t.cuda() if isinstance(t, torch.Tensor) else t
+                        for t in _one_state_chunk())
+    EP = _card_params("rand0")
+    e_planes, e_cov = kernels.rel_prep(efb, eib, EP, eR, eM)
+    every = torch.ones(2 * eR, dtype=torch.bool, device="cuda")
+    edges = torch.from_numpy(np.concatenate([
+        _margins(np.random.default_rng(5), 2 * eR - 2),
+        [-math.inf, math.ulp(0.0)]])).cuda()
+    e_packed = torch.zeros((2 * eR, eM + 5), dtype=torch.uint8,
+                           device="cuda")
+    e_a2, _, e_m2 = kernels.rel_dp_pack(*e_planes, e_cov, EP, every, edges,
+                                        e_packed)
+    e_want = pack_ref(e_a2, e_a2, edges, e_m2, every)
     torch.cuda.synchronize()
     for a, b in zip(planes + (cov, rescue, cov2), p_r + (c_r, r_r, c2_r)):
         assert_bits(a.cpu(), b.cpu())
-    assert_packed(got.cpu().numpy(), want.cpu().numpy(), max_m)
-    for k in ("rel_prep", "rel_rescue", "rel_pack"):
-        assert kernels.LAUNCHES[k] == n0[k] + 1
+    assert_packed(packed.cpu().numpy(), want.cpu().numpy(), max_m)
+    assert bool(torch.isinf(e_m2).all())
+    assert_packed(e_packed.cpu().numpy(), e_want.cpu().numpy(), eM)
+    assert kernels.LAUNCHES["rel_prep"] == n0["rel_prep"] + 2
+    assert kernels.LAUNCHES["rel_dp"] == n0["rel_dp"] + 3
+    if case == "rescued":
+        assert bool(rescue.all())
+    if case == "scratch":
+        assert kernels.rel_dp_geometry(2 * R, max_m)["smem_bytes"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pass_", ("first", "rescue"))
+def test_pack_tail_margin_pairs_on_card(pass_):
+    """The pack tail's merge and f32 conversion on the card (the probe
+    built with the DP kernel) on every pair of EDGE_MM margins against
+    rel.pack_ref on the card, every byte (the card's zero of min(+0, -0)
+    is torch's CUDA one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch.rel import pack_ref
+
+    mm1, mm2 = (t.cuda() for t in _edge_pairs())
+    n = mm1.shape[0]
+    rescued = torch.full((n,), pass_ == "rescue", device="cuda")
+    none = torch.zeros((n, 0), dtype=torch.int8, device="cuda")
+    got = (kernels.rel_tail_probe(mm2, mm1) if pass_ == "rescue"
+           else kernels.rel_tail_probe(mm1))
+    want = pack_ref(none, none, mm1, mm2, rescued)
+    assert_packed(got.cpu().numpy(), want.cpu().numpy(), 0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ("medium0", "psum0", "rand0", "rand1")
                          + EDGES)
 def test_alldev_glue_kernels_match_plain_on_card(case):
-    """rel_prep (all-device layout) and rel_settle on the card against
-    their plain versions on the same card inputs, bit for bit (the EDGES
-    chunks: ragged tiles, a block's part-full trip, the pair cache's global
-    tail, padding pairs, m = 0)."""
+    """rel_prep (all-device layout), the DP's first pass with its rescue
+    tail (rel_dp_rescue) and rel_settle on the card against their plain
+    versions on the same card inputs, bit for bit (the EDGES chunks:
+    ragged tiles, a block's part-full trip, the pair cache's global tail,
+    padding pairs, m = 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from classpro_tpu_torch import kernels
@@ -838,6 +1078,11 @@ def test_alldev_glue_kernels_match_plain_on_card(case):
         assert_bits(a.cpu(), b.cpu())
     for k in un:
         assert_bits(un[k].cpu(), un_r[k].cpu())
+    k_a1, _, _, k_res, k_cov2, packed = kernels.rel_dp_rescue(*planes, cov,
+                                                              P)
+    for a, b in zip((k_res, k_cov2), rescue_rows(planes, k_a1, P, max_m)):
+        assert_bits(a.cpu(), b.cpu())
+    assert packed is None
     rescue, _ = rescue_rows(planes, a1, P, max_m)
     V = blob_views(fb, ib, *dims)
     args = (a1, a2, m1, m2, rescue, planes, V["rel_rows"], V["rel_cols"], P)
