@@ -6,49 +6,56 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. probe   - CUDA present, card name and power limit (nvidia-smi).
-2. build   - nvcc builds csrc/rel_dp.cu (the DP kernel with its rescue
-             and pack tails), csrc/unrel.cu and csrc/glue.cu (the two
-             glue kernels) for sm_90a (printing -Xptxas -v) while g++
-             builds the C++ host library, all four at once, from the
-             checkout; each entry function's registers, static shared
-             bytes, stack and spill bytes (rel_dp_kernel, unrel_kernel,
-             rel_prep_main_kernel, rel_prep_alldev_kernel,
-             rel_settle_kernel) are parsed from the log, and a stack or a
-             spill fails the run.
+2. build   - nvcc builds csrc/rel_dp.cu (the DP kernel with its
+             first-pass prologue and its rescue and pack tails),
+             csrc/unrel.cu and csrc/glue.cu (the two all-device glue
+             kernels) for sm_90a (printing -Xptxas -v) while g++ builds the
+             C++ host library, all four at once, from the checkout; each
+             entry function's registers, static shared bytes, stack and
+             spill bytes (rel_dp_kernel and rel_dp_first_kernel, the DP
+             kernel's two instantiations; unrel_kernel,
+             rel_prep_alldev_kernel, rel_settle_kernel) are parsed from
+             the log, and a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets), a pack whose rows the
              no-H rescue re-runs (branch/search9) and the all-dead row
              (branch/psum0); then the whole per-chunk stage (rel.rel_only:
-             rel_prep and the DP kernel's two launches with their tails,
-             three launches) against rel_only with the plain versions.
+             the replay of the bucket's CUDA graph of the DP kernel's two
+             launches) against rel_only with the plain versions.
              Tolerance: asgn bit-equal on rows whose plain margin is >=
              1e-5, finite margins within 1e-9, the inf / 1e-30 margin
              patterns equal, rescue equal, risky equal except where the
              margin lies within 1e-9 of 1e-5.  On the same packs, against
              their plain versions on the kernel chain's own inputs, bit
-             for bit: rel_prep (rel.prep_ref); the first DP launch with
-             its rescue and pack tails (rel_dp_rescue: its pass against
-             rel_dp's without tails, rescue and cov2 against
+             for bit: the fused first pass (rel_dp_first: its prologue's
+             planes and coverages against rel.prep_ref, its pass against
+             rel_dp's on those planes, rescue and cov2 against
              rel.rescue_rows); the rescue launch with its pack tail
              (rel_dp_pack) and the packed buffer against rel.pack_ref (a
-             NaN margin's bytes only NaN on both sides); and the pack
-             tail's merge on every pair of margins at the f32
-             conversion's edges (inf, -inf, NaN, 0, -0, 1e-30, 1e-300,
-             the smallest double, 1e-5 and the double below it, 3.5e38;
-             kernels.rel_tail_probe), and the rescue launch's pack tail
-             on first-pass margins at those edges.  Times the DP kernel
-             (CUDA events; us per step of the longest row), rel_prep and
-             the two DP launches with their tails beside the DP launch
-             without them (CUDA events around a CUDA graph of 20
-             launches), with their plain versions and bounds, at the
+             NaN margin's bytes only NaN on both sides); the chunk's CUDA
+             graph (rel.ChunkGraph, captured per pack): its replay's bytes
+             equal to the two eager launches' and to the plain glue around
+             the DP kernel, every byte, its capture and replays counted
+             (two launches per replay); and the pack tail's merge on every
+             pair of margins at the f32 conversion's edges (inf, -inf,
+             NaN, 0, -0, 1e-30, 1e-300, the smallest double, 1e-5 and the
+             double below it, 3.5e38; kernels.rel_tail_probe), and the
+             rescue launch's pack tail on first-pass margins at those
+             edges.  Times the DP kernel (CUDA events; us per step of the
+             longest row), the fused first pass beside this tree's DP
+             launch with both tails and no prologue, and the rescue pass
+             with its pack tail (CUDA events around a CUDA graph of 20
+             launches), the chunk graph's replay against the two eager
+             wrapper calls, with the plain versions and bounds, at the
              medium shapes, with the launch geometry.  With --parent DIR
              (a checkout of an earlier commit, its rel_dp.cu and glue.cu
-             built too): its DP first pass + rel_rescue and its rescue
-             pass + rel_pack (from a tree with the tails, its two DP
-             launches with them), held against the fused launches bit
-             for bit and timed in turns with them (parent, this tree,
-             this tree, parent).
+             built too): from a tree before the prologue its rel_prep
+             (main layout) + DP first pass with its tails, and its rescue
+             pass with its pack tail (from a later tree its own two
+             launches), held against this tree's launches bit for bit
+             (planes, passes, packed bytes) and timed in turns with them
+             (parent, this tree, this tree, parent).
    k1profile, k5profile, settleprofile (only when named) - K1 (medium
              chunks), K5 (medium alldev chunks and the long-row chunk) or
              rel_settle (medium alldev chunks) built with its per-phase
@@ -57,19 +64,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              rel_settle).
 4. e2e     - the main path: classify_file_torch over the tiny and medium
              fixtures writes .class files byte-identical to their
-             golden.class.gz; the launch counts are reset just before and
-             read just after, and every kernel of the path (rel_prep,
-             rel_dp) must have launched and the DP kernel must have run
-             its rescue and pack tails (kernels.TAIL_LAUNCHES).
+             golden.class.gz (tiny's -M golden runs in the serve phase);
+             the launch counts are reset just before and read just after,
+             and the DP kernel must have launched with its prologue and
+             its rescue and pack tails (kernels.TAIL_LAUNCHES), a chunk
+             graph must have replayed (rel.GRAPH_COUNTS) and rel_prep must
+             not have launched.  Then two models on one bucket: tiny's
+             pack with tiny's and with medium's RelParams through
+             rel_only's process-wide graph cache, each replay equal to its
+             own model's eager launches, one graph per model.
 5. stream  - steady stream over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
              pipeline), every chunk checked against the golden: a warm-up
-             pass, then three runs (turns) of --passes passes.  Per turn:
-             k-mers/s, the main thread's seconds by stage (host_s,
-             enqueue_h2d_dp_d2h among them), rel_only's span on the card
-             per chunk and the glue's share of it (span less the DP
-             launches), the DP kernel's ms per launch (CUDA events), the
-             DP and glue kernels' launches per chunk (3 in all),
+             (the passes of one sort window, which capture the buckets'
+             graphs), then three runs (turns) of --passes passes.  Per
+             turn: k-mers/s, the main thread's seconds by stage (host_s,
+             enqueue_h2d_dp_d2h among them), the rel stage's span on the
+             card per chunk (CUDA events around each graph replay),
+             launches, replays and captures per chunk (two DP launches per
+             replay and per capture's eager run, no rel_prep),
              guard_flagged (must be 0) and max_memory_allocated.
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
@@ -94,8 +107,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              and medium writes the golden bytes (launch counts reset just
              before and read after: every kernel of the path > 0, the
              rescue tail run, the pack tail not), and the alldev stream
-             over medium (a warm-up pass, three turns of --alldev-passes
-             passes), with each kernel's launches per chunk (five in
+             over medium (a warm-up of one sort window, three turns of
+             --alldev-passes passes), with each kernel's launches per chunk (five in
              all), the K4+K6 glue's card ms per chunk
              (classify_batch's span less the DP and sweep kernels') and
              where the main thread's time goes.
@@ -129,8 +142,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 8. serve   - the serve daemon through its entry point (`python -m
              classpro_tpu_torch.cli serve --warmup-root <medium>` on
              cuda, a subprocess; READY awaited): job 1 tiny by
-             serve.request, job 2 medium by `classify --server`, each
-             .class byte-equal to its golden; stats then show 2 jobs, one
+             serve.request, job 1b tiny with its -M model by request (its
+             own graph on tiny's bucket), job 2 medium by `classify
+             --server`, each .class byte-equal to its golden; the warm-up
+             ran two DP launches and captured one graph per shape; stats
+             then show 3 jobs, graph replays, one
              table upload, and DP launches on the path (stats read before
              job 1 and after job 2); a job on a missing source replies
              ok: false and a ping after it succeeds; shutdown exits 0 and
@@ -158,20 +174,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              parity against the exact oracle (0 mismatches), the two-shard
              merge's byte equality and the served job's wall.
 
-It prints one {"kernels": [...]} line (all four kernels: rel_dp, with
-its two tails (rel_rescue, rel_pack: each fused launch's time beside the
-DP launch's without it, the plain versions' times, the fused bounds, and
-with --parent the parent's unfused pairs in turns), unrel_sweeps,
-rel_prep, rel_settle, each with its registers, shared bytes, stack and
-spill bytes and launch geometry; rel_prep's all-device layout and
-rel_settle with the parent's times when --parent is given),
-{"stream": {...}}, {"alldev_stream": {...}}, {"glue_ab": {...}} (when
-named), {"shard": {...}} and {"serve": {...}} lines
-(ready_s, each job's wall_s and k-mers/s, table_uploads, launches, the
-trace's busy share), {"tools": {...}} and {"soak": {...}} lines, the card's
-name and power limit, and, as
-its last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}.  It imports nothing of JAX or of the JAX package.
+It prints one {"kernels": [...]} line (rel_dp, with its two tails
+(rel_rescue, rel_pack: each fused launch's time beside the DP launch's
+without it, the plain versions' times, the fused bounds, and with
+--parent the parent's rescue pass in turns); rel_dp_first, the DP
+kernel's fused first pass (its prologue replaced rel_prep's main layout:
+its time beside the DP launch with its tails and no prologue, per replay
+of the chunk graph and per eager call, and with --parent the parent's
+rel_prep + DP first pass in turns); unrel_sweeps, rel_prep (the
+all-device layout), rel_settle; each with its registers, shared bytes,
+stack and spill bytes and launch geometry, rel_prep and rel_settle with
+the parent's times when --parent is given), {"stream": {...}},
+{"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"shard":
+{...}} and {"serve": {...}} lines (ready_s, each job's wall_s and
+k-mers/s, table_uploads, launches and graph replays, the trace's busy
+share), {"tools": {...}} and {"soak": {...}} lines, the card's name and
+power limit, and, as its last line, {"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}.  It imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -212,12 +232,10 @@ OPS_PER_STEP = 700
 # search is counted apart, as the JAX program's 4 masked reductions over
 # the row (4 x max_n compare-selects per step).
 OPS_PER_UNREL_STEP = 360
-# f64 / int operations per DP-plane cell of the K4 glue (reversals,
-# log-factorial lookups, E emission, rescue predicate, pack)
-OPS_PER_K4_CELL = 30
-# operations of the glue kernels, read off glue_row.cuh: per plane cell
-# of rel_prep (the reversal index, two clamps, the E emission: 2 products,
-# 6 sums, a log, a max ~15), per interval cell of the all-device rel_prep
+# operations of the glue kernels and the DP kernel's fused parts, read off
+# prep_cell.cuh, glue_row.cuh and rel_tail.cuh: per plane cell of the
+# first pass's prologue (the reversal index, two clamps, the E emission:
+# 2 products, 6 sums, a max ~15), per interval cell of the all-device rel_prep
 # (4 Poisson terms of 3 each, the E emission's max, 8 casts ~25; its 3
 # logs are per chunk), per D cell of rel_rescue (length, half count,
 # keyed min ~10; its other live cells cost the two state tests of
@@ -230,32 +248,33 @@ OPS_RESCUE_CELL = 10
 OPS_RESCUE_TEST = 2
 OPS_PACK_CELL = 2
 OPS_SETTLE_CELL = 40
-# each kernel's entry functions in its nvcc build log
-ENTRIES = {"rel_dp": ("rel_dp_kernel",), "unrel_sweeps": ("unrel_kernel",),
-           "rel_prep": ("rel_prep_main_kernel", "rel_prep_alldev_kernel"),
+# each kernel's entry functions in its nvcc build log (the DP kernel's
+# two: the planes from another launch, and the main path's first pass
+# with its prologue)
+ENTRIES = {"rel_dp": ("rel_dp_kernel", "rel_dp_first_kernel"),
+           "unrel_sweeps": ("unrel_kernel",),
+           "rel_prep": ("rel_prep_alldev_kernel",),
            "rel_settle": ("rel_settle_kernel",)}
-GLUE = ("rel_prep", "rel_settle")
-# the kernels each path launches, and the DP kernel's row tails each path
-# runs (kernels.TAIL_LAUNCHES: launches of rel_dp that ran the tail)
-MAIN_PATH = ("rel_prep", "rel_dp")
+# the kernels each path launches, and the DP kernel's fused parts each
+# path runs (kernels.TAIL_LAUNCHES: launches of rel_dp that ran the part)
+MAIN_PATH = ("rel_dp",)
 ALLDEV_PATH = ("rel_prep", "rel_dp", "rel_settle", "unrel_sweeps")
-MAIN_TAILS = ("rel_rescue", "rel_pack")
+MAIN_TAILS = ("prologue", "rel_rescue", "rel_pack")
 ALLDEV_TAILS = ("rel_rescue",)
 # the JAX function each tail replaces (device_pipeline.py: _rel_pipeline's
-# rescue predicate and merge, _pack_out); until the tails they were glue
-# kernels of their own, which --parent holds and times beside them
+# rescue predicate and merge, _pack_out)
 TAIL_REPLACES = {"rel_rescue": "classpro_tpu/tpu/device_pipeline.py:153",
                  "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638"}
-# the C argument lists of a tree before the tails (its glue library
-# exports rel_rescue_launch): its DP kernel's and its rel_rescue and
-# rel_pack kernels' (rel_dp.cu RD_ARGS_DECL, glue.cu GR_ARGS_DECL and
-# GK_ARGS_DECL)
+# the C argument lists of a tree before the prologue (its glue library
+# holds rel_prep_main_kernel): its DP kernel's (rel_dp.cu RD_ARGS_DECL
+# without the blobs) and its rel_prep's (glue.cu GP_ARGS_DECL with
+# lf_bcnt among the outputs and the layout flag last)
 _P_, _I_, _D_, _L_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                       ctypes.c_longlong)
-UNFUSED_ARGTYPES = {
-    "rel_dp": [_P_] * 17 + [_I_, _I_, _P_, _P_, _I_, _D_, _L_] + [_D_] * 4,
-    "rel_rescue": [_P_] * 7 + [_I_, _I_, _P_, _P_],
-    "rel_pack": [_P_] * 5 + [_I_, _I_, _P_]}
+PRE_PROLOGUE_ARGTYPES = {
+    "rel_dp": [_P_] * 22 + [_I_, _I_, _P_, _P_, _I_, _D_, _L_] + [_D_] * 4,
+    "rel_prep": ([_P_] * 4 + [_D_] + [_I_] * 4 + [_D_] * 2 + [_P_] * 18
+                 + [_I_])}
 
 
 def fail(msg: str) -> None:
@@ -268,27 +287,36 @@ def say(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    """Every kernel's launch count and the DP kernel's tail counts to 0."""
-    from classpro_tpu_torch import kernels
+    """Every kernel's launch count, the DP kernel's tail counts and the
+    chunk graphs' captures and replays to 0."""
+    from classpro_tpu_torch import kernels, rel
 
-    for counts in (kernels.LAUNCHES, kernels.TAIL_LAUNCHES):
+    for counts in (kernels.LAUNCHES, kernels.TAIL_LAUNCHES,
+                   rel.GRAPH_COUNTS):
         for k in counts:
             counts[k] = 0
 
 
-def _path_launches(path: str, kernels_of, tails_of) -> dict:
+def _path_launches(path: str, kernels_of, tails_of,
+                   replays: bool = False) -> dict:
     """The launch counts since the last _reset_launches, with the DP
-    kernel's tail counts under "tails"; fails unless each kernel of
-    ``kernels_of`` and each tail of ``tails_of`` ran at least once."""
-    from classpro_tpu_torch import kernels
+    kernel's tail counts under "tails" and the chunk graphs' under
+    "graphs"; fails unless each kernel of ``kernels_of`` and each tail of
+    ``tails_of`` ran at least once and, with ``replays``, a chunk graph
+    replayed (else none did)."""
+    from classpro_tpu_torch import kernels, rel
 
-    launches = dict(kernels.LAUNCHES, tails=dict(kernels.TAIL_LAUNCHES))
+    launches = dict(kernels.LAUNCHES, tails=dict(kernels.TAIL_LAUNCHES),
+                    graphs=dict(rel.GRAPH_COUNTS))
     for k in kernels_of:
         if launches[k] <= 0:
             fail(f"{path} launched kernel {k} no time")
     for k in tails_of:
         if launches["tails"][k] <= 0:
             fail(f"{path} ran the DP kernel's {k} tail no time")
+    if (launches["graphs"]["replays"] > 0) != replays:
+        fail(f"{path} replayed {launches['graphs']['replays']} chunk "
+             f"graph(s)")
     return launches
 
 
@@ -385,19 +413,27 @@ def ptxas_resources(log: str, kernel: str) -> dict:
 
 
 # --------------------------------------------------------------------- 3
-def _model(fx: str):
+def _global_model(fx: str):
+    """A fixture's GlobalModel (its args.json applied)."""
     from classpro_tpu_torch.estimation import build_global_model
-    from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
-    from classpro_tpu_torch.io.fastx import read_fastx
+    from classpro_tpu_torch.io.fastk import load_histogram
 
     d = os.path.join(FIX, fx)
     args = {}
     if os.path.exists(os.path.join(d, "args.json")):
         with open(os.path.join(d, "args.json")) as f:
             args = json.load(f)
-    root = os.path.join(d, "reads")
-    gm = build_global_model(load_histogram(root), **args)
-    P = open_profiles(root)
+    return build_global_model(load_histogram(os.path.join(d, "reads")),
+                              **args)
+
+
+def _model(fx: str):
+    from classpro_tpu_torch.io.fastk import open_profiles
+    from classpro_tpu_torch.io.fastx import read_fastx
+
+    d = os.path.join(FIX, fx)
+    gm = _global_model(fx)
+    P = open_profiles(os.path.join(d, "reads"))
     reads = list(read_fastx(os.path.join(d, "reads.fasta.gz")))
     profs = [P.fetch(i) for i in range(len(reads))]
     return gm, [r.seq for r in reads], profs
@@ -428,13 +464,19 @@ def _margin_check(tag, m_k, m_r, rows):
 
 
 def _compare_dp(tag, planes, cov, P, active=None):
-    """Kernel vs plain torch DP on the same card inputs."""
+    """Kernel vs plain torch DP on the same card inputs; returns the
+    largest margin difference, the rows compared and unflagged, the plain
+    DP's assignments and its ms (one call, host clock around it and a
+    synchronize)."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel_ref import rel_dp_ref
 
     a_k, d_k, m_k = kernels.rel_dp(*planes, cov, P, active=active)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     a_r, d_r, m_r = rel_dp_ref(*planes, cov, P)
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     rows = (torch.ones_like(m_r, dtype=torch.bool) if active is None
             else active)
     ok = rows & (m_r >= EPS)
@@ -448,14 +490,19 @@ def _compare_dp(tag, planes, cov, P, active=None):
     fin = torch.isfinite(dk) & torch.isfinite(dr)
     if bool(fin.any()):
         err = max(err, float((dk[fin] - dr[fin]).abs().max()))
-    return err, int(rows.sum()), int(ok.sum())
+    return err, int(rows.sum()), int(ok.sum()), a_r, plain_ms
 
 
 def _compare_rel_only(tag, fb, ib, P, R, max_m):
+    """rel_only on the card (the bucket's graph replay) against rel_only
+    with the plain versions; returns the rows rescued and the plain
+    versions' ms (one call, host clock around it and a synchronize)."""
     from classpro_tpu_torch.rel import rel_only, unpack_out
 
     got = rel_only(fb, ib, P, R, max_m, impl="cuda").cpu().numpy()
+    t0 = time.perf_counter()
     want = rel_only(fb, ib, P, R, max_m, impl="ref").cpu().numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     gv, gr, gres, gm = unpack_out(got, max_m)
     wv, wr, wres, wm = unpack_out(want, max_m)
     ok = wm >= EPS
@@ -468,7 +515,7 @@ def _compare_rel_only(tag, fb, ib, P, R, max_m):
     if diff.any():
         fail(f"{tag}: risky flags differ on rows {diff.nonzero()[0][:8]}: "
              f"kernel margins {gm[diff][:8]}, plain {wm[diff][:8]}")
-    return int(wres.sum())
+    return int(wres.sum()), plain_ms
 
 
 def _time_cuda(fn, reps: int) -> float:
@@ -510,17 +557,6 @@ def _bound_ms(planes, cov, P) -> dict:
             "by": "bytes" if t_b >= t_o else "operations",
             "bytes_ms": t_b, "ops_ms": t_o, "records": records,
             "steps": steps, "bytes": nbytes, "ops": steps * OPS_PER_STEP}
-
-
-def _k4_bound(fb, ib, R: int, max_m: int) -> dict:
-    """Least time for the K4 glue of one chunk: its two blobs read once
-    and its packed result (2R, max_m+5) written once, against
-    OPS_PER_K4_CELL operations per DP-plane cell."""
-    nbytes = fb.nbytes + ib.nbytes + 2 * R * (max_m + 5)
-    t_b = nbytes / PEAK_BYTES * 1e3
-    t_o = 2 * R * max_m * OPS_PER_K4_CELL / PEAK_F64 * 1e3
-    return {"ms": max(t_b, t_o), "by": "bytes" if t_b >= t_o
-            else "operations", "bytes": nbytes}
 
 
 def _bits(t):
@@ -581,46 +617,56 @@ def _check_pack(tag: str, got, args) -> float:
     return err
 
 
-def _glue_main(tag, fb_d, ib_d, P, R: int, max_m: int) -> dict:
-    """rel_prep against its plain version on one main-path pack, bit for
-    bit; returns its arguments, planes and, under "err", its largest
-    difference."""
+def _counts() -> dict:
+    """The kernels' launch and tail counts and the chunk graphs' captures
+    and replays, flat (launches by kernel name, tails and graph counts by
+    "tails."/"graphs." names)."""
     from classpro_tpu_torch import kernels, rel
 
-    planes, cov = kernels.rel_prep(fb_d, ib_d, P, R, max_m)
+    out = dict(kernels.LAUNCHES)
+    out.update({f"tails.{k}": n for k, n in kernels.TAIL_LAUNCHES.items()})
+    out.update({f"graphs.{k}": n for k, n in rel.GRAPH_COUNTS.items()})
+    return out
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+# what one replay of a main chunk's graph adds to _counts: the DP
+# kernel's two launches, the first with its prologue and both tails, the
+# second with its pack tail
+REPLAY_COUNTS = {"rel_dp": 2, "tails.prologue": 1, "tails.rel_rescue": 1,
+                 "tails.rel_pack": 2, "graphs.replays": 1}
+
+
+def _first_main(tag, fb_d, ib_d, P, R: int, max_m: int) -> dict:
+    """The main path's two launches on one pack, as its graph replays them
+    (rel_dp_first, then rel_dp_pack), each held against its plain version
+    on the kernel chain's own inputs, bit for bit: the planes and
+    coverages the prologue wrote against rel.prep_ref, the first pass
+    against rel_dp's on those planes (no prologue, no tails), its rescue
+    and cov2 against rel.rescue_rows on its assignments, the rescue pass
+    against rel_dp's on the rows it runs, the packed buffer against
+    rel.pack_ref of the two passes.  Returns the outputs and, under
+    "err", each part's largest difference."""
+    from classpro_tpu_torch import kernels, rel
+
+    planes, cov, a1, d1, m1, rescue, cov2, packed = kernels.rel_dp_first(
+        fb_d, ib_d, P, R, max_m)
     p_r, c_r = rel.prep_ref(fb_d, ib_d, P, R, max_m)
-    err = {"rel_prep": max(_same(tag, f"rel_prep output {k}", a, b)
+    err = {"prologue": max(_same(tag, f"the prologue's output {k}", a, b)
                            for k, (a, b) in enumerate(
                                zip(planes + (cov,), p_r + (c_r,))))}
-    return {"rel_prep": (fb_d, ib_d, P, R, max_m), "planes": planes,
-            "cov": cov, "err": err}
-
-
-def _tails_main(tag, planes, cov, P) -> dict:
-    """The DP kernel's two launches with their tails on one main-path
-    pack, as rel_only runs them (rel_dp_rescue with pack, then
-    rel_dp_pack), each held against its plain version on the kernel
-    chain's own inputs, bit for bit: the first pass against rel_dp's
-    launch without tails, its rescue and cov2 against rel.rescue_rows on
-    its assignments, the rescue pass against rel_dp's (on the rows it
-    runs), the packed buffer against rel.pack_ref of the two passes.
-    Returns the outputs and, under "err", each tail's largest
-    difference."""
-    from classpro_tpu_torch import kernels, rel
-
-    M = planes[0].shape[1]
-    a1, d1, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov,
-                                                            P, pack=True)
     b1, e1, n1 = kernels.rel_dp(*planes, cov, P)
     for what, a, b in (("assignments", a1, b1), ("final cells", d1, e1),
                        ("margins", m1, n1)):
-        _same(tag, f"the first pass's {what} with its tails against "
-              f"rel_dp's", a, b)
-    r_r, c_r = rel.rescue_rows(planes, a1, P, M)
-    err = {"rel_rescue": max(_same(tag, "the rescue tail's rescue", rescue,
-                                   r_r),
-                             _same(tag, "the rescue tail's cov2", cov2,
-                                   c_r))}
+        _same(tag, f"the first pass's {what} with its prologue and tails "
+              f"against rel_dp's", a, b)
+    r_r, c2_r = rel.rescue_rows(planes, a1, P, max_m)
+    err["rel_rescue"] = max(_same(tag, "the rescue tail's rescue", rescue,
+                                  r_r),
+                            _same(tag, "the rescue tail's cov2", cov2, c2_r))
     a2, d2, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
     b2, e2, n2 = kernels.rel_dp(*planes, cov2, P, active=rescue)
     for what, a, b in (("assignments", a2, b2), ("final cells", d2, e2),
@@ -628,9 +674,50 @@ def _tails_main(tag, planes, cov, P) -> dict:
         _same(tag, f"the rescue pass's {what} with its tail against "
               f"rel_dp's", a[rescue], b[rescue])
     err["rel_pack"] = _check_pack(tag, packed, (a1, a2, m1, m2, rescue))
-    return {"a1": a1, "m1": m1, "rescue": rescue, "cov2": cov2, "a2": a2,
-            "m2": m2, "packed": packed, "rescued": int(rescue.sum()),
-            "err": err}
+    return {"planes": planes, "cov": cov, "a1": a1, "m1": m1,
+            "rescue": rescue, "cov2": cov2, "a2": a2, "m2": m2,
+            "packed": packed, "rescued": int(rescue.sum()), "err": err}
+
+
+def _graph_main(tag, fb_d, ib_d, P, R: int, max_m: int, t: dict):
+    """The chunk's CUDA graph (a rel.ChunkGraph of its own, captured here)
+    against the eager launches and the plain glue, every byte: its
+    replay's packed output == ``t["packed"]`` (rel_dp_first + rel_dp_pack,
+    eager) == rel.rel_glued eagerly == rel_only with the plain glue
+    (rel_planes, rescue_rows, pack_out) around the DP kernel; the capture
+    counts nothing but its eager run, each replay counts the two launches
+    and their prologue and tails (REPLAY_COUNTS); a blob of another shape
+    is refused.  Returns the graph."""
+    from classpro_tpu_torch import kernels, rel
+
+    c0 = _counts()
+    g = rel.ChunkGraph(P, R, max_m)
+    c1 = _counts()
+    got = g.run(fb_d, ib_d).clone()
+    c2 = _counts()
+    eager = rel.rel_glued(fb_d, ib_d, P, R, max_m, kernels)
+    plain = rel.rel_only(fb_d, ib_d, P, R, max_m, impl=kernels.rel_dp)
+    torch.cuda.synchronize()
+    want_cap = {"rel_dp": 2, "tails.prologue": 1, "tails.rel_rescue": 1,
+                "tails.rel_pack": 2, "graphs.captures": 1}
+    if _delta(c0, c1) != want_cap or _delta(c1, c2) != REPLAY_COUNTS:
+        fail(f"{tag}: the graph's capture counted {_delta(c0, c1)} "
+             f"(want {want_cap}, its eager run), its replay "
+             f"{_delta(c1, c2)} (want {REPLAY_COUNTS})")
+    for what, other in (("the eager launches' packed buffer", t["packed"]),
+                        ("rel_glued's, eagerly", eager),
+                        ("the plain glue's around the DP kernel", plain)):
+        if not torch.equal(got, other):
+            bad = int((got != other).any(1).sum())
+            fail(f"{tag}: the graph replay's packed output differs from "
+                 f"{what} on {bad} row(s)")
+    try:
+        g.run(fb_d[:-1], ib_d)
+    except ValueError:
+        pass
+    else:
+        fail(f"{tag}: the chunk graph took a blob of another shape")
+    return g
 
 
 def _one_state_chunk(R: int, max_m: int = 4):
@@ -658,8 +745,9 @@ def _check_pack_specials() -> float:
     rescue pass writes a rescued row; (b) the rescue pass's DP launch
     with its pack tail (rel_dp_pack) on first-pass margins at the edges,
     every row rescued, on a chunk whose own margins are all inf
-    (``_one_state_chunk``, the tiny model), so that each merged margin is
-    its edge value.  Every byte against rel.pack_ref."""
+    (``_one_state_chunk``, the tiny model; its planes from rel_dp_first's
+    prologue), so that each merged margin is its edge value.  Every byte
+    against rel.pack_ref."""
     import math
 
     from classpro_tpu_torch import kernels
@@ -683,7 +771,7 @@ def _check_pack_specials() -> float:
                                                  dtype=torch.bool))))
     R, M = len(vals), 4
     fb, ib = _one_state_chunk(R, M)
-    planes, cov = kernels.rel_prep(fb, ib, P, R, M)
+    planes, cov = kernels.rel_dp_first(fb, ib, P, R, M)[:2]
     every = torch.ones(2 * R, dtype=torch.bool, device="cuda")
     mm1 = torch.tensor(vals + vals, dtype=torch.float64, device="cuda")
     packed = torch.zeros((2 * R, M + 5), dtype=torch.uint8, device="cuda")
@@ -694,19 +782,22 @@ def _check_pack_specials() -> float:
                                 (a2, a2, mm1, m2, every)))
 
 
-def _main_bounds(fb, ib, planes, cov, P, t, k1) -> dict:
+def _main_bounds(fb, ib, t, P, k1) -> dict:
     """Bounds on one pack (each input read once, each output written once,
-    against the operations per cell of OPS_*): rel_prep (the log-factorial
-    entries its counts select); the rescue tail and the pack tail as the
-    glue kernels they were (rel_rescue reads the first pass's assignments
-    at the live cells and the four int64 planes at its D cells only;
-    rel_pack the two passes); and the two fused launches, each a DP pass
-    (_bound_ms) plus only what its tail adds to the pass's own bytes: the
-    first pass (``k1``) writes the rescue flags, cov2 and the packed rows
-    of the rows it keeps (it reads gcov); the rescue pass (the DP on the
-    rescued rows) reads its active flags and those rows' first-pass
-    margins and writes their packed rows.  The tails' reads of the
-    assignments and planes are the pass's own bytes, on chip already."""
+    against the operations per cell of OPS_*).  The prologue alone, as
+    the glue kernel it was (rel_prep's main layout: the blobs, the
+    log-factorial entries its counts select, gcov; every plane cell and
+    the row outputs written).  The tails alone, as the glue kernels they
+    were (rel_rescue reads the first pass's assignments at the live cells
+    and the four int64 planes at its D cells only; rel_pack the two
+    passes).  The fused first pass (rel_dp_first): the prologue's bytes,
+    plus the DP pass (``k1``, _bound_ms) without its reads of the planes
+    and row inputs (the launch wrote them: re-reads of its own bytes),
+    plus what its tails write (rescue, cov2, the packed rows of the rows
+    it keeps).  The fused rescue pass: the DP on the rescued rows, its
+    active flags and those rows' first-pass margins read, their packed
+    rows written."""
+    planes = t["planes"]
     R2, M = planes[0].shape
     cells = R2 * M
     inb = torch.arange(M, device=planes[0].device)[None, :] \
@@ -719,19 +810,23 @@ def _main_bounds(fb, ib, planes, cov, P, t, k1) -> dict:
     n_res = int(res.sum())
     k1r = (_bound_ms(tuple(x[res] for x in planes), t["cov2"][res], P)
            if n_res else {"bytes": 0, "ops": 0})
+    prologue_b = (fb.nbytes + ib.nbytes + lf * 8 + 32 + cells * 7 * 8
+                  + R2 * (8 + 8 + 1 + 32))
+    prologue_o = cells * OPS_PREP_CELL
+    k1_in = int(planes[7].sum()) * (5 * 8 + 2 * 8) + R2 * (8 + 8 + 1 + 32)
     rescue_out = 32 + R2 * (1 + 32)         # gcov; rescue, cov2 written
     rescue_b = live + n_d * 4 * 8 + R2 * 8 + rescue_out
     rescue_o = live * OPS_RESCUE_TEST + n_d * OPS_RESCUE_CELL
     row_b = M + 8 + 8 + 1 + (M + 5)         # a packed row, read and written
+    pack_o = (R2 - n_res) * M * OPS_PACK_CELL
     return {
-        "rel_prep": _bound(fb.nbytes + ib.nbytes + lf * 8 + 32
-                           + cells * 7 * 8 + R2 * (8 + 8 + 1 + 32),
-                           cells * OPS_PREP_CELL),
+        "prologue": _bound(prologue_b, prologue_o),
         "rel_rescue": _bound(rescue_b, rescue_o),
         "rel_pack": _bound(R2 * row_b, cells * OPS_PACK_CELL),
-        "fused_rel_rescue": _bound(
-            k1["bytes"] + rescue_out + (R2 - n_res) * (M + 5),
-            k1["ops"] + rescue_o + (R2 - n_res) * M * OPS_PACK_CELL),
+        "first": _bound(
+            prologue_b + k1["bytes"] - k1_in + rescue_out
+            + (R2 - n_res) * (M + 5),
+            prologue_o + k1["ops"] + rescue_o + pack_o),
         "fused_rel_pack": _bound(
             k1r["bytes"] + R2 + n_res * (8 + M + 5),
             k1r["ops"] + n_res * M * OPS_PACK_CELL)}
@@ -769,144 +864,196 @@ def _time_glue(rec: dict, name: str, args, plain, bnd: dict) -> None:
     r["bound"].append(bnd)
 
 
-def _parent_pairs(fns, planes, cov, P, t, tag) -> dict:
-    """The parent tree's launches on one pack, into buffers of their own:
-    from a tree before the tails (``fns`` holds its rel_rescue) its DP
-    first pass + rel_rescue and its DP rescue pass (on this tree's rescue
-    rows and cov2) + rel_pack, from a later tree its two DP launches with
-    their tails; their outputs held against this tree's fused launches'
-    (``t``) bit for bit.  Returns the two pairs as callables (ctypes
-    launches on the current stream)."""
-    R2, M = planes[0].shape
-    dev = planes[0].device
-    unfused = "rel_rescue" in fns
+def _parent_pairs(par: dict, fb_d, ib_d, P, R: int, M: int, t: dict,
+                  tag: str) -> dict:
+    """The parent tree's main-path launches on one pack, into buffers of
+    their own: from a tree before the prologue its rel_prep (main layout)
+    and its DP first pass with both tails, from a later tree its DP
+    first pass with its prologue and tails; then its rescue pass with its
+    pack tail (on this tree's rescue rows and cov2).  Their planes,
+    passes, rescue, cov2 and packed buffer held against this tree's
+    (``t``) bit for bit.  Returns the two as callables (ctypes launches
+    on the current stream)."""
+    from classpro_tpu_torch import kernels
+
+    R2 = 2 * R
+    dev = fb_d.device
     keep = []
+    ptr = lambda x: x.data_ptr() if x is not None else None
 
     def new(shape, dt):
         x = torch.empty(shape, dtype=dt, device=dev)
         keep.append(x)
         return x
 
-    def dp_args(c, active, tail):
+    planes = tuple(new((R2, M), torch.int64) for _ in range(5)) + (
+        new((R2, M), torch.float64), new((R2, M), torch.float64),
+        new((R2,), torch.int64), new((R2,), torch.int64),
+        new((R2,), torch.bool))
+    cov = new((R2, 4), torch.int64)
+
+    def dp_args(c, active, tail, blobs):
         outs = (new((R2, M), torch.int8), new((R2, 4), torch.float64),
                 new((R2,), torch.float64),
                 new((R2, max(M - 1, 1), 4), torch.int8),
                 new((R2, M), torch.uint8))
-        ptr = lambda x: x.data_ptr() if x is not None else None
-        return ([x.data_ptr() for x in planes]
-                + [c.data_ptr(), ptr(active)] + [x.data_ptr() for x in outs]
-                + ([] if unfused else [ptr(x) for x in tail])
-                + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
-                   int(P.lf_small.shape[0]), float(P.read_len),
-                   int(P.offset), float(P.r_logp), float(P.log_1m_pe_mean),
-                   float(P.log_pe_mean), float(P.dr_ratio)]), outs
+        args = ([x.data_ptr() for x in planes] + [c.data_ptr(), ptr(active)]
+                + [x.data_ptr() for x in outs] + [ptr(x) for x in tail])
+        if par["prologue"]:
+            args += ([ptr(ib_d), ptr(fb_d), ptr(P.logfact)] if blobs
+                     else [None] * 3) + [float(P.e_po_base)]
+        return args + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
+                       int(P.lf_small.shape[0]), float(P.read_len),
+                       int(P.offset), float(P.r_logp),
+                       float(P.log_1m_pe_mean), float(P.log_pe_mean),
+                       float(P.dr_ratio)], outs
 
     res, cov2 = new((R2,), torch.bool), new((R2, 4), torch.int64)
     out = new((R2, M + 5), torch.uint8)
-    args1, o1 = dp_args(cov, None, (res, cov2, P.gcov, out, None))
-    args2, o2 = dp_args(t["cov2"], t["rescue"], (None, None, None, out,
-                                                 o1[2]))
-    args_r = ([planes[k].data_ptr() for k in (0, 1, 2, 3, 7)]
-              + [o1[0].data_ptr(), P.gcov.data_ptr(), R2, M,
-                 res.data_ptr(), cov2.data_ptr()])
-    args_p = ([x.data_ptr() for x in (o1[0], o2[0], o1[2], o2[2],
-                                      t["rescue"])] + [R2, M,
-                                                       out.data_ptr()])
+    args1, o1 = dp_args(cov, None, (res, cov2, P.gcov, out, None), True)
+    args2, o2 = dp_args(t["cov2"], t["rescue"],
+                        (None, None, None, out, o1[2]), False)
+    # the main layout of a rel_prep before the prologue (GP_ARGS_DECL of
+    # then: lf_bcnt among the outputs, the all-device outputs null, the
+    # layout flag 0)
+    args_p = ([ib_d.data_ptr(), fb_d.data_ptr(), P.logfact.data_ptr(),
+               P.gcov.data_ptr(), float(P.e_po_base), R, M, 0, 0,
+               *kernels.GATE_UNFLAGGED]
+              + [x.data_ptr() for x in planes[:5]]
+              + [x.data_ptr() for x in (planes[7], planes[8], cov,
+                                        planes[5], planes[6], planes[9])]
+              + [None] * 7 + [0])
 
     def launch(name, args):
-        err = fns[name](*args, torch.cuda.current_stream().cuda_stream)
+        err = par["fns"][name](*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             fail(f"parent {name} launch failed: CUDA error {err}")
 
-    def pair1():
+    def first():
+        if not par["prologue"]:
+            launch("rel_prep", args_p)
         launch("rel_dp", args1)
-        if unfused:
-            launch("rel_rescue", args_r)
 
-    def pair2():
+    def second():
         launch("rel_dp", args2)
-        if unfused:
-            launch("rel_pack", args_p)
 
-    pair1()
-    pair2()
+    first()
+    second()
     torch.cuda.synchronize()
     rows = t["rescue"]
+    for k, (a, b) in enumerate(zip(planes + (cov,), t["planes"]
+                                   + (t["cov"],))):
+        _same(tag, f"the parent's plane {k} against the prologue's", a, b)
     for what, a, b in (("first pass's assignments", o1[0], t["a1"]),
                        ("first pass's margins", o1[2], t["m1"]),
-                       ("rel_rescue's rescue", res, t["rescue"]),
-                       ("rel_rescue's cov2", cov2, t["cov2"]),
+                       ("rescue", res, t["rescue"]),
+                       ("cov2", cov2, t["cov2"]),
                        ("rescue pass's assignments", o2[0][rows],
                         t["a2"][rows]),
                        ("packed buffer", out, t["packed"])):
         _same(tag, f"the parent's {what} against this tree's", a, b)
-    return {"rel_rescue": pair1, "rel_pack": pair2, "keep": keep,
-            "what": "K1 + {}" if unfused else "K1 with its {} tail"}
+    return {"first": first, "rel_pack": second, "keep": keep,
+            "what": ("K1 with its prologue and tails" if par["prologue"]
+                     else "rel_prep + K1 with its tails")}
 
 
-def _time_tails(rec: dict, t: dict, planes, cov, P, bnds: dict, parent,
-                tag: str) -> None:
-    """The DP kernel's two launches with their tails on one medium pack:
-    ms per launch on the card (``_graph_ms``, 20 launches) beside this
-    tree's DP launch without tails on the same pass; the tails' plain
-    versions' ms per call (rel.rescue_rows, rel.pack_ref; CUDA events, 5
-    calls); the fused and the tails' own bounds.  With ``parent`` (the
-    parent tree's launch entries) its pairs (``_parent_pairs``)
-    held against this tree's and timed in turns with the fused launches
-    (parent, this tree, this tree, parent), appended to
-    rec[name]["parent_ab_ms"]."""
+def _time_main(rec: dict, t: dict, fb_d, ib_d, P, R: int, max_m: int,
+               g, bnds: dict, parent, tag: str, plain_ms: float) -> None:
+    """The main path's launches on one medium pack, ms per launch on the
+    card (``_graph_ms``, 20 launches): the fused first pass
+    (rel_dp_first) beside this tree's DP launch with both tails but no
+    prologue on the prologue's planes and the DP launch alone; the
+    rescue pass with its pack tail beside the DP alone on the rescued
+    rows; the rescue tail alone (rel_dp_rescue, the all-device path's
+    first pass).  The chunk's graph: ms per replay (CUDA events around 20
+    replays) against the two launches called eagerly (rel_glued, 20
+    calls: the wrappers' Python).  The plain versions' ms per call (CUDA
+    events; for the fused first pass ``plain_ms``, rel_only's plain
+    versions as _compare_rel_only timed them: the prologue's, the DP's,
+    the rescue predicate's and the pack's, no row rescued on medium).
+    With ``parent`` its pairs (``_parent_pairs``) held against
+    this tree's and timed in turns with them (parent, this tree, this
+    tree, parent)."""
     from classpro_tpu_torch import kernels, rel
 
-    M = planes[0].shape[1]
+    planes, cov, M = t["planes"], t["cov"], max_m
     pk = t["packed"]
-    fused = {"rel_rescue": lambda: kernels.rel_dp_rescue(*planes, cov, P,
-                                                         pack=True),
+    both = kernels._rescue_tail(planes, P, pack=True)
+    fused = {"first": lambda: kernels.rel_dp_first(fb_d, ib_d, P, R, M),
              "rel_pack": lambda: kernels.rel_dp_pack(
                  *planes, t["cov2"], P, t["rescue"], t["m1"], pk)}
-    alone = {"rel_rescue": lambda: kernels.rel_dp(*planes, cov, P),
-             "rel_pack": lambda: kernels.rel_dp(*planes, t["cov2"], P,
-                                                active=t["rescue"])}
-    plain = {"rel_rescue": lambda: rel.rescue_rows(planes, t["a1"], P, M),
-             "rel_pack": lambda: rel.pack_ref(t["a1"], t["a2"], t["m1"],
-                                              t["m2"], t["rescue"])}
-    pairs = _parent_pairs(parent, planes, cov, P, t, tag) if parent \
-        else None
-    for name in ("rel_rescue", "rel_pack"):
-        r = rec.setdefault(name, {"ms": [], "k1_ms": [], "plain_ms": [],
-                                  "bound": [], "tail_bound": [],
-                                  "parent_ab_ms": []})
+    pairs = (_parent_pairs(parent, fb_d, ib_d, P, R, M, t, tag)
+             if parent else None)
+    for name in ("first", "rel_pack"):
+        x = rec.setdefault(name, {"ms": [], "parent_ab_ms": []})
         if pairs is not None:
             ab = [_graph_ms(pairs[name], 20), _graph_ms(fused[name], 20),
                   _graph_ms(fused[name], 20), _graph_ms(pairs[name], 20)]
-            r["parent_ab_ms"].append(ab)
-            r["ms"].append(min(ab[1:3]))
+            x["parent_ab_ms"].append(ab)
+            x["ms"].append(min(ab[1:3]))
         else:
-            r["ms"].append(_graph_ms(fused[name], 20))
-        r["k1_ms"].append(_graph_ms(alone[name], 20))
-        if name == "rel_rescue":     # the all-device path's first pass
-            r.setdefault("no_pack_ms", []).append(_graph_ms(
-                lambda: kernels.rel_dp_rescue(*planes, cov, P), 20))
-        r["plain_ms"].append(_time_cuda(plain[name], 5))
-        r["bound"].append(bnds["fused_" + name])
-        r["tail_bound"].append(bnds[name])
-        say(f"  K1 with its {name[4:]} tail: {r['ms'][-1]:.4f} ms per "
-            f"launch on the card, without the tail {r['k1_ms'][-1]:.4f}"
-            + (f", with the rescue tail alone {r['no_pack_ms'][-1]:.4f}"
-               if name == "rel_rescue" else "") + "; "
-            + (f"the parent's {pairs['what'].format(name)}: "
-               f"{ab[0]:.4f}, {ab[3]:.4f} ms, "
-               f"this tree {ab[1]:.4f}, {ab[2]:.4f} (in turns); "
-               if pairs is not None else "")
-            + f"plain {name[4:]} {r['plain_ms'][-1]:.3f} ms; bound "
-            f"{r['bound'][-1]['ms']:.6f} ms ({r['bound'][-1]['by']}, "
-            f"{r['bound'][-1]['bytes']} B; the tail alone "
-            f"{r['tail_bound'][-1]['ms']:.6f} ms)")
+            x["ms"].append(_graph_ms(fused[name], 20))
+
+    times = {
+        "k1_tails_ms": _graph_ms(lambda: kernels._dp_run(
+            "cuda", planes, cov, P, tail=both), 20),
+        "k1_ms": _graph_ms(lambda: kernels.rel_dp(*planes, cov, P), 20),
+        "rescue_tail_ms": _graph_ms(lambda: kernels.rel_dp_rescue(
+            *planes, cov, P), 20),
+        "k1_rescue_pass_ms": _graph_ms(lambda: kernels.rel_dp(
+            *planes, t["cov2"], P, active=t["rescue"]), 20),
+        "replay_ms": _time_cuda(g.replay, 20),
+        "eager_ms": _time_cuda(lambda: rel.rel_glued(fb_d, ib_d, P, R, M,
+                                                     kernels), 20),
+        "plain_ms": plain_ms,
+        "pack_plain_ms": _time_cuda(lambda: rel.pack_ref(
+            t["a1"], t["a2"], t["m1"], t["m2"], t["rescue"]), 5),
+        "prologue_plain_ms": _time_cuda(lambda: rel.prep_ref(
+            fb_d, ib_d, P, R, M), 5)}
+    r = rec["first"]
+    for k, v in times.items():
+        r.setdefault(k, []).append(v)
+    for k in ("first", "prologue", "rel_rescue", "rel_pack",
+              "fused_rel_pack"):
+        r.setdefault("bounds", {}).setdefault(k, []).append(bnds[k])
+    first_ms, pack_ms = rec["first"]["ms"][-1], rec["rel_pack"]["ms"][-1]
+    say(f"  fused first pass (prologue, K1, both tails): {first_ms:.4f} ms "
+        f"per launch on the card; K1 with both tails, no prologue "
+        f"{times['k1_tails_ms']:.4f} (the prologue "
+        f"{(first_ms - times['k1_tails_ms']) * 1e3:.2f} us), K1 alone "
+        f"{times['k1_ms']:.4f}, K1 with the rescue tail alone "
+        f"{times['rescue_tail_ms']:.4f}; "
+        + (f"the parent's {pairs['what']}: "
+           f"{rec['first']['parent_ab_ms'][-1][0]:.4f}, "
+           f"{rec['first']['parent_ab_ms'][-1][3]:.4f} ms, this tree "
+           f"{rec['first']['parent_ab_ms'][-1][1]:.4f}, "
+           f"{rec['first']['parent_ab_ms'][-1][2]:.4f} (in turns); "
+           if pairs is not None else "")
+        + f"plain {times['plain_ms']:.1f} ms (prologue's "
+        f"{times['prologue_plain_ms']:.3f}); bound "
+        f"{bnds['first']['ms']:.6f} ms ({bnds['first']['by']}, "
+        f"{bnds['first']['bytes']} B; the prologue alone "
+        f"{bnds['prologue']['ms']:.6f} ms, {bnds['prologue']['bytes']} B)")
+    say(f"  rescue pass with its pack tail: {pack_ms:.4f} ms per launch, "
+        f"K1 alone {times['k1_rescue_pass_ms']:.4f}; "
+        + (f"the parent's {rec['rel_pack']['parent_ab_ms'][-1][0]:.4f}, "
+           f"{rec['rel_pack']['parent_ab_ms'][-1][3]:.4f} ms, this tree "
+           f"{rec['rel_pack']['parent_ab_ms'][-1][1]:.4f}, "
+           f"{rec['rel_pack']['parent_ab_ms'][-1][2]:.4f} (in turns); "
+           if pairs is not None else "")
+        + f"plain pack {times['pack_plain_ms']:.3f} ms; bound "
+        f"{bnds['fused_rel_pack']['ms']:.6f} ms")
+    say(f"  the chunk's graph: {times['replay_ms']:.4f} ms per replay "
+        f"(two launches), {times['eager_ms']:.4f} ms per eager call of "
+        f"the two wrappers")
 
 
-# the JAX function each glue kernel replaces (device_pipeline.py:
-# _rel_only_core, _demotes_dev)
-GLUE_REPLACES = {"rel_prep": "classpro_tpu/tpu/device_pipeline.py:541",
-                 "rel_settle": "classpro_tpu/tpu/device_pipeline.py:257"}
+# the JAX function each kernel or fused part replaces (device_pipeline.py:
+# _rel_only_core for the prologue, _unpack for the all-device rel_prep,
+# _demotes_dev for rel_settle)
+GLUE_REPLACES = {"rel_prep": "classpro_tpu/tpu/device_pipeline.py:119",
+                 "rel_settle": "classpro_tpu/tpu/device_pipeline.py:257",
+                 "rel_dp_first": "classpro_tpu/tpu/device_pipeline.py:541"}
 
 
 def _glue_entry(name: str, g: dict, launches: int, err: float,
@@ -928,48 +1075,85 @@ def _glue_entry(name: str, g: dict, launches: int, err: float,
             **res[ENTRIES[name][0]], "resources": res, **g["geometry"]}
 
 
+def _first_entry(krec: dict, launches: dict, brec) -> dict:
+    """The fused first pass's entry of the {"kernels": [...]} line (the
+    DP kernel's rel_dp_first_kernel: the prologue that replaced rel_prep's
+    main layout, K1, both tails): the medium chunk timed last, its
+    launches on the main path (the DP launches that ran the prologue), the
+    largest difference of its prologue and tails from their plain
+    versions, the time without the prologue, per replay of the chunk's
+    graph and per eager call, the bounds, and with --parent the parent's
+    pair and this tree's launch in turns."""
+    m = krec["main"]
+    f, b = m["first"], m["first"]["bounds"]
+    err = max(krec["tail_err"][k] for k in ("prologue", "rel_rescue",
+                                             "rel_pack"))
+    return {"name": "rel_dp_first", "route": "cuda",
+            "source": "classpro_tpu_torch/csrc/rel_dp.cu",
+            "replaces": GLUE_REPLACES["rel_dp_first"],
+            "launches": launches["tails"]["prologue"], "max_abs_err": err,
+            "ms": f["ms"][-1], "plain_ms": f["plain_ms"][-1],
+            "bound_ms": b["first"][-1]["ms"],
+            "bound_by": b["first"][-1]["by"], "library_ms": None,
+            "bound_bytes": b["first"][-1]["bytes"],
+            "ms_per_chunk": f["ms"], "k1_tails_ms": f["k1_tails_ms"][-1],
+            "prologue_us": (f["ms"][-1] - f["k1_tails_ms"][-1]) * 1e3,
+            "prologue_bound_ms": b["prologue"][-1]["ms"],
+            "prologue_plain_ms": f["prologue_plain_ms"][-1],
+            "replay_ms": f["replay_ms"], "eager_ms": f["eager_ms"],
+            "parent_ab_ms": f["parent_ab_ms"],
+            **(brec or {}).get("rel_dp_first_kernel", {}),
+            **krec["geometry"]}
+
+
 def _tails_entry(krec: dict, tails: dict) -> dict:
     """The DP kernel's tails for its entry of the {"kernels": [...]} line:
     per tail, the glue kernel it replaces and that one's JAX function, the
     launches that ran it on the main path, its largest difference from
-    its plain version, the fused launch's ms (the medium chunk timed
-    last) beside K1's without the tail, the plain version's ms, the fused
-    launch's bound and the tail's own, and with --parent the parent's
-    unfused pair and this tree's fused launch in turns."""
-    out = {}
-    for name, r in krec["tails"].items():
-        out[name] = {
-            "replaces": TAIL_REPLACES[name], "launches": tails[name],
-            "max_abs_err": krec["tail_err"][name], "ms": r["ms"][-1],
-            "k1_ms": r["k1_ms"][-1], "plain_ms": r["plain_ms"][-1],
-            **({"no_pack_ms": r["no_pack_ms"][-1]} if "no_pack_ms" in r
-               else {}),
-            "bound_ms": r["bound"][-1]["ms"],
-            "bound_by": r["bound"][-1]["by"],
-            "bound_bytes": r["bound"][-1]["bytes"],
-            "tail_bound_ms": r["tail_bound"][-1]["ms"],
-            "ms_per_chunk": r["ms"], "parent_ab_ms": r["parent_ab_ms"]}
-    return out
+    its plain version; the rescue tail's launch (rel_dp_rescue, the
+    all-device path's first pass) beside K1's without it, the pack tail's
+    (the rescue pass) beside K1's rescue pass without it and with
+    --parent the parent's rescue pass in turns; the plain versions' ms,
+    the fused launches' bounds and the tails' own."""
+    f = krec["main"]["first"]
+    p = krec["main"]["rel_pack"]
+    b = f["bounds"]
+    return {
+        "rel_rescue": {
+            "replaces": TAIL_REPLACES["rel_rescue"],
+            "launches": tails["rel_rescue"],
+            "max_abs_err": krec["tail_err"]["rel_rescue"],
+            "ms": f["rescue_tail_ms"][-1], "k1_ms": f["k1_ms"][-1],
+            "tail_bound_ms": b["rel_rescue"][-1]["ms"]},
+        "rel_pack": {
+            "replaces": TAIL_REPLACES["rel_pack"],
+            "launches": tails["rel_pack"],
+            "max_abs_err": krec["tail_err"]["rel_pack"],
+            "ms": p["ms"][-1], "k1_ms": f["k1_rescue_pass_ms"][-1],
+            "plain_ms": f["pack_plain_ms"][-1],
+            "bound_ms": b["fused_rel_pack"][-1]["ms"],
+            "bound_by": b["fused_rel_pack"][-1]["by"],
+            "tail_bound_ms": b["rel_pack"][-1]["ms"],
+            "ms_per_chunk": p["ms"], "parent_ab_ms": p["parent_ab_ms"]}}
 
 
 def phase_kernel(parent=None):
     """K1 against its plain version on every pack of medium, search9 and
-    psum0 (both passes), rel_only with the kernels against the plain
-    versions, rel_prep and K1's tails against theirs, bit for bit; times
-    at the medium shapes.  ``parent``: the parent tree's launch entries
-    (``_parent_kernels``), whose unfused K1 + rel_rescue and K1 +
-    rel_pack are held against the fused launches and timed in turns with
-    them."""
+    psum0 (both passes); the main path's two launches (the fused first
+    pass: prologue, K1 and both tails; the rescue pass with its pack
+    tail) against their plain versions, bit for bit; the chunk's CUDA
+    graph against those eager launches and the plain glue, every byte;
+    rel_only with the kernels against the plain versions; times at the
+    medium shapes.  ``parent``: the parent tree's launch entries
+    (``_parent_kernels``), whose main-path launches are held against this
+    tree's and timed in turns with them."""
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch import rel as rel_mod
     from classpro_tpu_torch.engine import TorchEngine
-    from classpro_tpu_torch.rel import rel_only, rel_planes, rescue_rows
-    from classpro_tpu_torch.rel_ref import rel_dp_ref
+    from classpro_tpu_torch.rel import rel_planes, rescue_rows
 
     dev = torch.device("cuda")
     rec = {"max_abs_err": 0.0, "ms": [], "plain_ms": [], "bound": [],
-           "glue": {}, "glue_err": {}, "tails": {},
-           "tail_err": {"rel_pack": _check_pack_specials()}}
+           "main": {}, "tail_err": {"rel_pack": _check_pack_specials()}}
     say("kernel == plain: the pack tail's merge on every pair of margin "
         "edge cases and the rescue pass's pack tail on them, every byte")
     for fx in ("medium", "branch/search9", "branch/psum0"):
@@ -983,58 +1167,36 @@ def phase_kernel(parent=None):
             P = eng.P
             planes = rel_planes(fb_d, ib_d, P, R, max_m)
             cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
-            err, n, n_ok = _compare_dp(tag, planes, cov, P)
+            err, n, n_ok, a_r, plain = _compare_dp(tag, planes, cov, P)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             # the rescue pass: the rows the plain first pass rescues,
             # with their coverages, through the active mask
-            rescue, cov2 = rescue_rows(
-                planes, rel_dp_ref(*planes, cov, P)[0], P, max_m)
+            rescue, cov2 = rescue_rows(planes, a_r, P, max_m)
             if bool(rescue.any()):
-                err2, _, _ = _compare_dp(tag + " rescue pass", planes, cov2,
-                                         P, active=rescue)
+                err2 = _compare_dp(tag + " rescue pass", planes, cov2, P,
+                                   active=rescue)[0]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err2)
-            n_res2 = _compare_rel_only(tag, fb_d, ib_d, P, R, max_m)
-            gargs = _glue_main(tag, fb_d, ib_d, P, R, max_m)
-            t = _tails_main(tag, gargs["planes"], gargs["cov"], P)
-            for name, e in gargs["err"].items():
-                rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0),
-                                            e)
+            n_res2, stage_plain = _compare_rel_only(tag, fb_d, ib_d, P, R,
+                                                    max_m)
+            t = _first_main(tag, fb_d, ib_d, P, R, max_m)
+            g = _graph_main(tag, fb_d, ib_d, P, R, max_m, t)
             for name, e in t["err"].items():
                 rec["tail_err"][name] = max(rec["tail_err"].get(name, 0.0),
                                             e)
             say(f"kernel == plain: {tag}: {n} rows ({n_ok} unflagged), "
-                f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}; "
-                f"rel_prep, K1's rescue tail ({t['rescued']} rescued) and "
-                f"pack tails bit-equal")
+                f"{n_res2} rescued, max |err| {rec['max_abs_err']:.3e}; the "
+                f"first pass's prologue, K1's rescue tail ({t['rescued']} "
+                f"rescued) and pack tails bit-equal; the graph replay == "
+                f"the eager launches == the plain glue, every byte")
             if fx == "medium":
                 bnd = _bound_ms(planes, cov, P)
-                bnds = _main_bounds(fb, ib, gargs["planes"], gargs["cov"], P,
-                                    t, bnd)
-                _time_glue(rec["glue"], "rel_prep", gargs["rel_prep"],
-                           rel_mod.prep_ref, bnds["rel_prep"])
-                g = rec["glue"]["rel_prep"]
-                g["geometry"] = kernels.glue_geometry("rel_prep",
-                                                      2 * R * max_m)
-                say(f"  rel_prep: {g['ms'][-1]:.4f} ms per launch on the "
-                    f"card ({g['call_ms'][-1]:.4f} ms per wrapper call), "
-                    f"plain torch {g['plain_ms'][-1]:.3f} ms, bound "
-                    f"{g['bound'][-1]['ms']:.6f} ms "
-                    f"({g['bound'][-1]['by']}, "
-                    f"{g['bound'][-1]['bytes']} B), geometry "
-                    f"{json.dumps(g['geometry'])}")
-                _time_tails(rec["tails"], t, gargs["planes"], gargs["cov"],
-                            P, bnds, parent, tag)
+                bnds = _main_bounds(fb, ib, t, P, bnd)
+                _time_main(rec["main"], t, fb_d, ib_d, P, R, max_m, g, bnds,
+                           parent, tag, stage_plain)
                 ms = _time_cuda(lambda: kernels.rel_dp(*planes, cov, P), 20)
-                t0 = time.perf_counter()
-                rel_dp_ref(*planes, cov, P)
-                torch.cuda.synchronize()
-                plain = (time.perf_counter() - t0) * 1e3
                 rec["ms"].append(ms)
                 rec["plain_ms"].append(plain)
                 rec["bound"].append(bnd)
-                stage = _time_cuda(lambda: rel_only(fb_d, ib_d, P, R, max_m,
-                                                    impl="cuda"), 10)
-                k4 = _k4_bound(fb, ib, R, max_m)
                 longest = int(planes[7].max())
                 rec["us_per_step"] = ms * 1e3 / max(longest - 1, 1)
                 rec["geometry"] = kernels.rel_dp_geometry(2 * R, max_m)
@@ -1045,10 +1207,8 @@ def phase_kernel(parent=None):
                     f"{plain:.1f} ms, bound {bnd['ms']:.6f} ms "
                     f"({bnd['by']}; bytes {bnd['bytes_ms']:.6f} ms with "
                     f"{bnd['records']} distinct table records, operations "
-                    f"{bnd['ops_ms']:.6f} ms for {bnd['steps']} steps); "
-                    f"whole rel_only stage (rel_prep + 2 K1 launches) "
-                    f"{stage:.3f} ms per chunk; K4 glue bound "
-                    f"{k4['ms']:.6f} ms ({k4['by']}, {k4['bytes']} B)")
+                    f"{bnd['ops_ms']:.6f} ms for {bnd['steps']} steps)")
+            del g
         if fx == "branch/search9" and not n_res2:
             fail("branch/search9 pack rescued no row")
     return rec
@@ -1177,6 +1337,50 @@ def phase_settleprofile() -> dict:
 
 
 # --------------------------------------------------------------------- 4
+def _hisim_model(tmp: str) -> str:
+    """tiny's HIsim error model (-M), unpacked into ``tmp``."""
+    path = os.path.join(tmp, "hisim.model")
+    with gzip.open(os.path.join(FIX, "tiny", "hisim.model.gz"), "rb") as f, \
+            open(path, "wb") as g:
+        g.write(f.read())
+    return path
+
+
+def _two_models() -> dict:
+    """Two models on one bucket in one process: tiny's first chunk pack
+    run with tiny's RelParams and with medium's (other coverages, so other
+    outputs) through rel_only, whose process-wide cache (rel.GRAPHS) keys
+    each chunk graph on its RelParams: each model's replays (twice, in
+    turns with the other's) equal its own eager launches, every byte, the
+    two models' outputs differ, and the bucket holds one graph per
+    model."""
+    from classpro_tpu_torch import kernels, rel
+    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.params import build_rel_params
+
+    gm, seqs, profs = _model("tiny")
+    eng = TorchEngine(gm, device="cuda")
+    P_b = build_rel_params(_global_model("medium"), "cuda")
+    fb, ib, R, max_m = _packs(eng, seqs, profs)[0]
+    fb_d, ib_d = torch.from_numpy(fb).cuda(), torch.from_numpy(ib).cuda()
+    n0 = len(rel.GRAPHS)
+    want = {k: rel.rel_glued(fb_d, ib_d, P, R, max_m, kernels)
+            for k, P in (("tiny", eng.P), ("medium", P_b))}
+    for k, P in (("tiny", eng.P), ("medium", P_b), ("tiny", eng.P),
+                 ("medium", P_b)):
+        got = rel.rel_only(fb_d, ib_d, P, R, max_m, impl="cuda")
+        if not torch.equal(got, want[k]):
+            fail(f"two models on one bucket: the {k} model's graph replay "
+                 f"differs from its eager launches")
+    if len(rel.GRAPHS) != n0 + 2:
+        fail(f"two models on one bucket: {len(rel.GRAPHS) - n0} graph(s) "
+             f"captured, want 2")
+    rows = int((want["tiny"] != want["medium"]).any(1).sum())
+    if not rows:
+        fail("two models on one bucket: the two models' outputs are equal")
+    return {"bucket": [R, max_m], "rows_differing": rows}
+
+
 def phase_e2e():
     from classpro_tpu_torch.engine import classify_file_torch
     from classpro_tpu_torch.io.classfile import write_class
@@ -1201,9 +1405,16 @@ def phase_e2e():
                 fail(f"e2e {fx}: .class differs from golden.class.gz")
             say(f"e2e {fx}: byte-identical to golden ({len(got)} bytes, "
                 f"{wall:.2f} s incl. set-up, guard_flagged "
-                f"{st['guard_flagged']})")
-        launches = _path_launches("main path", MAIN_PATH, MAIN_TAILS)
+                f"{st['guard_flagged']}, buckets {st['shapes']})")
+        launches = _path_launches("main path", MAIN_PATH, MAIN_TAILS,
+                                  replays=True)
+        if launches["rel_prep"]:
+            fail(f"main path launched rel_prep: {launches}")
         say(f"e2e launches: {launches}")
+        two = _two_models()
+        say(f"e2e two models on one bucket {two['bucket']}: each model's "
+            f"graph replay == its eager launches, every byte; the models "
+            f"differ on {two['rows_differing']} row(s)")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1224,11 +1435,6 @@ def _clock(obj, name: str, acc: dict):
 
     setattr(obj, name, g)
     return lambda: setattr(obj, name, f)
-
-
-# the ``active`` pointer's place in the DP kernel's C arguments
-# (kernels._args: the ten planes, cov, active)
-_ACTIVE_ARG = 11
 
 
 def _launch_events(sink):
@@ -1291,8 +1497,10 @@ def _profiled_launches(run, eng) -> dict:
     lo = float(mark[0]["ts"])
     hi = lo + float(mark[0]["dur"])
     calls = [e for e in evs if e.get("cat") == "cuda_runtime"
-             and "LaunchKernel" in e.get("name", "")
+             and ("LaunchKernel" in e.get("name", "")
+                  or "GraphLaunch" in e.get("name", ""))
              and lo <= float(e["ts"]) <= hi]
+    graph_calls = sum("GraphLaunch" in e["name"] for e in calls)
     kern = [e for e in evs if e.get("cat") == "kernel"
             and "spin_kernel" not in e.get("name", "")]
     if not calls:
@@ -1303,6 +1511,7 @@ def _profiled_launches(run, eng) -> dict:
         n, us = by.get(k, (0, 0.0))
         by[k] = (n + 1, us + float(e["dur"]))
     return {"chunks": chunks, "launch_calls_per_chunk": len(calls) / chunks,
+            "graph_launch_calls_per_chunk": graph_calls / chunks,
             "kernels_per_chunk": len(kern) / chunks,
             "kernel_us_per_chunk": sum(us for _, us in by.values())
             / chunks,
@@ -1317,9 +1526,10 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
     (n passes, every chunk checked against the golden; returns seconds),
     k-mers and reads per pass, ``comps`` ("plain_glue": the plain torch
     glue around the DP and sweep kernels, the composition before the glue
-    kernels; "kernels": the glue kernels) and ``install(fn)``, which puts
-    fn in place of the path's rel_only / classify_batch and returns the
-    undo."""
+    kernels, on the main path rel_only's eager launches after an upload;
+    "kernels": the path as it ships, on the main path the chunk graph's
+    replay) and ``install(fn)``, which puts fn in place of the path's
+    TorchEngine._rel / classify_batch and returns the undo."""
     import functools
     import types
 
@@ -1334,9 +1544,16 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
     B = 200                                  # input chunks, as the CLI
     spans = [(lo, min(lo + B, len(seqs))) for lo in range(0, len(seqs), B)]
     mod, attr = ((alldev_mod, "classify_batch") if alldev
-                 else (engine_mod, "rel_only"))
+                 else (engine_mod.TorchEngine, "_rel"))
     orig = getattr(mod, attr)
-    plain = ("cuda", "cuda") if alldev else kernels.rel_dp
+
+    def plain_rel(self, f, i, P, R, max_m):
+        return engine_mod.rel_only(f.to(P.device, non_blocking=True),
+                                   i.to(P.device, non_blocking=True), P, R,
+                                   max_m, impl=kernels.rel_dp)
+
+    plain = (functools.partial(orig, impl=("cuda", "cuda")) if alldev
+             else plain_rel)
 
     def run(n):
         chunks = ((seqs[lo:hi], profs[lo:hi])
@@ -1355,19 +1572,21 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
         setattr(mod, attr, fn)
         return lambda: setattr(mod, attr, orig)
 
+    # a warm-up covers one sort window of input chunks, so that it meets
+    # every batch (and so every bucket) of the steady passes
     return types.SimpleNamespace(
         eng=eng, run=run, install=install, reads=len(seqs),
+        warm_passes=max(1, -(-sort_window // len(spans))),
         kmers_pass=sum(len(c) - c.count("N") for c in gold[:len(seqs)]),
-        comps={"plain_glue": functools.partial(orig, impl=plain),
-               "kernels": orig})
+        comps={"plain_glue": plain, "kernels": orig})
 
 
 def _warm(S, comps) -> None:
-    """One pass of each of ``comps``."""
+    """A warm-up of each of ``comps``: the passes of one sort window."""
     for comp in comps:
         undo = S.install(S.comps[comp])
         try:
-            S.run(1)
+            S.run(S.warm_passes)
         finally:
             undo()
 
@@ -1435,44 +1654,53 @@ TURNS = ("kernels",) * 3
 AB_TURNS = ("plain_glue", "kernels", "kernels", "plain_glue")
 
 
+def _span_attr(obj, name: str, sink: list):
+    """obj.name with CUDA events around each call (``_spanned``); returns
+    the undo."""
+    f = getattr(obj, name)
+    setattr(obj, name, _spanned(f, sink))
+    return lambda: setattr(obj, name, f)
+
+
 def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
                  turns=TURNS):
-    """Steady stream over medium in the compositions of rel_only
-    (``_medium_stream``) that ``turns`` names, in that order.  After a
-    warm-up pass of each, each turn is a run of ``passes`` passes that
-    records the DP launches' card time (CUDA events around them), every
-    kernel's launches, rel_only's span on the card and where the main
-    thread's time goes."""
+    """Steady stream over medium in the compositions of the main path's
+    rel stage (``_medium_stream``) that ``turns`` names, in that order.
+    After a warm-up of each (the passes of one sort window, which capture
+    the buckets' graphs),
+    each turn is a run of ``passes`` passes that records every kernel's
+    launches and the chunk graphs' replays per chunk, the rel stage's
+    span on the card per chunk (CUDA events on the stream around each
+    graph replay, outside any capture; for the plain glue around its
+    rel_only call) and where the main thread's time goes."""
     from classpro_tpu_torch import engine as engine_mod
+    from classpro_tpu_torch import kernels, rel
 
     S = _medium_stream(False, batch_size, sort_window)
     eng = S.eng
 
     def turn(comp):
-        ev: dict = {"main": [], "rescue": [], "rel_only": []}
-        ev.update({g: [] for g in GLUE})
+        spans: list = []
         acc: dict = {}
-        undo = [S.install(_spanned(S.comps[comp], ev["rel_only"]))]
+        undo = [S.install(S.comps[comp]),
+                _span_attr(rel.ChunkGraph, "replay", spans),
+                _span_attr(engine_mod, "rel_only", spans)]
         undo += [_clock(eng, n, acc) for n in ("_stage", "_pack_st",
                                                "_submit", "_finish",
                                                "_exact_guard")]
         undo += [_clock(eng.wall, "finish_batch", acc)]
         undo += [_clock(engine_mod, n, acc)
                  for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
-        undo.append(_launch_events(
-            lambda name, args: ev[name if name != "rel_dp" else
-                                  "main" if args[_ACTIVE_ARG] is None
-                                  else "rescue"]))
         torch.cuda.reset_peak_memory_stats()
-        g0, c0 = eng.guard_flagged, eng.chunks_done
+        g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
             wall = S.run(passes)
         finally:
-            for u in undo:
+            for u in reversed(undo):
                 u()
-        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
+        d = _delta(n0, _counts())
+        ms = [a.elapsed_time(b) for a, b in spans]
         chunks = max(eng.chunks_done - c0, 1)
-        dp_ms = sum(ms["main"]) + sum(ms["rescue"])
         host = {
             "wall_stage_cpp": acc["_stage"], "pack_rel_cpp": acc["_pack_st"],
             "enqueue_h2d_dp_d2h": acc["_submit"] - acc["_stage"]
@@ -1488,17 +1716,12 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             "composition": comp,
             "kmers_per_s": passes * S.kmers_pass / wall,
             "wall_s": wall, "device_chunks": chunks,
-            "dp_launches_per_chunk": (len(ms["main"]) + len(ms["rescue"]))
-            / chunks,
-            "glue_launches_per_chunk": sum(len(ms[g]) for g in GLUE)
-            / chunks,
-            "dp_ms_per_main_launch": sum(ms["main"])
-            / max(len(ms["main"]), 1),
-            "dp_ms_per_rescue_launch": sum(ms["rescue"])
-            / max(len(ms["rescue"]), 1),
-            "rel_only_ms_per_chunk": sum(ms["rel_only"]) / chunks,
-            "glue_ms_per_chunk": (sum(ms["rel_only"]) - dp_ms) / chunks,
-            "dp_busy_share": dp_ms / 1e3 / wall,
+            "launches_per_chunk": {k: d.get(k, 0) / chunks
+                                   for k in kernels.LAUNCHES},
+            "replays_per_chunk": d.get("graphs.replays", 0) / chunks,
+            "captures": d.get("graphs.captures", 0),
+            "rel_only_ms_per_chunk": sum(ms) / chunks,
+            "rel_only_busy_share": sum(ms) / 1e3 / wall,
             "enqueue_ms_per_chunk": host["enqueue_h2d_dp_d2h"] * 1e3
             / chunks,
             "host_s": host, "guard_flagged": eng.guard_flagged - g0,
@@ -1513,25 +1736,31 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
     for comp in comps:
         mine = [t for t in runs if t["composition"] == comp]
         res[comp] = {k: [t[k] for t in mine] for k in (
-            "kmers_per_s", "rel_only_ms_per_chunk", "glue_ms_per_chunk",
-            "enqueue_ms_per_chunk", "dp_ms_per_main_launch")}
+            "kmers_per_s", "rel_only_ms_per_chunk", "enqueue_ms_per_chunk",
+            "replays_per_chunk")}
         res[comp]["enqueue_h2d_dp_d2h_s"] = [
             t["host_s"]["enqueue_h2d_dp_d2h"] for t in mine]
     for t in runs:
         if t["guard_flagged"]:
             fail(f"stream ({t['composition']}): guard_flagged "
                  f"{t['guard_flagged']} on medium")
+        if t["composition"] == "kernels" and (
+                t["launches_per_chunk"]["rel_prep"]
+                or t["replays_per_chunk"] <= 0
+                or t["launches_per_chunk"]["rel_dp"] * t["device_chunks"]
+                != 2 * (t["replays_per_chunk"] * t["device_chunks"]
+                        + t["captures"])):
+            fail(f"stream: the main path is not two DP launches per "
+                 f"replay (and per capture's eager run): {json.dumps(t)}")
         say(f"stream {t['composition']}: {t['kmers_per_s'] / 1e6:.2f} M "
             f"k-mers/s ({passes} passes of medium, {res['reads']} reads), "
-            f"rel_only {t['rel_only_ms_per_chunk']:.3f} ms/chunk on the "
-            f"card (glue {t['glue_ms_per_chunk']:.3f}), DP kernel "
-            f"{t['dp_ms_per_main_launch']:.3f} ms per main launch + "
-            f"{t['dp_ms_per_rescue_launch']:.3f} per rescue launch, "
-            f"{t['dp_launches_per_chunk']:.2f} DP + "
-            f"{t['glue_launches_per_chunk']:.2f} glue launches/chunk, "
-            f"enqueue {t['enqueue_ms_per_chunk']:.3f} ms/chunk; main "
-            f"thread s: " + ", ".join(f"{k} {v:.3f}"
-                                      for k, v in t["host_s"].items()))
+            f"rel stage {t['rel_only_ms_per_chunk']:.3f} ms/chunk on the "
+            f"card ({'the graph replay' if t['composition'] == 'kernels'
+                     else 'rel_only'}), "
+            f"{t['replays_per_chunk']:.2f} replays and launches "
+            f"{json.dumps(t['launches_per_chunk'])} per chunk, enqueue "
+            f"{t['enqueue_ms_per_chunk']:.3f} ms/chunk; main thread s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in t["host_s"].items()))
     return res
 
 
@@ -1718,7 +1947,7 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
          for k, (a, b) in enumerate(zip(planes + (cov,), p_r + (c_r,)))]
         + [_same(tag, f"rel_prep (alldev) {k}", un[k], un_r[k])
            for k in un])}
-    asgn1, _, mm1, rescue, cov2, _ = kernels.rel_dp_rescue(*planes, cov, P)
+    asgn1, _, mm1, rescue, cov2 = kernels.rel_dp_rescue(*planes, cov, P)
     r_r, c_r = rescue_rows(planes, asgn1, P, max_m)
     err["rel_rescue"] = max(_same(tag, "the rescue tail's rescue", rescue,
                                   r_r),
@@ -1756,12 +1985,11 @@ def _parent_kernels(parent: str) -> dict:
     """The launch entries of the checkout ``parent`` (an earlier commit of
     this repository): its classpro_tpu_torch/csrc/rel_dp.cu and glue.cu
     built with this tree's nvcc flags into libraries of their own, both at
-    once; its rel_prep and rel_settle bound with this tree's argument
-    lists (their C interface did not change since they were written).
-    Its DP kernel: where its glue library exports rel_rescue_launch (a
-    tree before the tails), bound with the argument list of then, beside
-    its rel_rescue and rel_pack (UNFUSED_ARGTYPES); else with this
-    tree's."""
+    once.  A tree with the DP kernel's prologue (rel_dp_first_kernel in
+    its build log) is bound with this tree's argument lists; a tree
+    before it (rel_prep_main_kernel in its glue library) with those of
+    then (PRE_PROLOGUE_ARGTYPES), its rel_settle with this tree's.
+    Returns {"fns": name -> C launch entry, "prologue": bool}."""
     from classpro_tpu_torch import kernels
 
     csrc = os.path.join(parent, "classpro_tpu_torch", "csrc")
@@ -1780,46 +2008,51 @@ def _parent_kernels(parent: str) -> dict:
             fail(f"nvcc failed on the parent's {src}:\n{logs[src]}")
     libs = {src: ctypes.CDLL(os.path.join(out, f"lib{src[:-3]}_parent.so"))
             for src in procs}
-    unfused = hasattr(libs["glue.cu"], "rel_rescue_launch")
-    binds = [("rel_dp", "rel_dp.cu", "rel_dp_kernel",
-              UNFUSED_ARGTYPES["rel_dp"] if unfused
-              else kernels._ARGTYPES["rel_dp"]),
-             ("rel_prep", "glue.cu", "rel_prep_alldev_kernel",
-              kernels._ARGTYPES["rel_prep"]),
-             ("rel_settle", "glue.cu", "rel_settle_kernel",
-              kernels._ARGTYPES["rel_settle"])]
-    if unfused:
-        binds += [("rel_rescue", "glue.cu", "rel_rescue_kernel",
-                   UNFUSED_ARGTYPES["rel_rescue"]),
-                  ("rel_pack", "glue.cu", "rel_pack_kernel",
-                   UNFUSED_ARGTYPES["rel_pack"])]
+    prologue = "rel_dp_first_kernel" in logs["rel_dp.cu"]
+    if not prologue and "rel_prep_main_kernel" not in logs["glue.cu"]:
+        fail(f"--parent {parent}: neither the DP kernel's prologue nor "
+             f"rel_prep's main layout in its build")
+    argtypes = kernels._ARGTYPES if prologue else dict(
+        kernels._ARGTYPES, **PRE_PROLOGUE_ARGTYPES)
+    entries = (("rel_dp", "rel_dp.cu", ("rel_dp_kernel",)
+                + (("rel_dp_first_kernel",) if prologue else ())),
+               ("rel_prep", "glue.cu", ("rel_prep_alldev_kernel",)
+                + (() if prologue else ("rel_prep_main_kernel",))),
+               ("rel_settle", "glue.cu", ("rel_settle_kernel",)))
     fns = {}
-    for name, src, entry, argtypes in binds:
+    for name, src, names in entries:
         fn = getattr(libs[src], f"{name}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = argtypes + [ctypes.c_void_p]
+        fn.argtypes = argtypes[name] + [ctypes.c_void_p]
         fns[name] = fn
-        res = ptxas_resources(logs[src], entry)
-        say(f"build: parent {entry} {json.dumps(res)}")
+        for entry in names:
+            res = ptxas_resources(logs[src], entry)
+            say(f"build: parent {entry} {json.dumps(res)}")
     say(f"build: nvcc {parent}'s rel_dp.cu and glue.cu "
-        f"{time.time() - t0:.1f} s")
-    return fns
+        f"{time.time() - t0:.1f} s ({'with' if prologue else 'before'} the "
+        f"DP kernel's prologue)")
+    return {"fns": fns, "prologue": prologue}
 
 
-def _time_parent(g: dict, name: str, args, fn, fresh, tag: str) -> None:
-    """The parent's kernel ``name`` (``fn``, its C launch entry) on this
-    chunk's arguments: its outputs against this tree's kernel's, bit for
-    bit (rel_settle into copies of ``fresh``, the sweeps' assignment rows
-    and gate as rel_prep left them), then both timed in turns (parent,
-    this tree, this tree, parent; ms per launch, ``_graph_ms``), appended
-    to g["ab"]."""
+def _time_parent(g: dict, name: str, args, par: dict, fresh,
+                 tag: str) -> None:
+    """The parent's kernel ``name`` (its C launch entry in ``par``) on
+    this chunk's arguments: its outputs against this tree's kernel's, bit
+    for bit (rel_settle into copies of ``fresh``, the sweeps' assignment
+    rows and gate as rel_prep left them), then both timed in turns
+    (parent, this tree, this tree, parent; ms per launch, ``_graph_ms``),
+    appended to g["ab"].  A rel_prep from before the prologue takes the
+    argument list of then (lf_bcnt null, the all-device layout flag 1)."""
     from classpro_tpu_torch import kernels
 
     wrapper = getattr(kernels, name)
+    fn = par["fns"][name]
 
     def parent(*a):
         if name == "rel_prep":
             cargs, planes, cov, un = kernels._prep_args(*a)
+            if not par["prologue"]:
+                cargs = cargs[:19] + [None] + cargs[19:] + [1]
             out = planes + (cov,) + tuple(un[k] for k in sorted(un))
         else:
             cargs, out = kernels._settle_args(*a), a[-2:]
@@ -1893,8 +2126,7 @@ def phase_alldev(parent: dict | None = None):
                        gargs["bounds"][name])
             g = rec["glue"][name]
             g["geometry"] = (
-                kernels.glue_geometry(name, R2 * max_m, n2=Bn * max_n,
-                                      alldev=True)
+                kernels.glue_geometry(name, R2 * max_m, n2=Bn * max_n)
                 if name == "rel_prep"
                 else kernels.glue_geometry(name, R2 // 2, n2=max_m))
             say(f"  {name}: {g['ms'][-1]:.4f} ms per launch on the card "
@@ -1904,8 +2136,8 @@ def phase_alldev(parent: dict | None = None):
                 f"{g['bound'][-1]['bytes']} B), geometry "
                 f"{json.dumps(g['geometry'])}")
             if parent is not None:
-                _time_parent(g, name, gargs[name], parent[name],
-                             gargs["fresh"], tag)
+                _time_parent(g, name, gargs[name], parent, gargs["fresh"],
+                             tag)
         sw = _time_sweeps(args, PP.unrel, max_n, plain)
         bnd = sw["bound"]
         k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
@@ -1987,8 +2219,8 @@ def phase_alldev_e2e():
             f"{time.time() - t0:.2f} s incl. set-up, guard_flagged "
             f"{eng.guard_flagged})")
     launches = _path_launches("alldev path", ALLDEV_PATH, ALLDEV_TAILS)
-    if launches["tails"]["rel_pack"]:
-        fail("alldev path ran the DP kernel's pack tail")
+    if launches["tails"]["rel_pack"] or launches["tails"]["prologue"]:
+        fail("alldev path ran the DP kernel's pack tail or prologue")
     say(f"alldev e2e launches: {launches}")
     return launches
 
@@ -2520,10 +2752,15 @@ def phase_serve(keep: str) -> dict:
         rec["ready_s"] = time.perf_counter() - t0
         st0 = request(sock, {"cmd": "stats"}, timeout=30)
         rec["warmup_launches"] = st0["launches"]
-        if any(st0["launches"][k] != len(st0["warm_shapes"])
-               for k in ("rel_prep", "rel_dp")):
-            fail(f"serve: warm-up launches {st0['launches']} for shapes "
-                 f"{st0['warm_shapes']}")
+        rec["warmup_graphs"] = st0["graphs"]
+        # each warm-up shape: the DP kernel's two launches run eagerly,
+        # then the chunk graph captured
+        n_warm = len(st0["warm_shapes"])
+        if st0["launches"]["rel_dp"] != 2 * n_warm \
+                or st0["launches"]["rel_prep"] \
+                or st0["graphs"]["captures"] != n_warm:
+            fail(f"serve: warm-up launches {st0['launches']} and graphs "
+                 f"{st0['graphs']} for shapes {st0['warm_shapes']}")
         jobs = []
         # job 1: tiny, by request
         out1 = os.path.join(tmp, "tiny.class")
@@ -2541,7 +2778,25 @@ def phase_serve(keep: str) -> dict:
                      "wall_s": rep["wall_s"], "client_s": host1,
                      "kmers": rep["kmers"],
                      "kmers_per_s": rep["kmers"] / rep["wall_s"],
-                     "launches": rep["launches"]})
+                     "launches": rep["launches"], "graphs": rep["graphs"]})
+        # job 1b: tiny with the -M HIsim model, its bucket tiny's: the
+        # job's own graph, the golden of that model
+        out1m = os.path.join(tmp, "tiny_M.class")
+        rep = request(sock, {"cmd": "classify",
+                             "source": os.path.join(FIX, "tiny",
+                                                    "reads.fasta.gz"),
+                             "fastk_root": os.path.join(FIX, "tiny",
+                                                        "reads"),
+                             "model": _hisim_model(tmp), "output": out1m},
+                      timeout=30)
+        with gzip.open(os.path.join(FIX, "tiny", "golden_M.class.gz"),
+                       "rb") as f:
+            if not rep.get("ok") or _read(out1m) != f.read() \
+                    or rep["graphs"]["replays"] <= 0:
+                fail(f"serve job 1b (tiny -M): {rep}")
+        jobs.append({"fixture": "tiny -M", "via": "request",
+                     "wall_s": rep["wall_s"], "kmers": rep["kmers"],
+                     "launches": rep["launches"], "graphs": rep["graphs"]})
         # job 2: medium, through the CLI client
         out2 = os.path.join(tmp, "medium.class")
         t2 = time.perf_counter()
@@ -2569,7 +2824,8 @@ def phase_serve(keep: str) -> dict:
         st = request(sock, {"cmd": "stats"}, timeout=30)
         launches = {k: st["launches"][k] - st0["launches"][k]
                     for k in st["launches"]}
-        if st["jobs"] != 2 or st["table_uploads"] != 1 \
+        replays = st["graphs"]["replays"] - st0["graphs"]["replays"]
+        if st["jobs"] != 3 or st["table_uploads"] != 1 or replays <= 0 \
                 or any(launches[k] <= 0 for k in MAIN_PATH):
             fail(f"serve stats after two jobs: {st} (path launches "
                  f"{launches})")
@@ -2824,11 +3080,11 @@ def main(argv=None) -> int:
                     help="steady stream: classify_stream's sort_window")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit: the kernel "
-                    "phase holds its unfused DP + rel_rescue and DP + "
-                    "rel_pack launches (or, from a tree with the tails, "
-                    "its DP launches with them) against this tree's DP "
-                    "launches with their tails and times them in turns, "
-                    "the alldev phase its rel_prep and rel_settle")
+                    "phase holds its main-path launches (from a tree "
+                    "before the DP kernel's prologue, rel_prep's main "
+                    "layout + the DP first pass with its tails) against "
+                    "this tree's and times them in turns, the alldev "
+                    "phase its rel_prep and rel_settle")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2914,7 +3170,11 @@ def main(argv=None) -> int:
             "bound_by": krec["bound"][k]["by"],
             "library_ms": None, "us_per_step": krec["us_per_step"],
             "tails": _tails_entry(krec, launches["tails"]),
-            **(brec or {}).get("rel_dp_kernel", {}), **krec["geometry"]})
+            **(brec or {}).get("rel_dp_kernel", {}),
+            "resources": {e: (brec or {}).get(e, {})
+                          for e in ENTRIES["rel_dp"]},
+            **krec["geometry"]})
+        kern.append(_first_entry(krec, launches, brec))
     if arec is not None:
         ch = arec["chunks"][-1]              # the medium chunk timed last
         kern.append({
@@ -2932,29 +3192,13 @@ def main(argv=None) -> int:
             "long_row_us_per_active_step":
                 arec["long_row"]["us_per_active_step"],
             **(brec or {}).get("unrel_kernel", {}), **arec["geometry"]})
-    if krec is not None and launches is not None:
-        err = krec["glue_err"]["rel_prep"]
-        if arec is not None:
-            err = max(err, arec["glue_err"]["rel_prep"])
-        e = _glue_entry("rel_prep", krec["glue"]["rel_prep"],
-                        launches["rel_prep"], err, brec)
-        if arec is not None:
-            g = arec["glue"]["rel_prep"]
-            e.update(alldev_ms=g["ms"][-1], alldev_plain_ms=
-                     g["plain_ms"][-1], alldev_bound_ms=g["bound"][-1]
-                     ["ms"], alldev_bound_by=g["bound"][-1]["by"],
-                     alldev_ms_per_chunk=g["ms"],
-                     alldev_call_ms=g["call_ms"][-1],
-                     alldev_geometry=g["geometry"],
-                     **({"alldev_parent_ab_ms": g["ab"]}
-                        if "ab" in g else {}))
-        kern.append(e)
     if arec is not None:
-        g = arec["glue"]["rel_settle"]
-        kern.append(dict(_glue_entry("rel_settle", g, alaunch["rel_settle"],
-                                     arec["glue_err"]["rel_settle"], brec),
-                         **({"parent_ab_ms": g["ab"]} if "ab" in g
-                            else {})))
+        for name in ("rel_prep", "rel_settle"):
+            g = arec["glue"][name]
+            kern.append(dict(_glue_entry(name, g, alaunch[name],
+                                         arec["glue_err"][name], brec),
+                             **({"parent_ab_ms": g["ab"]} if "ab" in g
+                                else {})))
     if shrec is not None:
         say(json.dumps({"shard": shrec, "card": smi}))
     if svrec is not None:

@@ -18,7 +18,9 @@ Layout
 - ``rel_ref``    : plain torch reliable-interval DP (the kernel's yardstick)
 - ``unrel_ref``  : plain torch relaxation sweeps (the kernel's yardstick)
 - ``kernels``    : nvcc/g++ builds and the ctypes wrappers of the kernels
-- ``rel``        : per-chunk glue around the DP (``rel_only``) + host steps
+- ``rel``        : per-chunk glue around the DP (``rel_only``; on a card
+  one replay per chunk of its bucket's CUDA graph, ``ChunkGraph``) + host
+  steps
 - ``pack``       : the all-device path's blob packing and class expansion
 - ``alldev``     : ``classify_batch``, the all-device program of a chunk
 - ``engine``     : ``TorchEngine`` streaming classifier (``alldev=True``

@@ -322,8 +322,7 @@ def classify_glued(fblob, iblob, P: PipelineParams, Bn: int, max_n: int,
     V = blob_views(fblob, iblob, Bn, max_n, R2, max_m)
     planes, cov, un = ops.rel_prep(fblob, iblob, P.rel, R, max_m,
                                    alldev=(Bn, max_n))
-    asgn1, _dp1, mm1, rescue, cov2, _ = ops.rel_dp_rescue(*planes, cov,
-                                                          P.rel)
+    asgn1, _dp1, mm1, rescue, cov2 = ops.rel_dp_rescue(*planes, cov, P.rel)
     asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P.rel, active=rescue)
     gate = un["gate"]
     ops.rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],

@@ -1,8 +1,8 @@
-// The per-chunk glue around the DP kernel (K4, main path) and around the
-// sweep kernel (K6, all-device path) as two kernels for sm_90a, bound
-// with ctypes:
-//   rel_prep   the DP's planes from a chunk's blobs (both layouts; in the
-//              all-device layout also the sweeps' planes);
+// The all-device path's per-chunk glue around the DP kernel (K4) and
+// around the sweep kernel (K6) as two kernels for sm_90a, bound with
+// ctypes:
+//   rel_prep   the DP's and the sweeps' planes from a chunk's blobs (the
+//              all-device layout);
 //   rel_settle the pass merge, demotions, fw/bw reconciliation, the
 //              scatter into the sweeps' assignments and the read's rel
 //              flag (all-device path), one block per read pair.
@@ -10,10 +10,11 @@
 // _rel_pipeline :153, _unpack :119, _demotes_dev :257,
 // _reconcile_dev :401, _un_planes :511 and classify_batch_dev's tail
 // :686-704, which XLA fused into one program per chunk.  The bodies are
-// glue_row.cuh.  The rest of K4, the rescue predicate and the pack, are
-// the DP kernel's row tails (rel_dp.cu, rel_tail.cuh): as kernels of
-// their own (one warp per row) they cost a launch each for a few
-// operations per cell.
+// glue_row.cuh.  The rest of K4 runs inside the DP kernel (rel_dp.cu):
+// the main layout's planes as its first pass's prologue (prep_cell.cuh),
+// the rescue predicate and the pack as its row tails (rel_tail.cuh); as
+// kernels of their own they cost a launch each for a few operations per
+// cell.
 //
 // What bounds them on the card: bytes.  A chunk's glue reads its blobs
 // and writes the DP's and the sweeps' planes once, a few MB to some 17 MB
@@ -21,13 +22,12 @@
 // byte is a handful of integer and f64 operations.  So the design counts
 // launches (one per program stage between the DP and sweep launches) and
 // store transactions:
-//   - rel_prep, all-device layout: a block per tile of 256 cells; the
-//     interval tiles stage their 13-double P13 and 3-double packL / packR
-//     records in shared memory (38.9 KB) and write each as one
-//     contiguous run of 16-byte stores, where one thread per cell would
-//     scatter every store over 32 records; the coverages' logs once per
-//     block; no 64-bit division.  The main layout keeps one thread per
-//     cell: its planes are one value per cell, coalesced as they are.
+//   - rel_prep: a block per tile of 256 cells; the interval tiles stage
+//     their 13-double P13 and 3-double packL / packR records in shared
+//     memory (38.9 KB) and write each as one contiguous run of 16-byte
+//     stores, where one thread per cell would scatter every store over
+//     32 records; the coverages' logs once per block; no 64-bit
+//     division.
 //   - rel_settle: a block of 128 threads per read pair, so that a chunk's
 //     200-256 pairs fill the card (one warp per pair would leave one or
 //     two warps per SM, nothing to hide a load); the pair's rel_cols and
@@ -51,13 +51,12 @@
       const void *gcov, double e_po_base, int R, int M, int Bn, int N,     \
       double gate_lo, double gate_hi, void *bpos, void *bcnt, void *epos,  \
       void *ecnt, void *max_cc, void *m, void *plen, void *cov,            \
-      void *lf_bcnt, void *logpE, void *fwd, void *is_rel, void *live,     \
-      void *asgn, void *P13, void *packL, void *packR, void *gate,         \
-      int alldev
+      void *logpE, void *fwd, void *is_rel, void *live, void *asgn,        \
+      void *P13, void *packL, void *packR, void *gate
 #define GP_ARGS_PASS                                                      \
   iblob, fblob, logfact, gcov, e_po_base, R, M, Bn, N, gate_lo, gate_hi,  \
-      bpos, bcnt, epos, ecnt, max_cc, m, plen, cov, lf_bcnt, logpE, fwd,  \
-      is_rel, live, asgn, P13, packL, packR, gate, alldev
+      bpos, bcnt, epos, ecnt, max_cc, m, plen, cov, logpE, fwd, is_rel,   \
+      live, asgn, P13, packL, packR, gate
 
 static gl::Prep gp_make_args(GP_ARGS_DECL) {
   gl::Prep a;
@@ -68,8 +67,8 @@ static gl::Prep gp_make_args(GP_ARGS_DECL) {
   a.e_po_base = e_po_base;
   a.R = R;
   a.M = M;
-  a.Bn = alldev ? Bn : 0;
-  a.N = alldev ? N : 0;
+  a.Bn = Bn;
+  a.N = N;
   a.gate_lo = gate_lo;
   a.gate_hi = gate_hi;
   a.bpos = (long long*)bpos;
@@ -80,7 +79,6 @@ static gl::Prep gp_make_args(GP_ARGS_DECL) {
   a.m = (long long*)m;
   a.plen = (long long*)plen;
   a.cov = (long long*)cov;
-  a.lf_bcnt = (double*)lf_bcnt;
   a.logpE = (double*)logpE;
   a.fwd = (unsigned char*)fwd;
   a.is_rel = (unsigned char*)is_rel;
@@ -91,12 +89,6 @@ static gl::Prep gp_make_args(GP_ARGS_DECL) {
   a.packR = (double*)packR;
   a.gate = (double*)gate;
   return a;
-}
-
-// cells of a prep launch: the (2R, max_m) planes, and in the all-device
-// layout the (Bn, max_n) interval planes after them
-static long long gp_cells(const gl::Prep& a) {
-  return 2LL * a.R * a.M + (long long)a.Bn * a.N;
 }
 
 #define GS_ARGS_DECL                                                       \
@@ -134,41 +126,26 @@ static gl::Settle gs_make_args(GS_ARGS_DECL) {
   return a;
 }
 
-// Launch geometry: the main-layout prep runs one thread per cell in
-// blocks of GL_PREP_THREADS, grid-stride beyond GL_PREP_BLOCKS blocks; the
-// all-device prep one block per tile of gl::PREP_TILE cells (the rel
-// planes' tiles, then the interval planes'), its records staged in static
-// shared memory; rel_settle one block of gl::SETTLE_THREADS per read
-// pair, its row cache in dynamic shared memory.
-constexpr int GL_PREP_THREADS = 256;
-constexpr long long GL_PREP_BLOCKS = 132 * 16;
-
-static int gl_prep_blocks(long long cells) {
-  const long long b = (cells + GL_PREP_THREADS - 1) / GL_PREP_THREADS;
-  return (int)(b < GL_PREP_BLOCKS ? b : GL_PREP_BLOCKS);
-}
-static long long gl_alldev_blocks(long long rel_cells, long long un_cells) {
+// Launch geometry: rel_prep one block per tile of gl::PREP_TILE cells
+// (the rel planes' tiles, then the interval planes'), its records staged
+// in static shared memory; rel_settle one block of gl::SETTLE_THREADS per
+// read pair, its row cache in dynamic shared memory.
+static long long gl_prep_blocks(long long rel_cells, long long un_cells) {
   return gl::prep_tiles(rel_cells) + gl::prep_tiles(un_cells);
 }
 
 // out[0..2] = threads per block, blocks and shared bytes per block (static
-// and dynamic) of a launch of ``kernel``: 0 the main-layout prep over n
-// cells, 1 the all-device prep over n rel-plane and n2 interval cells, 2
-// rel_settle over n read pairs of max_m n2.
+// and dynamic) of a launch of ``kernel``: 0 rel_prep over n rel-plane and
+// n2 interval cells, 1 rel_settle over n read pairs of max_m n2.
 extern "C" int glue_geometry(int kernel, long long n, long long n2,
                              int* out) {
   switch (kernel) {
     case 0:
-      out[0] = GL_PREP_THREADS;
-      out[1] = gl_prep_blocks(n);
-      out[2] = 0;
-      return 0;
-    case 1:
       out[0] = gl::PREP_TILE;
-      out[1] = (int)gl_alldev_blocks(n, n2);
+      out[1] = (int)gl_prep_blocks(n, n2);
       out[2] = (int)sizeof(gl::PrepShared);
       return 0;
-    case 2:
+    case 1:
       out[0] = gl::SETTLE_THREADS;
       out[1] = (int)n;
       out[2] = (int)sizeof(gl::SettleShared) + gl::settle_dyn_bytes((int)n2);
@@ -180,13 +157,6 @@ extern "C" int glue_geometry(int kernel, long long n, long long n2,
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
-
-__global__ void __launch_bounds__(GL_PREP_THREADS)
-rel_prep_main_kernel(gl::Prep a, long long cells) {
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       k < cells; k += (long long)gridDim.x * blockDim.x)
-    gl::prep_main_cell(a, k);
-}
 
 __global__ void __launch_bounds__(gl::PREP_TILE)
 rel_prep_alldev_kernel(gl::Prep a) {
@@ -204,16 +174,11 @@ rel_settle_kernel(gl::Settle a) {
 // Launches on ``stream``; each returns cudaGetLastError() (0 = launched).
 extern "C" int rel_prep_launch(GP_ARGS_DECL, void* stream) {
   const gl::Prep a = gp_make_args(GP_ARGS_PASS);
-  const long long cells = gp_cells(a);
-  if (cells > 0) {
-    if (alldev)
-      rel_prep_alldev_kernel<<<(unsigned)gl_alldev_blocks(
-                                   2LL * a.R * a.M, (long long)a.Bn * a.N),
-                               gl::PREP_TILE, 0, (cudaStream_t)stream>>>(a);
-    else
-      rel_prep_main_kernel<<<gl_prep_blocks(cells), GL_PREP_THREADS, 0,
-                             (cudaStream_t)stream>>>(a, cells);
-  }
+  const long long blocks = gl_prep_blocks(2LL * a.R * a.M,
+                                          (long long)a.Bn * a.N);
+  if (blocks > 0)
+    rel_prep_alldev_kernel<<<(unsigned)blocks, gl::PREP_TILE, 0,
+                             (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -242,21 +207,14 @@ extern "C" int rel_settle_phase_clocks(unsigned long long* out, int reset) {
 
 #include <vector>
 
-// Host test shims: the same bodies; a main-layout prep cell by cell, an
-// all-device prep or rel_settle block with all its threads, phase by
-// phase.
+// Host test shims: the same bodies, a block with all its threads, phase
+// by phase.
 extern "C" int rel_prep_host(GP_ARGS_DECL) {
   const gl::Prep a = gp_make_args(GP_ARGS_PASS);
-  if (alldev) {
-    gl::PrepShared sh;
-    const long long nb = gl_alldev_blocks(2LL * a.R * a.M,
-                                          (long long)a.Bn * a.N);
-    for (long long b = 0; b < nb; ++b)
-      gl::prep_alldev_block<gl::PREP_TILE>(a, b, 0, sh);
-    return 0;
-  }
-  const long long cells = gp_cells(a);
-  for (long long k = 0; k < cells; ++k) gl::prep_main_cell(a, k);
+  gl::PrepShared sh;
+  const long long nb = gl_prep_blocks(2LL * a.R * a.M, (long long)a.Bn * a.N);
+  for (long long b = 0; b < nb; ++b)
+    gl::prep_alldev_block<gl::PREP_TILE>(a, b, 0, sh);
   return 0;
 }
 

@@ -6,9 +6,6 @@
 // arithmetic and block reductions.
 //
 // Replaces, in the JAX package's device_pipeline.py:
-//   prep_main_cell     _rel_only_core :572-626 (both scan directions from
-//                      the forward-order blobs, the log-factorial lookups)
-//                      and the E emission of _rel_pipeline :170-174;
 //   prep_alldev_block  _unpack :119 (the rel planes as int64), the E
 //                      emission, _un_planes :511-538 and the sweeps'
 //                      N_STATE assignment rows of classify_batch_dev :686;
@@ -17,9 +14,10 @@
 //                      reconciled rows into the sweeps' assignments
 //                      (:686-689) and the per-read rel risky flag
 //                      (:700-704).
-// The plain torch versions are rel.prep_ref and alldev.prep_ref /
-// settle_ref.  The rescue predicate and the pack, once glue kernels of
-// their own, are the DP kernel's row tails (rel_tail.cuh).
+// The plain torch versions are alldev.prep_ref / settle_ref.  The main
+// layout's planes, the rescue predicate and the pack, once glue kernels
+// of their own, are the DP kernel's prologue (its cell in prep_cell.cuh)
+// and row tails (rel_tail.cuh).
 //
 // Numerics (built with --fmad=false / -ffp-contract=off, never fast
 // math): the E emission and the Poisson planes keep the torch code's
@@ -40,6 +38,7 @@
 
 #pragma once
 
+#include "prep_cell.cuh"
 #include "rd_math.cuh"
 #include "rel_tail.cuh"
 #include "warp_lanes.cuh"
@@ -61,7 +60,6 @@ using rd::WARP;
 #define GL_ROLLED
 #endif
 
-constexpr long long LF_MAX = 32767;
 constexpr int P13_N = 13;
 
 // ---------------------------------------------------------------- prep
@@ -73,37 +71,18 @@ struct Prep {
   const long long* gcov;     // (4,) E, R, H, D
   double e_po_base;
   int R, M;                  // read rows (2R scan rows), max_m
-  int Bn, N;                 // all-device layout: interval rows, max_n
+  int Bn, N;                 // interval rows, max_n
   double gate_lo, gate_hi;   // an unflagged read's margin gate
-  // the DP's planes (kernels.rel_dp's inputs) and the first pass's
-  // coverages
+  // the DP's planes (kernels.rel_dp's inputs; lf_bcnt is a view of the
+  // blob) and the first pass's coverages
   long long *bpos, *bcnt, *epos, *ecnt, *max_cc, *m, *plen, *cov;
-  double *lf_bcnt, *logpE;   // lf_bcnt: main layout only
+  double* logpE;
   unsigned char* fwd;
-  // all-device layout: the sweeps' inputs and the per-read margin gate
+  // the sweeps' inputs and the per-read margin gate
   unsigned char *is_rel, *live;
   int* asgn;
   double *P13, *packL, *packR, *gate;
 };
-
-RD_FN double lf_at(const double* logfact, long long k) {
-  return RD_LDG(logfact + rd::clampi(k, 0, LF_MAX));
-}
-
-// Poisson log-probability k log(lam) - lam - lf(k), lce = log(lam)
-RD_FN double pois(double k, double lam, double lce, double lf_k) {
-  return k * lce - lam - lf_k;
-}
-
-// rel.e_emission: max(Poisson(bcnt) + Poisson(ecnt) at the E coverage +
-// e_po_base, the wall's own error log-probability)
-RD_FN double e_emission(long long bc, long long ec, double lf_b, double lf_e,
-                        double pe_rel, double covEf, double lce,
-                        double e_po_base) {
-  return tmax(pois((double)bc, covEf, lce, lf_b)
-                      + pois((double)ec, covEf, lce, lf_e) + e_po_base,
-                  pe_rel);
-}
 
 RD_FN void prep_row(const Prep& a, int r2, long long m, long long plen,
                     bool fwd) {
@@ -112,40 +91,6 @@ RD_FN void prep_row(const Prep& a, int r2, long long m, long long plen,
   a.fwd[r2] = fwd ? 1 : 0;
   RD_UNROLL
   for (int q = 0; q < 4; ++q) a.cov[4LL * r2 + q] = RD_LDG(a.gcov + q);
-}
-
-// Main layout, cell k of the (2R, max_m) planes.  iblob: b, e, ccb, cce
-// [4 x R*max_m] | m [R] | plen [R]; fblob: pe [R*max_m].  Backward rows
-// read the forward row at the reversed column (within m; padding columns
-// keep their index): bpos = e - 1, epos = b, the counts swapped.
-RD_FN void prep_main_cell(const Prep& a, long long k) {
-  const long long RM = (long long)a.R * a.M;
-  const int r2 = (int)(k / a.M);
-  const int c = (int)(k - (long long)r2 * a.M);
-  const bool bw = r2 >= a.R;
-  const int r = bw ? r2 - a.R : r2;
-  const long long mr = RD_LDG(a.iblob + 4 * RM + r);
-  const long long f = (bw && c < mr) ? mr - 1 - c : c;
-  const long long i = (long long)r * a.M + f;
-  const long long b = RD_LDG(a.iblob + i);
-  const long long e = RD_LDG(a.iblob + RM + i);
-  const long long ccb = RD_LDG(a.iblob + 2 * RM + i);
-  const long long cce = RD_LDG(a.iblob + 3 * RM + i);
-  const long long bc = bw ? cce : ccb;
-  const long long ec = bw ? ccb : cce;
-  a.bpos[k] = bw ? e - 1 : b;
-  a.epos[k] = bw ? b : e - 1;
-  a.bcnt[k] = bc;
-  a.ecnt[k] = ec;
-  a.max_cc[k] = rd::maxi(ccb, cce);
-  const double lf_b = lf_at(a.logfact, bc);
-  const double lf_e = lf_at(a.logfact, ec);
-  const double covEf = (double)RD_LDG(a.gcov + ERR);
-  a.lf_bcnt[k] = lf_b;
-  a.logpE[k] = e_emission(bc, ec, lf_b, lf_e, RD_LDG(a.fblob + i), covEf,
-                          log(covEf), a.e_po_base);
-  if (c == 0)
-    prep_row(a, r2, mr, RD_LDG(a.iblob + 4 * RM + a.R + r), !bw);
 }
 
 // ------------------------------------------- prep, all-device layout

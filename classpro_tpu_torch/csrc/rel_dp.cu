@@ -1,15 +1,19 @@
 // Reliable-interval Viterbi DP (K1), its inlined log-Skellam lookup (K2)
 // and the traceback (K3) as one kernel for sm_90a, bound with ctypes,
-// with two optional row tails: the no-H rescue predicate (on the first
-// pass) and the packed result (on both passes of the main path), so that
-// a main-path chunk is rel_prep and two launches of this kernel.
+// with an optional prologue (the main path's first pass: the planes from
+// the chunk's blobs, rel_dp_first_kernel) and two optional row tails: the
+// no-H rescue predicate (on the first pass) and the packed result (on
+// both passes of the main path), so that a main-path chunk is two
+// launches of this kernel.
 //
 // Replaces the JAX package's rel_dev2.rel_dp_pass2 (rel_dev2.py:636-787)
 // with skellam_dev.skellam_args/skellam_value (skellam_dev.py:284-323),
-// and in its tails device_pipeline._rel_pipeline's rescue predicate and
-// pass merge (device_pipeline.py:198-241) and _pack_out (:638-651); the
-// row body is rel_dp_row.cuh, the tails' cells and rows rel_tail.cuh, the
-// shared arithmetic rd_math.cuh.
+// in its prologue device_pipeline._rel_only_core (:572-626) with the E
+// emission of _rel_pipeline (:170-174), and in its tails
+// device_pipeline._rel_pipeline's rescue predicate and pass merge
+// (device_pipeline.py:198-241) and _pack_out (:638-651); the row body is
+// rel_dp_row.cuh, the prologue's cell prep_cell.cuh, the tails' cells and
+// rows rel_tail.cuh, the shared arithmetic rd_math.cuh.
 //
 // Design: eight lanes per DP row (read x scan direction) in two mirrored
 // groups of four, lane c of each group holding DP cell c and its path
@@ -49,6 +53,15 @@
 // are dead: the row's eight lanes deal its columns, a three-round shuffle
 // reduction gives each lane the row's sums, and the row's lanes write its
 // packed bytes.
+//
+// The prologue replaces the main layout of the glue kernel rel_prep (one
+// thread per cell, ~3 us in a CUDA graph for 4.5 MB, a launch's cost and
+// a wrapper call): a row's planes depend only on its own blob row, so
+// the row's eight lanes write them before the step loop, which then
+// loads them with plain loads (this launch wrote them; the read-only
+// path may be stale), as do the tails.  Two entry functions, one per
+// instantiation of the row body: rel_dp_first_kernel (prologue, plain
+// loads) and rel_dp_kernel (planes from another launch, __ldg).
 
 // Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
@@ -63,24 +76,26 @@
       const void *m, const void *plen, const void *fwd, const void *cov,   \
       const void *active, void *asgn, void *dp_out, void *mm_out,          \
       void *bp, void *rpos, void *rescue, void *cov2, const void *gcov,    \
-      void *packed, const void *mm_prev, int R2, int max_m,                \
-      const void *tab, const void *lf_small, int n1, double read_len,      \
-      long long offset, double r_logp, double log_1m_pe_mean,              \
-      double log_pe_mean, double dr_ratio
+      void *packed, const void *mm_prev, const void *iblob,                \
+      const void *fblob, const void *logfact, double e_po_base, int R2,    \
+      int max_m, const void *tab, const void *lf_small, int n1,            \
+      double read_len, long long offset, double r_logp,                    \
+      double log_1m_pe_mean, double log_pe_mean, double dr_ratio
 
 static rd::Args rd_make_args(RD_ARGS_DECL) {
   rd::Args a;
-  a.bpos = (const long long*)bpos;
-  a.bcnt = (const long long*)bcnt;
-  a.epos = (const long long*)epos;
-  a.ecnt = (const long long*)ecnt;
-  a.max_cc = (const long long*)max_cc;
-  a.lf_bcnt = (const double*)lf_bcnt;
-  a.logpE = (const double*)logpE;
-  a.m = (const long long*)m;
-  a.plen = (const long long*)plen;
-  a.fwd = (const unsigned char*)fwd;
-  a.cov = (const long long*)cov;
+  // the planes: written by the prologue where iblob is given
+  a.bpos = (long long*)bpos;
+  a.bcnt = (long long*)bcnt;
+  a.epos = (long long*)epos;
+  a.ecnt = (long long*)ecnt;
+  a.max_cc = (long long*)max_cc;
+  a.lf_bcnt = (double*)lf_bcnt;
+  a.logpE = (double*)logpE;
+  a.m = (long long*)m;
+  a.plen = (long long*)plen;
+  a.fwd = (unsigned char*)fwd;
+  a.cov = (long long*)cov;
   a.active = (const unsigned char*)active;
   a.asgn = (signed char*)asgn;
   a.dp_out = (double*)dp_out;
@@ -92,6 +107,10 @@ static rd::Args rd_make_args(RD_ARGS_DECL) {
   a.gcov = (const long long*)gcov;
   a.packed = (unsigned char*)packed;
   a.mm_prev = (const double*)mm_prev;
+  a.blob.iblob = (const int*)iblob;
+  a.blob.fblob = (const double*)fblob;
+  a.blob.logfact = (const double*)logfact;
+  a.blob.e_po_base = e_po_base;
   a.R2 = R2;
   a.max_m = max_m;
   a.P.tab = (const double*)tab;
@@ -109,8 +128,9 @@ static rd::Args rd_make_args(RD_ARGS_DECL) {
 #define RD_ARGS_PASS                                                      \
   bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd, cov,      \
       active, asgn, dp_out, mm_out, bp, rpos, rescue, cov2, gcov, packed, \
-      mm_prev, R2, max_m, tab, lf_small, n1, read_len, offset, r_logp,    \
-      log_1m_pe_mean, log_pe_mean, dr_ratio
+      mm_prev, iblob, fblob, logfact, e_po_base, R2, max_m, tab,          \
+      lf_small, n1, read_len, offset, r_logp, log_1m_pe_mean, log_pe_mean, \
+      dr_ratio
 
 // Launch geometry: one warp per block, ROWS_PER_WARP rows per block.
 constexpr int RD_THREADS = rd::WARP;
@@ -167,9 +187,11 @@ extern "C" int rel_tail_probe_launch(const void* mm_prev, const void* mm,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(RD_THREADS)
-rel_dp_kernel(rd::Args a, int use_smem) {
-  extern __shared__ unsigned char rd_smem[];
+extern __shared__ unsigned char rd_smem[];
+
+template <bool PRO>
+__device__ __forceinline__ void rel_dp_block(const rd::Args& a,
+                                             int use_smem) {
   rd::Scratch scr{a.bp, a.rpos, 0};
   if (use_smem) {
     const int M = a.max_m;
@@ -177,17 +199,35 @@ rel_dp_kernel(rd::Args a, int use_smem) {
     scr.rpos = rd_smem + (long long)RD_ROWS_PER_BLOCK * (M - 1) * 4;
     scr.row0 = blockIdx.x * RD_ROWS_PER_BLOCK;
   }
-  rd::warp_rows<1>(a, blockIdx.x * blockDim.x + threadIdx.x, scr);
+  rd::warp_rows<1, PRO>(a, blockIdx.x * blockDim.x + threadIdx.x, scr);
 }
 
-// Launch on ``stream``; returns cudaGetLastError() (0 = launched).
+// the planes from another launch
+__global__ void __launch_bounds__(RD_THREADS)
+rel_dp_kernel(rd::Args a, int use_smem) {
+  rel_dp_block<false>(a, use_smem);
+}
+
+// the main path's first pass: the planes from the blobs (prologue)
+__global__ void __launch_bounds__(RD_THREADS)
+rel_dp_first_kernel(rd::Args a, int use_smem) {
+  rel_dp_block<true>(a, use_smem);
+}
+
+// Launch on ``stream`` (rel_dp_first_kernel where iblob is given);
+// returns cudaGetLastError() (0 = launched).
 extern "C" int rel_dp_launch(RD_ARGS_DECL, void* stream) {
   rd::Args a = rd_make_args(RD_ARGS_PASS);
   int geo[5];
   rel_dp_geometry(R2, max_m, geo);
-  if (geo[3] > 0)
-    rel_dp_kernel<<<geo[3], RD_THREADS, geo[4], (cudaStream_t)stream>>>(
-        a, geo[4] > 0);
+  if (geo[3] > 0) {
+    if (iblob)
+      rel_dp_first_kernel<<<geo[3], RD_THREADS, geo[4],
+                            (cudaStream_t)stream>>>(a, geo[4] > 0);
+    else
+      rel_dp_kernel<<<geo[3], RD_THREADS, geo[4], (cudaStream_t)stream>>>(
+          a, geo[4] > 0);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -206,12 +246,18 @@ extern "C" int rel_dp_phase_clocks(unsigned long long* out, int reset) {
 #else
 
 // Host test shim: the same warp body, one warp's 32 lanes per call, over
-// the warps of the launch; the global scratch holds the backpointers.
+// the warps of the launch (the prologue a phase of its own where iblob is
+// given); the global scratch holds the backpointers.
 extern "C" int rel_dp_host(RD_ARGS_DECL) {
   rd::Args a = rd_make_args(RD_ARGS_PASS);
   const rd::Scratch scr{a.bp, a.rpos, 0};
   const int lanes = rd_blocks(R2) * RD_THREADS;
-  for (int g0 = 0; g0 < lanes; g0 += rd::WARP) rd::warp_rows<rd::WARP>(a, g0, scr);
+  for (int g0 = 0; g0 < lanes; g0 += rd::WARP) {
+    if (iblob)
+      rd::warp_rows<rd::WARP, true>(a, g0, scr);
+    else
+      rd::warp_rows<rd::WARP, false>(a, g0, scr);
+  }
   return 0;
 }
 

@@ -27,6 +27,8 @@
 //       lane), target c's best predecessor sel[c] and margins;
 //   exchange 3: lane c takes lane sel[c]'s registers and cand;
 //   (C) phase_c: lane c updates its own cell.
+// Before the loop, on the main path's first pass, the row's lanes write its
+// planes from the chunk's blobs (prologue; the cell is prep_cell.cuh's).
 // After the loop, one lane per row runs the traceback, and the row's lanes
 // run its tails (row_tails: the rescue predicate on the first pass, the
 // packed row on the main path's two passes; rel_tail.cuh).
@@ -42,6 +44,7 @@
 
 #pragma once
 
+#include "prep_cell.cuh"
 #include "rd_math.cuh"
 #include "rel_tail.cuh"
 #include "warp_lanes.cuh"
@@ -61,6 +64,10 @@ constexpr double LOG_QUARTER = -1.3862943611198906;  // log(0.25)
 // tail 16 x 8 (one byte a column).
 constexpr int RESCUE_BATCH = 8;
 constexpr int PACK_BATCH = 16;
+// The prologue's column trips whose blob loads go out together (4 x 8
+// columns, five loads a column, then two log-factorial loads a column):
+// on the H100, batches of 1, 2, 8 and 16 trips took longer (PERF.md).
+constexpr int PREP_BATCH = 4;
 
 // path-register slots (rel_dev2.py regs_i / regs_b)
 enum { SP = 0, SC = 4, LH = 8, LD = 10, LHBD = 12, LDBH = 14, NI = 16 };
@@ -75,13 +82,24 @@ struct Params {
   double r_logp, log_1m_pe_mean, log_pe_mean, dr_ratio;
 };
 
+// The chunk's blobs (main layout, prep_cell.cuh), from which the main
+// path's first pass writes its planes (prologue); a null iblob: the planes
+// are given.
+struct Blobs {
+  const int* iblob;        // b, e, ccb, cce [4 x R*max_m] | m [R] | plen [R]
+  const double* fblob;     // pe [R*max_m]
+  const double* logfact;   // (32768,)
+  double e_po_base;
+};
+
 struct Args {
-  // (R2, max_m) planes in scan order
-  const long long *bpos, *bcnt, *epos, *ecnt, *max_cc;
-  const double *lf_bcnt, *logpE;
-  const long long *m, *plen;       // (R2,)
-  const unsigned char* fwd;        // (R2,)
-  const long long* cov;            // (R2, 4)
+  // (R2, max_m) planes in scan order: inputs, or, on a pass with blobs,
+  // the prologue's outputs
+  long long *bpos, *bcnt, *epos, *ecnt, *max_cc;
+  double *lf_bcnt, *logpE;
+  long long *m, *plen;             // (R2,)
+  unsigned char* fwd;              // (R2,)
+  long long* cov;                  // (R2, 4)
   const unsigned char* active;     // (R2,) or null (all rows)
   signed char* asgn;               // out (R2, max_m)
   double* dp_out;                  // out (R2, 4)
@@ -95,6 +113,7 @@ struct Args {
   unsigned char* packed;           // out (R2, max_m + 5): the packed rows
   const double* mm_prev;           // (R2,) the first pass's margins: set
                                    // on the rescue pass, null on the first
+  Blobs blob;
   int R2, max_m;
   Params P;
 };
@@ -217,17 +236,98 @@ RD_FN void transpose4(const double (&row)[NL][4], const int (&wl)[NL],
   }
 }
 
+// A plane value: through the non-coherent read-only path where another
+// launch wrote the planes, with a plain load in the launch whose prologue
+// wrote them (PRO), after the warp_sync that orders the prologue's stores:
+// the read-only path may return stale bytes of a line this launch wrote.
+template <bool PRO, class T>
+RD_FN T ld_plane(const T* p) {
+  if constexpr (PRO)
+    return *p;
+  else
+    return RD_LDG(p);
+}
+
+template <bool PRO>
 RD_FN StepIn load_step(const Args& a, int row, long long i) {
   const long long o = (long long)row * a.max_m + i;
   StepIn s;
-  s.bpos = RD_LDG(a.bpos + o);
-  s.bcnt = RD_LDG(a.bcnt + o);
-  s.epos = RD_LDG(a.epos + o);
-  s.ecnt = RD_LDG(a.ecnt + o);
-  s.max_cc = RD_LDG(a.max_cc + o);
-  s.lf_b = RD_LDG(a.lf_bcnt + o);
-  s.logpE = RD_LDG(a.logpE + o);
+  s.bpos = ld_plane<PRO>(a.bpos + o);
+  s.bcnt = ld_plane<PRO>(a.bcnt + o);
+  s.epos = ld_plane<PRO>(a.epos + o);
+  s.ecnt = ld_plane<PRO>(a.ecnt + o);
+  s.max_cc = ld_plane<PRO>(a.max_cc + o);
+  s.lf_b = ld_plane<PRO>(a.lf_bcnt + o);
+  s.logpE = ld_plane<PRO>(a.logpE + o);
   return s;
+}
+
+// The main path's first pass, before its step loop: each row's planes
+// from the chunk's blobs (device_pipeline._rel_only_core :572-626 and the
+// E emission of _rel_pipeline :170-174; rel.prep_ref), by the row's eight
+// lanes, lane j taking columns j, j + 8, ...  A backward row reads its
+// forward row's blob at the reversed column, so no row waits on another.
+// One warp per SM hides little latency, so the blob loads of PREP_BATCH
+// trips go out (in bounds whether used or not) before any is used, then
+// their log-factorial loads; log(covE) is taken once per lane.  Lane 0 of
+// a row writes its m, plen, fwd and coverages.  The step loop reads the
+// planes after warp_sync, with plain loads (ld_plane<true>).
+template <int NL>
+RD_FN void prologue(const Args& a, int g0) {
+  const int M = a.max_m, R = a.R2 / 2;
+  const long long RM = (long long)R * M;
+  const int* ib = a.blob.iblob;
+  const double covEf = (double)RD_LDG(a.gcov + ERR);
+  const double lce = log(covEf);
+  for (int l = 0; l < NL; ++l) {
+    const int g = g0 + l, b = g / LANES, j = g % LANES;
+    if (b >= a.R2) continue;
+    const bool bw = b >= R;
+    const int r = bw ? b - R : b;
+    const long long mr = RD_LDG(ib + 4 * RM + r);
+    const long long src = (long long)r * M;
+    for (int c0 = 0; c0 < M; c0 += PREP_BATCH * LANES) {
+      int vb[PREP_BATCH], ve[PREP_BATCH], vcb[PREP_BATCH], vce[PREP_BATCH];
+      double pe[PREP_BATCH], lb[PREP_BATCH], le[PREP_BATCH];
+      RD_UNROLL
+      for (int t = 0; t < PREP_BATCH; ++t) {
+        const int c = c0 + t * LANES + j;
+        const long long i = src + gl::main_col(bw, c < M ? c : M - 1, mr);
+        vb[t] = RD_LDG(ib + i);
+        ve[t] = RD_LDG(ib + RM + i);
+        vcb[t] = RD_LDG(ib + 2 * RM + i);
+        vce[t] = RD_LDG(ib + 3 * RM + i);
+        pe[t] = RD_LDG(a.blob.fblob + i);
+      }
+      RD_UNROLL
+      for (int t = 0; t < PREP_BATCH; ++t) {
+        lb[t] = gl::lf_at(a.blob.logfact, gl::main_bcnt(bw, vcb[t], vce[t]));
+        le[t] = gl::lf_at(a.blob.logfact, gl::main_ecnt(bw, vcb[t], vce[t]));
+      }
+      RD_UNROLL
+      for (int t = 0; t < PREP_BATCH; ++t) {
+        const int c = c0 + t * LANES + j;
+        if (c >= M) continue;
+        const gl::MainCell o = gl::main_cell(
+            bw, vb[t], ve[t], vcb[t], vce[t], pe[t], lb[t], le[t], covEf,
+            lce, a.blob.e_po_base);
+        const long long k = (long long)b * M + c;
+        a.bpos[k] = o.bpos;
+        a.bcnt[k] = o.bcnt;
+        a.epos[k] = o.epos;
+        a.ecnt[k] = o.ecnt;
+        a.max_cc[k] = o.max_cc;
+        a.lf_bcnt[k] = o.lf_bcnt;
+        a.logpE[k] = o.logpE;
+      }
+    }
+    if (j != 0) continue;
+    a.m[b] = mr;
+    a.plen[b] = RD_LDG(ib + 4 * RM + R + r);
+    a.fwd[b] = bw ? 0 : 1;
+    RD_UNROLL
+    for (int q = 0; q < 4; ++q) a.cov[4LL * b + q] = RD_LDG(a.gcov + q);
+  }
 }
 
 // _lane_init (class_rel.c:544-595) for cell L.c; every lane of the row
@@ -616,7 +716,8 @@ RD_FN void traceback(const Args& a, int b, long long m, const double dp[4],
 
 // The row's tails (rel_tail.cuh), after its traceback, on its eight
 // lanes, lane j of the row taking columns j, j + 8, ... (mw, the warp's
-// longest row, bounds every lane's trips): on the first pass the rescue
+// longest row, bounds every lane's trips; the planes loaded as the step
+// loop loads them, ld_plane<PRO>): on the first pass the rescue
 // predicate over the columns within m, its sums reduced over the row's
 // lanes, so that every lane takes the row's decision; then the packed row
 // of a row this launch does not rescue (the rescue pass: every row it
@@ -624,7 +725,7 @@ RD_FN void traceback(const Args& a, int b, long long m, const double dp[4],
 // with plain loads after warp_sync, which orders the traceback lane's
 // stores before them: this launch wrote them, and the non-coherent path
 // (RD_LDG) may return stale bytes.
-template <int NL>
+template <int NL, bool PRO>
 RD_FN void row_tails(const Args& a, const Lane (&L)[NL], const int (&wl)[NL],
                      const double (&mmv)[NL], int mw) {
   const int M = a.max_m;
@@ -648,10 +749,10 @@ RD_FN void row_tails(const Args& a, const Lane (&L)[NL], const int (&wl)[NL],
           const int c = c0 + t * LANES + (wl[l] & (LANES - 1));
           const long long i = row + (c < M ? c : M - 1);
           v[t] = a.asgn[i];
-          bp[t] = RD_LDG(a.bpos + i);
-          bc[t] = RD_LDG(a.bcnt + i);
-          ep[t] = RD_LDG(a.epos + i);
-          ec[t] = RD_LDG(a.ecnt + i);
+          bp[t] = ld_plane<PRO>(a.bpos + i);
+          bc[t] = ld_plane<PRO>(a.bcnt + i);
+          ep[t] = ld_plane<PRO>(a.epos + i);
+          ec[t] = ld_plane<PRO>(a.ecnt + i);
         }
         RD_UNROLL
         for (int t = 0; t < RESCUE_BATCH; ++t) {
@@ -723,10 +824,16 @@ RD_FN void row_tails(const Args& a, const Lane (&L)[NL], const int (&wl)[NL],
 // Lanes g0 .. g0+NL-1 of the launch (lane g: cell g % 4 of row g / 4).
 // NL lanes run in this thread: 1 on the card (the thread's own lane), a
 // whole warp of 32 in the host shim (g0 a multiple of 32), phase by phase
-// with the exchanges between.
-template <int NL>
+// with the exchanges between.  PRO: the launch writes its planes from
+// a.blob first (prologue) and loads them with plain loads; else they come
+// from another launch, through the read-only path.
+template <int NL, bool PRO>
 RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   const int M = a.max_m;
+  if constexpr (PRO) {
+    prologue<NL>(a, g0);
+    warp_sync();   // the prologue's plane stores before every load below
+  }
   Lane L[NL];
   int wl[NL], mrow[NL];
   StepIn nxt[NL];
@@ -747,7 +854,7 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     x.C.covR = x.C.cov[REP];
     x.C.covH = x.C.cov[HAP];
     x.m = a.m[x.row];
-    init_lane(x, a.plen[x.row], load_step(a, x.row, 0), a.P);
+    init_lane(x, a.plen[x.row], load_step<PRO>(a, x.row, 0), a.P);
     mrow[l] = x.valid ? (int)x.m : 0;
     if (x.valid && x.c == 0 && x.h == 0)
       scr.rpos[(long long)(b - scr.row0) * M] = 0;
@@ -755,7 +862,7 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   // the longest row of the warp: every lane steps until it ends
   const int mw = warp_max(mrow);
   for (int l = 0; l < NL; ++l)
-    if (1 < mw) nxt[l] = load_step(a, L[l].row, 1);
+    if (1 < mw) nxt[l] = load_step<PRO>(a, L[l].row, 1);
 
   // phase clocks (warp_lanes.cuh), parts: A, exchange 1, B1, exchange 2,
   // B2, exchange 3, C
@@ -771,7 +878,7 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     for (int l = 0; l < NL; ++l) {
       // this step's plane values were loaded one step ahead
       s[l] = nxt[l];
-      if (i + 1 < mw) nxt[l] = load_step(a, L[l].row, i + 1);
+      if (i + 1 < mw) nxt[l] = load_step<PRO>(a, L[l].row, i + 1);
       live[l] = L[l].valid && i < L[l].m;
       own[l] = Half{0.0, 0.0, 0.0, 0, 0};
       if (live[l]) own[l] = phase_a(L[l], L[l].h, s[l], a.P);
@@ -943,7 +1050,7 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
     traceback(a, b, x.m, dpa[l], scr.bp + r * (M - 1) * 4,
               scr.rpos + r * M);
   }
-  if (a.rescue || a.packed) row_tails<NL>(a, L, wl, mmv, mw);
+  if (a.rescue || a.packed) row_tails<NL, PRO>(a, L, wl, mmv, mw);
 }
 
 }  // namespace rd

@@ -45,9 +45,10 @@ def load_events(path: str) -> list:
 
 
 def trace_share(path: str) -> dict:
-    """The DP kernel's events and the card's busy share (union of its
-    kernel, copy and set intervals over the traced window, first to last
-    event of any kind)."""
+    """The DP kernel's events (both entry functions: rel_dp_kernel and
+    the first pass's rel_dp_first_kernel) and the card's busy share
+    (union of its kernel, copy and set intervals over the traced window,
+    first to last event of any kind)."""
     evs = load_events(path)
     dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                  for e in evs if e.get("cat") in DEVICE_CATS)
@@ -59,7 +60,8 @@ def trace_share(path: str) -> dict:
     lo = min(float(e["ts"]) for e in evs)
     hi = max(float(e["ts"]) + float(e["dur"]) for e in evs)
     k1 = [e for e in evs if e.get("cat") == "kernel"
-          and "rel_dp_kernel" in e.get("name", "")]
+          and e.get("name", "").startswith(("rel_dp_kernel",
+                                            "rel_dp_first_kernel"))]
     return {"events": len(evs), "device_events": len(dev),
             "rel_dp_kernel_events": len(k1),
             "rel_dp_kernel_us": sum(float(e["dur"]) for e in k1),

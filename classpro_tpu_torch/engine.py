@@ -8,7 +8,10 @@ Stage split:
   device    (rel.rel_only): the merged fw/bw reliable-interval Viterbi
             DP (the CUDA kernel csrc/rel_dp.cu) with the no-H rescue;
             demotion, reconciliation and the exactness guard follow on
-            the host.
+            the host.  On a card a chunk is one replay of its bucket's
+            CUDA graph (rel.ChunkGraph: the DP kernel's two launches),
+            captured once per (device, R, max_m) for the engine's tables,
+            at warm-up or first use.
 
 ``TorchEngine(alldev=True)`` takes the all-device path instead (the JAX
 package's ``_chunk_alldev``): after the C++ wall stage, each chunk is
@@ -20,14 +23,16 @@ flags is re-decided whole, exactly, by the C++ host plane.
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
 in which chunk k+1's host stages overlap chunk k's device work.  On a
-card each chunk's blobs go up from pinned host memory on the engine's
-CUDA stream, the DP runs on that stream, the packed result comes back
-into a pinned buffer, and an event recorded after the copy is what
-``_finish`` waits on.  ``classify_chunk`` is the synchronous
-single-chunk form.  Interval arrays are padded to bucketed shapes
-(``_bucket``, ``_bucket_m``).  ``TorchEngine(devices=[...])`` deals whole
-chunks round robin over several devices, each with its own tables,
-stream and events (``_enqueue``).
+card each chunk's blobs go from pinned host memory straight into the
+bucket graph's static inputs on the engine's CUDA stream, the graph
+replays on that stream, the packed result comes back from its static
+output into a pinned buffer, and an event recorded after the copy is
+what ``_finish`` waits on; the one stream orders each chunk's use of
+the static buffers before the next chunk's.  ``classify_chunk`` is the
+synchronous single-chunk form.  Interval arrays are padded to bucketed
+shapes (``_bucket``, ``_bucket_m``).  ``TorchEngine(devices=[...])``
+deals whole chunks round robin over several devices, each with its own
+tables, stream, graphs and events (``_enqueue``).
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall
 from classpro_tpu_torch.pack import _bucket, expand_asgn, pack_chunk
 from classpro_tpu_torch.params import build_replicas
-from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
+from classpro_tpu_torch.rel import (DIPLO, HAPLO, RelGraphs, demote_host,
                                     reconcile_fwbw, rel_only, unpack_out)
 
 
@@ -192,6 +197,9 @@ class TorchEngine:
             stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
             self._on[dev] = (P, PP, stream)
         self.P, self.PP, _ = self._on[self.device]
+        # the main chunk's CUDA graphs, by device and bucket, for this
+        # engine's tables
+        self._graphs = RelGraphs()
         self._rr = 0
         # the (R, max_m) buckets the device ran, in first-use order
         self.shapes: dict = {}
@@ -228,31 +236,25 @@ class TorchEngine:
 
     def warmup(self, shapes=((256, 128), (256, 192))) -> None:
         """Make every device of the engine ready for the given (R, max_m)
-        buckets before the stream (the JAX engine's ``warmup``): the
-        kernels built and loaded, the tables on the device (the engine's
-        construction put them there), and one DP launch on an
-        all-padding pack of each shape, waited for.  The host plane's
-        binomial-tail tables for this model, which the first chunk would
-        otherwise build (seconds of numpy), are built too.  The pack's
-        planes come from rel_prep, which loads the glue kernels' library
-        on a card."""
-        from classpro_tpu_torch.kernels import rel_prep
-        from classpro_tpu_torch.rel import _dp, default_impl
-
+        buckets before the stream (the JAX engine's ``warmup``, which
+        compiles each bucket's program): the kernels built and loaded, the
+        tables on the device (the engine's construction put them there),
+        and on a card each bucket's CUDA graph captured (after an eager
+        run on an all-padding pack), waited for; on the CPU the plain
+        rel stage runs once on that pack.  The host plane's binomial-tail
+        tables for this model, which the first chunk would otherwise build
+        (seconds of numpy), are built too."""
         self.wall._walk_tables()
         for R, max_m in shapes:
             fb = torch.full((R * max_m,), -np.inf, dtype=torch.float64)
             ib = torch.ones(4 * R * max_m + 2 * R, dtype=torch.int32)
             for dev, (P, _PP, stream) in self._on.items():
-                with contextlib.ExitStack() as ctx:
-                    if stream is not None:
-                        ctx.enter_context(torch.cuda.device(dev))
-                        ctx.enter_context(torch.cuda.stream(stream))
-                    planes, cov = rel_prep(fb.to(dev), ib.to(dev), P, R,
-                                           max_m)
-                    _dp(default_impl(dev), planes, cov, P)
-                if stream is not None:
-                    stream.synchronize()
+                if stream is None:
+                    rel_only(fb, ib, P, R, max_m)
+                    continue
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    self._graphs.get(P, R, max_m)
+                stream.synchronize()
             self._ran(R, max_m)
 
     # ------------------------------------------------------------------
@@ -396,7 +398,16 @@ class TorchEngine:
         fb, ib = self._pack_st(st, R, max_m)
         self._ran(R, max_m)
         return self._enqueue(st, fb, ib, "out", lambda f, i, P, PP:
-                             rel_only(f, i, P, R, max_m))
+                             self._rel(f, i, P, R, max_m))
+
+    def _rel(self, fblob, iblob, P, R: int, max_m: int) -> torch.Tensor:
+        """The rel stage of one chunk: on a card the replay of the
+        bucket's graph, its host blobs copied into the graph's static
+        inputs on the current stream (the result is the graph's static
+        output); on the CPU ``rel_only``'s plain versions."""
+        if P.device.type == "cuda":
+            return self._graphs.get(P, R, max_m).run(fblob, iblob)
+        return rel_only(fblob, iblob, P, R, max_m)
 
     def _submit_alldev(self, st):
         """Pack the staged chunk's reads that have intervals and enqueue
@@ -415,7 +426,9 @@ class TorchEngine:
         self._ran(dims[2] // 2, dims[3])
 
         def run(f, i, P, PP):
-            out, flags = classify_batch(f, i, PP, *dims)
+            out, flags = classify_batch(f.to(P.device, non_blocking=True),
+                                        i.to(P.device, non_blocking=True),
+                                        PP, *dims)
             return torch.cat([out.view(torch.uint8),
                               flags.to(torch.uint8)[:, None]], dim=1)
 
@@ -423,11 +436,12 @@ class TorchEngine:
 
     def _enqueue(self, st, fb, ib, key: str, run):
         """Deal the chunk to the next device and run ``run(fblob, iblob,
-        P, PP)`` (-> uint8 tensor) there with that device's tables; the
-        result lands in ``st[key]``.  On a card the blobs go up from
-        pinned host memory on the device's own stream, the result comes
-        back into a pinned buffer, and the event recorded after that copy
-        (``st["done"]``) is what _finish waits on."""
+        P, PP)`` (-> uint8 tensor) there with that device's tables, the
+        blobs given as host tensors; the result lands in ``st[key]``.  On
+        a card the blobs are pinned and ``run`` copies them up on the
+        device's own stream, the result comes back into a pinned buffer,
+        and the event recorded after that copy (``st["done"]``) is what
+        _finish waits on."""
         dev = st["dev"] = self._next_device()
         P, PP, stream = self._on[dev]
         if stream is None:
@@ -436,8 +450,7 @@ class TorchEngine:
         fb_h = torch.from_numpy(fb).pin_memory()
         ib_h = torch.from_numpy(ib).pin_memory()
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            res = run(fb_h.to(dev, non_blocking=True),
-                      ib_h.to(dev, non_blocking=True), P, PP)
+            res = run(fb_h, ib_h, P, PP)
             host = torch.empty(res.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(res, non_blocking=True)

@@ -1,15 +1,19 @@
 """Build and bind the hand-written CUDA kernels (csrc/).
 
-``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP; ``rel_dp_rescue``
-and ``rel_dp_pack`` launch it with its row tails, the no-H rescue
-predicate and the packed result), ``unrel_sweeps`` (csrc/unrel.cu: the
-two relaxation sweeps) and the per-chunk glue around them (csrc/glue.cu:
+``rel_dp`` (csrc/rel_dp.cu: the reliable-interval DP; ``rel_dp_first``
+launches it with its prologue, the planes from the chunk's blobs, and its
+row tails, the no-H rescue predicate and the packed result;
+``rel_dp_rescue`` with the rescue tail, ``rel_dp_pack`` with the pack
+tail), ``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) and
+the all-device path's per-chunk glue around them (csrc/glue.cu:
 ``rel_prep``, ``rel_settle``) are the wrappers the paths call: on CUDA
 tensors they launch the sm_90a kernel on the current stream and count
 the launch in ``LAUNCHES``; on CPU tensors they run the plain torch
 version (rel_ref, unrel_ref, rel.prep_ref / rescue_rows / pack_out /
 pack_ref, alldev.prep_ref / settle_ref).  There is no fallback between
-the two: a failed nvcc build or a refused launch raises.
+the two: a failed nvcc build or a refused launch raises.  The launches
+need no host sync and allocate only through torch, so a CUDA graph can
+capture them (rel.ChunkGraph).
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
 interface, loaded with ctypes), never at import.  The ``*_host`` functions
@@ -37,14 +41,15 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 # kernel -> (source, headers it includes)
 SOURCES = {
-    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "rel_tail.cuh",
-                             "rd_math.cuh", "warp_lanes.cuh")),
+    "rel_dp": ("rel_dp.cu", ("rel_dp_row.cuh", "prep_cell.cuh",
+                             "rel_tail.cuh", "rd_math.cuh",
+                             "warp_lanes.cuh")),
     "unrel_sweeps": ("unrel.cu", ("unrel_row.cuh", "rd_math.cuh",
                                   "warp_lanes.cuh")),
 }
 # the two glue kernels share one source and one library
-_GLUE = ("glue.cu", ("glue_row.cuh", "rel_tail.cuh", "rd_math.cuh",
-                     "warp_lanes.cuh"))
+_GLUE = ("glue.cu", ("glue_row.cuh", "prep_cell.cuh", "rel_tail.cuh",
+                     "rd_math.cuh", "warp_lanes.cuh"))
 GLUE_KERNELS = ("rel_prep", "rel_settle")
 SOURCES.update({name: _GLUE for name in GLUE_KERNELS})
 
@@ -56,9 +61,10 @@ HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
 
 # launches of the CUDA kernels (plain-version calls on the CPU do not count)
 LAUNCHES = {name: 0 for name in SOURCES}
-# of LAUNCHES["rel_dp"], those that ran the DP kernel's rescue tail and
-# its pack tail (rel_tail.cuh)
-TAIL_LAUNCHES = {"rel_rescue": 0, "rel_pack": 0}
+# of LAUNCHES["rel_dp"], those that ran the DP kernel's first-pass
+# prologue (the main layout's planes, once rel_prep's), its rescue tail
+# and its pack tail (rel_tail.cuh)
+TAIL_LAUNCHES = {"prologue": 0, "rel_rescue": 0, "rel_pack": 0}
 # compiler output of the last build in this process, by (kernel, kind)
 # (nvcc's -Xptxas -v lines)
 BUILD_LOG: dict = {}
@@ -72,13 +78,14 @@ _D = ctypes.c_double
 _LL = ctypes.c_longlong
 # C argument lists: rel_dp.cu RD_ARGS_DECL, unrel.cu UR_ARGS_DECL
 _ARGTYPES = {
-    "rel_dp": [_PTR] * 22 + [_I, _I, _PTR, _PTR, _I, _D, _LL] + [_D] * 4,
+    "rel_dp": ([_PTR] * 25 + [_D, _I, _I, _PTR, _PTR, _I, _D, _LL]
+               + [_D] * 4),
     "unrel_sweeps": ([_PTR] * 12 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
                      + [_D] * 5 + [_LL] * 3),
 }
 # glue.cu GP_ARGS_DECL, GS_ARGS_DECL
 _ARGTYPES.update({
-    "rel_prep": [_PTR] * 4 + [_D] + [_I] * 4 + [_D] * 2 + [_PTR] * 18 + [_I],
+    "rel_prep": [_PTR] * 4 + [_D] + [_I] * 4 + [_D] * 2 + [_PTR] * 17,
     "rel_settle": [_PTR] * 14 + [_I] * 4 + [_PTR, _PTR],
 })
 _ENTRY = {("rel_dp", "cuda"): "rel_dp_launch", ("rel_dp", "host"): "rel_dp_host",
@@ -243,12 +250,14 @@ def _ptr(t):
 
 
 def _args(planes, cov, P: RelParams, active, R2, M, kind="cuda",
-          tail=(None,) * 5):
+          tail=(None,) * 5, blobs=None):
     """Outputs, scratch and the flat C argument list (RD_ARGS_DECL).  The
     global backpointer scratch is allocated only where the card needs it
     (``_needs_scratch``); the host shim always takes it.  ``tail``: the
     row tails' (rescue, cov2, gcov, packed, mm_prev), None where a tail
-    does not run."""
+    does not run.  ``blobs``: (iblob, fblob) of the main layout, from
+    which the prologue writes ``planes`` and ``cov`` (with P.logfact and
+    P.e_po_base), or None."""
     dev = planes[0].device
     asgn = torch.empty((R2, M), dtype=torch.int8, device=dev)
     dp = torch.empty((R2, 4), dtype=torch.float64, device=dev)
@@ -262,8 +271,11 @@ def _args(planes, cov, P: RelParams, active, R2, M, kind="cuda",
         raise ValueError("RelParams must live on the kernel's device")
     if P.tab.dtype != torch.float64 or not P.tab.is_contiguous():
         raise ValueError("packed table must be contiguous f64")
+    iblob, fblob = blobs or (None, None)
     args = ([t.data_ptr() for t in planes] + [cov.data_ptr(), _ptr(active)]
             + [_ptr(t) for t in (asgn, dp, mm, bp, rpos) + tuple(tail)]
+            + [_ptr(iblob), _ptr(fblob),
+               _ptr(P.logfact) if blobs else None, float(P.e_po_base)]
             + [R2, M, P.tab.data_ptr(), P.lf_small.data_ptr(),
                int(P.lf_small.shape[0]), float(P.read_len), int(P.offset),
                float(P.r_logp), float(P.log_1m_pe_mean),
@@ -273,18 +285,19 @@ def _args(planes, cov, P: RelParams, active, R2, M, kind="cuda",
 
 
 def _dp_run(kind, planes, cov, P: RelParams, active=None,
-            tail=(None,) * 5):
+            tail=(None,) * 5, blobs=None):
     """Check the DP's inputs, then launch the kernel (``cuda``) or run its
-    shim (``host``) with the row tails' ``tail`` (as ``_args``); returns
-    the pass's (asgn, dp, margin)."""
+    shim (``host``) with the row tails' ``tail`` and the prologue's
+    ``blobs`` (as ``_args``); returns the pass's (asgn, dp, margin)."""
     if kind == "host":
         planes = tuple(t.contiguous() for t in planes)
         cov = cov.contiguous()
     dev = planes[0].device
     R2, M = _check(planes, cov, active, dev)
-    args, keep = _args(planes, cov, P, active, R2, M, kind, tail)
+    args, keep = _args(planes, cov, P, active, R2, M, kind, tail, blobs)
     if kind == "cuda":
         _launch("rel_dp", dev, args)
+        TAIL_LAUNCHES["prologue"] += blobs is not None
         TAIL_LAUNCHES["rel_rescue"] += tail[0] is not None
         TAIL_LAUNCHES["rel_pack"] += tail[3] is not None
     elif _fn("rel_dp", "host")(*args) != 0:
@@ -327,7 +340,9 @@ def rel_dp_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
                             m, plen, fwd), cov, P, active)
 
 
-def _rescue_run(kind, planes, cov, P: RelParams, pack: bool):
+def _rescue_tail(planes, P: RelParams, pack: bool):
+    """The rescue tail's outputs (rescue, cov2) and, with ``pack``, the
+    pack tail's (packed), allocated; the tail argument of ``_dp_run``."""
     R2, M = planes[0].shape
     dev = planes[0].device
     _need("gcov", P.gcov, torch.int64, (4,), dev)
@@ -335,41 +350,99 @@ def _rescue_run(kind, planes, cov, P: RelParams, pack: bool):
     cov2 = torch.empty((R2, 4), dtype=torch.int64, device=dev)
     packed = (torch.empty((R2, M + 5), dtype=torch.uint8, device=dev)
               if pack else None)
-    out = _dp_run(kind, planes, cov, P,
-                  tail=(rescue, cov2, P.gcov, packed, None))
-    return out + (rescue, cov2, packed)
+    return (rescue, cov2, P.gcov, packed, None)
+
+
+def _rescue_run(kind, planes, cov, P: RelParams):
+    tail = _rescue_tail(planes, P, pack=False)
+    return _dp_run(kind, planes, cov, P, tail=tail) + tail[:2]
 
 
 def rel_dp_rescue(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
-                  fwd, cov, P: RelParams, pack: bool = False):
+                  fwd, cov, P: RelParams):
     """The first DP pass with its rescue tail (the tail replaces
-    device_pipeline._rel_pipeline's no-H rescue predicate, :198-234) and,
-    with ``pack``, its pack tail (_pack_out :638-651) on the rows it does
-    not rescue: returns (asgn, dp, margin as rel_dp, rescue bool (R2,),
-    the rescue pass's coverages int64 (R2, 4), packed uint8 (R2,
-    max_m + 5) or None).  The rescued rows of ``packed`` are
-    ``rel_dp_pack``'s to write.  CUDA tensors launch the kernel (one
-    launch); CPU tensors run the plain versions (rel_ref, rel.rescue_rows
-    and rel.pack_out, which packs every row)."""
+    device_pipeline._rel_pipeline's no-H rescue predicate, :198-234), the
+    all-device path's first pass: returns (asgn, dp, margin as rel_dp,
+    rescue bool (R2,), the rescue pass's coverages int64 (R2, 4)).  CUDA
+    tensors launch the kernel (one launch); CPU tensors run the plain
+    versions (rel_ref, rel.rescue_rows)."""
     planes = (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen, fwd)
     if bpos.device.type == "cpu":
-        from classpro_tpu_torch.rel import pack_out, rescue_rows
+        from classpro_tpu_torch.rel import rescue_rows
 
         a, d, mm = _plain_dp(planes, cov, P)
-        rescue, cov2 = rescue_rows(planes, a, P, a.shape[1])
-        packed = (pack_out(a, mm, torch.zeros_like(rescue), a.shape[1])
-                  if pack else None)
-        return a, d, mm, rescue, cov2, packed
+        return (a, d, mm) + rescue_rows(planes, a, P, a.shape[1])
     _need_cuda(bpos)
-    return _rescue_run("cuda", planes, cov, P, pack)
+    return _rescue_run("cuda", planes, cov, P)
 
 
 def rel_dp_rescue_host(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m,
-                       plen, fwd, cov, P: RelParams, pack: bool = False):
-    """rel_dp_rescue's kernel body with its tails compiled by g++
+                       plen, fwd, cov, P: RelParams):
+    """rel_dp_rescue's kernel body with its rescue tail compiled by g++
     (test-only; same contract)."""
     return _rescue_run("host", (bpos, bcnt, epos, ecnt, max_cc, lf_bcnt,
-                                logpE, m, plen, fwd), cov, P, pack)
+                                logpE, m, plen, fwd), cov, P)
+
+
+def _main_planes(fblob, iblob, P: RelParams, R: int, max_m: int):
+    """Checks of a main-layout chunk's blobs; the planes and coverages the
+    first pass's prologue writes, allocated (kernels.rel_dp's inputs)."""
+    dev = iblob.device
+    R2, M = 2 * R, max_m
+    _need("iblob", iblob, torch.int32, (4 * R * M + 2 * R,), dev)
+    _need("fblob", fblob, torch.float64, (R * M,), dev)
+    # the prologue clamps its counts into the 32768-entry table
+    _need("logfact", P.logfact, torch.float64, (32768,), dev)
+    rm = R2 * M
+    i64 = torch.empty(5 * rm + 6 * R2, dtype=torch.int64, device=dev)
+    f64 = torch.empty(2 * rm, dtype=torch.float64, device=dev)
+    fwd = torch.empty(R2, dtype=torch.bool, device=dev)
+    planes = tuple(i64[k * rm:(k + 1) * rm].view(R2, M) for k in range(5))
+    planes += (f64[:rm].view(R2, M), f64[rm:].view(R2, M),
+               i64[5 * rm:5 * rm + R2], i64[5 * rm + R2:5 * rm + 2 * R2],
+               fwd)
+    return planes, i64[5 * rm + 2 * R2:].view(R2, 4)
+
+
+def _first_run(kind, fblob, iblob, P: RelParams, R: int, max_m: int):
+    planes, cov = _main_planes(fblob, iblob, P, R, max_m)
+    tail = _rescue_tail(planes, P, pack=True)
+    out = _dp_run(kind, planes, cov, P, tail=tail, blobs=(iblob, fblob))
+    return (planes, cov) + out + (tail[0], tail[1], tail[3])
+
+
+def rel_dp_first(fblob, iblob, P: RelParams, R: int, max_m: int):
+    """The main path's first DP pass in one launch: its prologue writes the
+    DP's planes from the chunk's blobs (iblob int32: b, e, ccb, cce [4 x
+    R*max_m] | m [R] | plen [R]; fblob f64: pe [R*max_m]; the prologue
+    replaces device_pipeline._rel_only_core :572-626 with the E emission
+    of _rel_pipeline :170-174), then the pass with its rescue tail
+    (:198-234) and its pack tail (_pack_out :638-651) on the rows it does
+    not rescue.  Returns (planes, cov, asgn, dp, margin, rescue bool
+    (2R,), the rescue pass's coverages cov2 int64 (2R, 4), packed uint8
+    (2R, max_m + 5)): planes as kernels.rel_dp takes them (both scan
+    directions, backward rows index-reversed), cov the pass's (2R, 4)
+    coverages.  The rescued rows of ``packed`` are ``rel_dp_pack``'s to
+    write.  CUDA tensors launch the kernel (one launch); CPU tensors run
+    the plain versions (rel.prep_ref, rel_ref, rel.rescue_rows and
+    rel.pack_out, which packs every row)."""
+    if iblob.device.type == "cpu":
+        from classpro_tpu_torch.rel import pack_out, prep_ref, rescue_rows
+
+        planes, cov = prep_ref(fblob, iblob, P, R, max_m)
+        a, d, mm = _plain_dp(planes, cov, P)
+        rescue, cov2 = rescue_rows(planes, a, P, max_m)
+        packed = pack_out(a, mm, torch.zeros_like(rescue), max_m)
+        return planes, cov, a, d, mm, rescue, cov2, packed
+    _need_cuda(iblob)
+    return _first_run("cuda", fblob, iblob, P, R, max_m)
+
+
+def rel_dp_first_host(fblob, iblob, P: RelParams, R: int, max_m: int):
+    """rel_dp_first's kernel body with its prologue and tails compiled by
+    g++ (test-only; same contract)."""
+    return _first_run("host", fblob.contiguous(), iblob.contiguous(), P, R,
+                      max_m)
 
 
 def _pack_run(kind, planes, cov2, P: RelParams, rescue, mm1, packed):
@@ -386,7 +459,7 @@ def rel_dp_pack(bpos, bcnt, epos, ecnt, max_cc, lf_bcnt, logpE, m, plen,
     merge of device_pipeline._rel_pipeline :237-241 and _pack_out
     :638-651): the DP on the rows ``rescue`` flags, with the coverages
     ``cov2``, writes each such row of ``packed`` (uint8 (R2, max_m + 5),
-    as rel_dp_rescue(pack=True) returned it) in place: its assignments,
+    as rel_dp_first returned it) in place: its assignments,
     flags risky(min(mm1, margin)) | 2, f32 of that margin.  Returns the
     pass's (asgn, dp, margin), the other rows' unwritten.  CUDA tensors
     launch the kernel (one launch); CPU tensors run the plain versions
@@ -581,37 +654,28 @@ def _shim(name: str, args) -> None:
         raise RuntimeError(f"{name} host shim failed")
 
 
-_GLUE_GEO = {"rel_prep": 0, "rel_settle": 2}
-
-
-def glue_geometry(kernel: str, n: int, kind: str = "cuda", n2: int = 0,
-                  alldev: bool = False) -> dict:
+def glue_geometry(kernel: str, n: int, kind: str = "cuda",
+                  n2: int = 0) -> dict:
     """Threads per block, blocks and shared bytes per block (static and
     dynamic) of a glue launch, as glue.cu computes them: ``rel_prep``
-    over ``n`` cells (with ``alldev``: ``n`` rel-plane and ``n2``
-    interval cells), ``rel_settle`` over ``n`` read pairs of max_m
-    ``n2``."""
+    over ``n`` rel-plane and ``n2`` interval cells, ``rel_settle`` over
+    ``n`` read pairs of max_m ``n2``."""
     out = (ctypes.c_int * 3)()
-    code = 1 if alldev else _GLUE_GEO[kernel]
     _entry("rel_prep", kind, "glue_geometry", [_I, _LL, _LL, _PTR])(
-        code, n, n2, ctypes.cast(out, _PTR))
+        GLUE_KERNELS.index(kernel), n, n2, ctypes.cast(out, _PTR))
     return {"threads_per_block": out[0], "blocks": out[1],
             "smem_bytes": out[2]}
 
 
 def _prep_args(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
     """Checks of rel_prep's inputs; its outputs (the DP's planes and first
-    coverages; in the all-device layout also the sweeps' planes and the
-    margin gate) and the flat C argument list (GP_ARGS_DECL)."""
+    coverages, the sweeps' planes and the margin gate) and the flat C
+    argument list (GP_ARGS_DECL)."""
     dev = iblob.device
     R2, M = 2 * R, max_m
-    if alldev is None:
-        Bn = N = 0
-        n_i, n_f = 4 * R * M + 2 * R, R * M
-    else:
-        Bn, N = alldev
-        n_i = 10 * Bn * N + Bn + 5 * R2 * M + R * M + 3 * R2 + R
-        n_f = 5 * Bn * N + 3 * R2 * M
+    Bn, N = alldev
+    n_i = 10 * Bn * N + Bn + 5 * R2 * M + R * M + 3 * R2 + R
+    n_f = 5 * Bn * N + 3 * R2 * M
     _need("iblob", iblob, torch.int32, (n_i,), dev)
     _need("fblob", fblob, torch.float64, (n_f,), dev)
     for name, t in (("logfact", P.logfact), ("gcov", P.gcov)):
@@ -619,20 +683,16 @@ def _prep_args(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
     if P.logfact.dtype != torch.float64 or P.gcov.dtype != torch.int64:
         raise ValueError("RelParams: logfact must be f64, gcov int64")
     i64 = torch.empty(5 * R2 * M + 6 * R2, dtype=torch.int64, device=dev)
-    f64 = torch.empty((1 if alldev else 2) * R2 * M + 19 * Bn * N + 2 * Bn,
-                      dtype=torch.float64, device=dev)
+    f64 = torch.empty(R2 * M + 19 * Bn * N + 2 * Bn, dtype=torch.float64,
+                      device=dev)
     u8 = torch.empty(R2 + 2 * Bn * N, dtype=torch.bool, device=dev)
     asgn = torch.empty((Bn, N), dtype=torch.int32, device=dev)
     rm = R2 * M
     pl = [i64[k * rm:(k + 1) * rm].view(R2, M) for k in range(5)]
     m, plen = i64[5 * rm:5 * rm + R2], i64[5 * rm + R2:5 * rm + 2 * R2]
     cov = i64[5 * rm + 2 * R2:].view(R2, 4)
-    if alldev is None:
-        lf_bcnt, logpE = f64[:rm].view(R2, M), f64[rm:2 * rm].view(R2, M)
-        o = 2 * rm
-    else:
-        lf_bcnt = blob_views(fblob, iblob, Bn, N, R2, M)["lf_bcnt"]
-        logpE, o = f64[:rm].view(R2, M), rm
+    lf_bcnt = blob_views(fblob, iblob, Bn, N, R2, M)["lf_bcnt"]
+    logpE, o = f64[:rm].view(R2, M), rm
     P13 = f64[o:o + 13 * Bn * N].view(Bn, N, 13)
     packL = f64[o + 13 * Bn * N:o + 16 * Bn * N].view(Bn, N, 3)
     packR = f64[o + 16 * Bn * N:o + 19 * Bn * N].view(Bn, N, 3)
@@ -641,58 +701,45 @@ def _prep_args(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
     is_rel = u8[R2:R2 + Bn * N].view(Bn, N)
     live = u8[R2 + Bn * N:].view(Bn, N)
     planes = tuple(pl) + (lf_bcnt, logpE, m, plen, fwd)
-    outs = (pl[0], pl[1], pl[2], pl[3], pl[4], m, plen, cov,
-            None if alldev else lf_bcnt, logpE, fwd, is_rel, live, asgn,
-            P13, packL, packR, gate)
+    outs = (pl[0], pl[1], pl[2], pl[3], pl[4], m, plen, cov, logpE, fwd,
+            is_rel, live, asgn, P13, packL, packR, gate)
     args = ([iblob.data_ptr(), fblob.data_ptr(), P.logfact.data_ptr(),
              P.gcov.data_ptr(), float(P.e_po_base), R, M, Bn, N,
              GATE_UNFLAGGED[0], GATE_UNFLAGGED[1]]
-            + [t.data_ptr() if t is not None else None for t in outs]
-            + [int(alldev is not None)])
-    un = None
-    if alldev is not None:
-        un = {"is_rel": is_rel, "asgn": asgn, "P13": P13, "packL": packL,
-              "packR": packR, "live": live, "gate": gate}
+            + [t.data_ptr() for t in outs])
+    un = {"is_rel": is_rel, "asgn": asgn, "P13": P13, "packL": packL,
+          "packR": packR, "live": live, "gate": gate}
     return args, planes, cov, un
 
 
-def _prep_out(planes, cov, un):
-    return (planes, cov) if un is None else (planes, cov, un)
-
-
-def rel_prep(fblob, iblob, P: RelParams, R: int, max_m: int, alldev=None):
-    """The DP's planes of one chunk from its blobs (the kernel replaces
-    device_pipeline._rel_only_core :572-626 with the E emission of
-    _rel_pipeline :170-174; with ``alldev`` = (Bn, max_n) the all-device
-    layout, _unpack :119 + _un_planes :511-538 + the sweeps' N_STATE
-    rows): returns (planes, cov) with planes as kernels.rel_dp takes them
-    and cov the first pass's (2R, 4) coverages; with ``alldev`` also a
-    dict of the sweeps' is_rel, asgn, P13, packL, packR, live and the
-    (2, Bn) margin gate.  CUDA tensors launch the kernel; CPU tensors run
-    the plain version (rel.prep_ref, alldev.prep_ref)."""
+def rel_prep(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
+    """The DP's and the sweeps' planes of one all-device chunk from its
+    blobs, ``alldev`` = (Bn, max_n) (the kernel replaces
+    device_pipeline._unpack :119 + _un_planes :511-538 + the sweeps'
+    N_STATE rows, with the E emission of _rel_pipeline :170-174): returns
+    (planes, cov, un) with planes as kernels.rel_dp takes them, cov the
+    first pass's (2R, 4) coverages and un a dict of the sweeps' is_rel,
+    asgn, P13, packL, packR, live and the (2, Bn) margin gate.  (The main
+    layout's planes are rel_dp_first's prologue.)  CUDA tensors launch
+    the kernel; CPU tensors run the plain version (alldev.prep_ref)."""
     if iblob.device.type == "cpu":
-        if alldev is None:
-            from classpro_tpu_torch.rel import prep_ref
-
-            return prep_ref(fblob, iblob, P, R, max_m)
         from classpro_tpu_torch.alldev import prep_ref
 
         return prep_ref(fblob, iblob, P, R, max_m, *alldev)
     _need_cuda(iblob)
     args, planes, cov, un = _prep_args(fblob, iblob, P, R, max_m, alldev)
     _launch("rel_prep", iblob.device, args)
-    return _prep_out(planes, cov, un)
+    return planes, cov, un
 
 
-def rel_prep_host(fblob, iblob, P: RelParams, R: int, max_m: int,
-                  alldev=None):
-    """rel_prep's cell body compiled by g++ and run on CPU tensors
+def rel_prep_host(fblob, iblob, P: RelParams, R: int, max_m: int, alldev):
+    """rel_prep's block body compiled by g++ and run on CPU tensors
     (test-only; same contract)."""
     args, planes, cov, un = _prep_args(fblob.contiguous(),
                                        iblob.contiguous(), P, R, max_m,
                                        alldev)
     _shim("rel_prep", args)
-    return _prep_out(planes, cov, un)
+    return planes, cov, un
 
 
 def _row_planes(planes, device):

@@ -5,14 +5,17 @@ plus the host steps that follow it.
 (``_rel_only_core`` + ``_rel_pipeline(demotes=False)`` + ``_pack_out``):
 it takes the C++ ``pack_rel`` blobs, derives both scan directions, runs
 the DP, the no-H rescue predicate and the rescue pass, and packs one
-uint8 array (2R, max_m+5).  On a card (``impl="cuda"``) that is three
-launches per chunk (``rel_glued``): the glue kernel rel_prep of
-csrc/glue.cu, then the DP kernel of csrc/rel_dp.cu twice, the first pass
-with its rescue and pack tails, the rescue pass with its pack tail.
-``impl="ref"`` runs the plain versions: ``rel_planes`` (``prep_ref``),
-the plain DP (rel_ref), ``rescue_rows`` and ``pack_ref``, which are what
-the kernels are held against.  ``unpack_out``, ``demote_host`` and ``reconcile_fwbw`` are
-numpy copies of the JAX package's host steps.
+uint8 array (2R, max_m+5).  On a card (``impl="cuda"``) that is two
+launches of the DP kernel of csrc/rel_dp.cu (``rel_glued``): the first
+pass with its prologue (the planes from the blobs) and its rescue and
+pack tails, the rescue pass with its pack tail; the two are captured
+once per (device, R, max_m) bucket and model in a CUDA graph
+(``ChunkGraph``, cached by ``RelGraphs``), which each chunk replays, as
+the JAX package runs one AOT-compiled program per bucket.  ``impl="ref"``
+runs the plain versions: ``rel_planes`` (``prep_ref``), the plain DP
+(rel_ref), ``rescue_rows`` and ``pack_ref``, which are what the kernels
+are held against.  ``unpack_out``, ``demote_host`` and
+``reconcile_fwbw`` are numpy copies of the JAX package's host steps.
 """
 
 from __future__ import annotations
@@ -102,8 +105,8 @@ def rel_planes(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
 
 def prep_ref(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
              R: int, max_m: int):
-    """kernels.rel_prep's plain version (main layout): the DP's planes and
-    the first pass's coverages (2R, 4)."""
+    """The plain version of kernels.rel_dp_first's prologue: the DP's
+    planes and the first pass's coverages (2R, 4)."""
     cov = P.gcov[None, :].expand(2 * R, 4).contiguous()
     return rel_planes(fblob, iblob, P, R, max_m), cov
 
@@ -167,7 +170,7 @@ def merge_passes(asgn1, mm1, asgn2, mm2, rescue):
 
 def pack_ref(asgn1, asgn2, mm1, mm2, rescue) -> torch.Tensor:
     """The pass merge and pack_out: the plain version of the pack tails of
-    kernels.rel_dp_rescue (the rows not rescued) and rel_dp_pack (the
+    kernels.rel_dp_first (the rows not rescued) and rel_dp_pack (the
     rescued rows)."""
     asgn, mm = merge_passes(asgn1, mm1, asgn2, mm2, rescue)
     return pack_out(asgn, mm, rescue, asgn.shape[1])
@@ -187,30 +190,156 @@ def rel_only(fblob: torch.Tensor, iblob: torch.Tensor, P: RelParams,
     """The rel stage of one chunk on ``P``'s device (JAX rel_only_dev):
     returns the packed uint8 (2R, max_m+5) result — fw rows then bw rows
     in scan order, post-rescue, pre-demotion.  ``impl``: "cuda" (the
-    kernels: ``rel_glued``), "ref" (the plain versions) or a DP callable
-    with rel_dp's contract (the plain glue around it)."""
+    replay of the bucket's ``ChunkGraph`` from the process-wide
+    ``GRAPHS``, the result copied out of its static buffer), "ref" (the
+    plain versions) or a DP callable with rel_dp's contract (the plain
+    glue around it)."""
     impl = impl or default_impl(P.device)
     if impl == "cuda":
-        from classpro_tpu_torch import kernels
-
-        return rel_glued(fblob, iblob, P, R, max_m, kernels)
+        return GRAPHS.get(P, R, max_m).run(fblob, iblob).clone()
     planes = rel_planes(fblob, iblob, P, R, max_m)
     asgn, mm, rescue = rel_pipeline(planes, P, max_m, impl)
     return pack_out(asgn, mm, rescue, max_m)
 
 
 def rel_glued(fblob, iblob, P: RelParams, R: int, max_m: int, ops):
-    """rel_only as three launches: ``ops`` holds rel_prep, rel_dp_rescue
-    and rel_dp_pack with the contracts of the kernels module's wrappers
-    (the kernels on a card; the tests pass the g++ shims).  The first
-    pass packs the rows it does not rescue, the rescue pass runs and
-    packs the rescued rows only (the others exit at once), so no host
-    sync tests any(rescue)."""
-    planes, cov = ops.rel_prep(fblob, iblob, P, R, max_m)
-    _a1, _dp1, mm1, rescue, cov2, packed = ops.rel_dp_rescue(
-        *planes, cov, P, pack=True)
+    """rel_only as two launches: ``ops`` holds rel_dp_first and
+    rel_dp_pack with the contracts of the kernels module's wrappers (the
+    kernels on a card; the tests pass the g++ shims).  The first pass
+    writes the planes and packs the rows it does not rescue, the rescue
+    pass runs and packs the rescued rows only (the others exit at once),
+    so no host sync tests any(rescue)."""
+    planes, _cov, _a1, _dp1, mm1, rescue, cov2, packed = ops.rel_dp_first(
+        fblob, iblob, P, R, max_m)
     ops.rel_dp_pack(*planes, cov2, P, rescue, mm1, packed)
     return packed
+
+
+# captures and replays of the main chunk's CUDA graphs in this process
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def _launch_counts() -> dict:
+    from classpro_tpu_torch import kernels
+
+    return {"launches": dict(kernels.LAUNCHES),
+            "tails": dict(kernels.TAIL_LAUNCHES)}
+
+
+class ChunkGraph:
+    """The main chunk of one (R, max_m) bucket of one RelParams on one card
+    as one CUDA graph: ``rel_glued``'s two launches of the DP kernel (the
+    first pass with its prologue and tails, the rescue pass with its pack
+    tail), captured once; a chunk copies its blobs into the graph's
+    static inputs, replays it and reads its static ``packed`` output (the
+    JAX package compiles rel_only_dev once per bucket, engine._rel_exec).
+
+    Capture: the bucket first runs eagerly on padding blobs (the kernels'
+    libraries load their modules lazily, and a first launch's API calls
+    would break a capture), then ``rel_glued`` is captured on a side
+    stream into a memory pool of the graph's own (buckets replay in any
+    order, so they share none).  The kernels' launch counts that the
+    capture made are taken back and added at every replay, which runs
+    those launches.  A failed capture or replay raises.
+
+    The static buffers are reused by every chunk: ``run`` copies in,
+    replays and hands back ``packed`` on the current stream, and the
+    caller copies ``packed`` out on that same stream, so the stream orders
+    each chunk's use of the buffers before the next chunk's, with any
+    number of chunks in flight."""
+
+    def __init__(self, P: RelParams, R: int, max_m: int):
+        from classpro_tpu_torch import kernels
+
+        dev = P.device
+        if dev.type != "cuda":
+            raise ValueError(f"a chunk graph needs a CUDA card, not {dev}")
+        self.P, self.R, self.max_m = P, R, max_m
+        self.fblob = torch.full((R * max_m,), -float("inf"),
+                                dtype=torch.float64, device=dev)
+        self.iblob = torch.ones(4 * R * max_m + 2 * R, dtype=torch.int32,
+                                device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            rel_glued(self.fblob, self.iblob, P, R, max_m, kernels)
+            side.synchronize()
+            before = _launch_counts()
+            self.graph.capture_begin()
+            try:
+                self.packed = rel_glued(self.fblob, self.iblob, P, R,
+                                        max_m, kernels)
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass            # the capture was invalidated already
+                raise
+            finally:
+                after = _launch_counts()
+                kernels.LAUNCHES.update(before["launches"])
+                kernels.TAIL_LAUNCHES.update(before["tails"])
+            self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.counts = {g: {k: after[g][k] - before[g][k] for k in after[g]}
+                       for g in after}
+        GRAPH_COUNTS["captures"] += 1
+
+    def replay(self) -> None:
+        """Replay the graph on the current stream; count its launches."""
+        from classpro_tpu_torch import kernels
+
+        self.graph.replay()
+        for k, n in self.counts["launches"].items():
+            kernels.LAUNCHES[k] += n
+        for k, n in self.counts["tails"].items():
+            kernels.TAIL_LAUNCHES[k] += n
+        GRAPH_COUNTS["replays"] += 1
+
+    def run(self, fblob: torch.Tensor, iblob: torch.Tensor) -> torch.Tensor:
+        """One chunk on the current stream: its blobs (on the host, pinned
+        for an asynchronous copy, or on the card) into the static inputs,
+        the replay; returns the static packed output (2R, max_m + 5),
+        which the next run overwrites."""
+        for name, got, want in (("fblob", fblob, self.fblob),
+                                ("iblob", iblob, self.iblob)):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise ValueError(f"{name}: want {want.dtype} "
+                                 f"{tuple(want.shape)}, got {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        self.fblob.copy_(fblob, non_blocking=True)
+        self.iblob.copy_(iblob, non_blocking=True)
+        self.replay()
+        return self.packed
+
+
+class RelGraphs:
+    """ChunkGraphs by (device, R, max_m) and model, captured at first use.
+    An entry holds the RelParams whose pointers and scalars its graph
+    baked in and is found only for that same object, so no graph replays
+    another model's tables (the JAX package keys its executables with the
+    parameters' signature, engine._rel_exec).  An engine keeps its own
+    (its RelParams live as long as it does); ``GRAPHS`` serves
+    ``rel_only``."""
+
+    def __init__(self):
+        self._graphs: dict = {}
+
+    def get(self, P: RelParams, R: int, max_m: int) -> ChunkGraph:
+        bucket = self._graphs.setdefault((P.device, R, max_m), [])
+        for g in bucket:
+            if g.P is P:
+                return g
+        g = ChunkGraph(P, R, max_m)
+        bucket.append(g)
+        return g
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self._graphs.values())
+
+
+GRAPHS = RelGraphs()
 
 
 def unpack_out(buf, max_m: int):

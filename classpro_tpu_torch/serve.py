@@ -25,11 +25,13 @@ one reply line per request.
                                            "launches": {kernel: N}, ...}
   {"cmd": "shutdown"}                  -> {"ok": true}
 
-A classify reply's ``launches`` are the kernel launches of that job;
-``stats`` carries the process totals (warm-up included), the table
-uploads and the Python threads alive.  Jobs run serially, on the
-daemon's device; a job's error is replied (``ok: false``) and never ends
-the daemon.
+A classify reply's ``launches`` are the kernel launches of that job and
+``graphs`` its main-chunk CUDA graphs' captures and replays (on a card a
+chunk is one replay, captured per bucket at first use; its two launches
+count once per replay); ``stats`` carries the process totals (warm-up
+included), the table uploads and the Python threads alive.  Jobs run
+serially, on the daemon's device; a job's error is replied (``ok:
+false``) and never ends the daemon.
 """
 
 from __future__ import annotations
@@ -53,6 +55,12 @@ def _launches() -> dict:
     from classpro_tpu_torch import kernels
 
     return dict(kernels.LAUNCHES)
+
+
+def _graphs() -> dict:
+    from classpro_tpu_torch.rel import GRAPH_COUNTS
+
+    return dict(GRAPH_COUNTS)
 
 
 def _make_warm(device, warmup_root: str | None, warmup_shapes: tuple,
@@ -89,7 +97,7 @@ def _do_classify(req: dict, device) -> dict:
     source = req["source"]
     root = root_of(source)
     out = req.get("output") or root + ".class"
-    before = _launches()
+    before, g0 = _launches(), _graphs()
     t0 = time.time()
     st: dict = {}
     recs = classify_file_torch(
@@ -110,11 +118,12 @@ def _do_classify(req: dict, device) -> dict:
             yield r
 
     write_class(out, counted())
-    after = _launches()
+    after, g1 = _launches(), _graphs()
     return {"ok": True, "output": out, "reads": n, "kmers": kmers,
             "wall_s": time.time() - t0,
             "guard_flagged": st.get("guard_flagged", 0),
             "launches": {k: after[k] - before[k] for k in after},
+            "graphs": {k: g1[k] - g0[k] for k in g1},
             "warm_shapes": _warm_shapes()}
 
 
@@ -171,7 +180,7 @@ def serve(sock_path: str, warmup_root: str | None = None,
                                uptime_s=time.time() - stats["started"],
                                device=str(device),
                                table_uploads=params.TABLE_UPLOADS,
-                               launches=_launches(),
+                               launches=_launches(), graphs=_graphs(),
                                threads=threading.active_count(),
                                **{k: v for k, v in stats.items()
                                   if k != "started"})

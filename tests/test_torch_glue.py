@@ -1,7 +1,9 @@
-"""The glue kernels (csrc/glue.cu: rel_prep, rel_settle) and the DP
-kernel's row tails (csrc/rel_tail.cuh: the rescue predicate and the pack,
-run by kernels.rel_dp_rescue and rel_dp_pack) through their g++ shims,
-against their plain torch versions and against the JAX package's
+"""The glue kernels (csrc/glue.cu: the all-device rel_prep, rel_settle),
+the DP kernel's first-pass prologue (the main layout's planes,
+csrc/prep_cell.cuh, run by kernels.rel_dp_first) and its row tails
+(csrc/rel_tail.cuh: the rescue predicate and the pack, run by
+kernels.rel_dp_first, rel_dp_rescue and rel_dp_pack) through their g++
+shims, against their plain torch versions and against the JAX package's
 device_pipeline functions, on the CPU.
 
 Inputs: the chunk packs of medium at batch 200 (the main layout staged by
@@ -11,12 +13,12 @@ made with numpy from a seed that reach m = 0 and m = max_m rows, all-H
 rows, rows with >= 70% H, no-H rows with D, symmetric reads (the hdrr
 tie), zero counts (an inf or NaN hdrr), counts at and past 32767, and
 margins of exactly 0, 1e-30, just below and at 1e-5, inf and NaN.  The
-main-layout cases run the DP shim's own two passes with their tails; two
-more numpy chunks reach the tails' edges (TAIL_CASES): every row rescued,
-and max_m past the DP kernel's shared-memory cap (its backpointers in the
-global scratch on the card).  The all-device cases take the DP shim's
-passes (fixtures) or numpy passes.  The EDGES
-chunks (numpy, in the all-device layout) sit at the edges of the
+main-layout cases run the DP shim's own two passes, the first with its
+prologue, both with their tails; two more numpy chunks reach the tails'
+edges (TAIL_CASES): every row rescued, and max_m past the DP kernel's
+shared-memory cap (its backpointers in the global scratch on the card).
+The all-device cases take the DP shim's passes (fixtures) or numpy
+passes.  The EDGES chunks (numpy, in the all-device layout) sit at the edges of the
 all-device rel_prep's and rel_settle's launch geometry: tiles of 256
 cells that end mid-row and a last tile part full, max_m below and not a
 multiple of rel_settle's 128 threads, max_m beyond its 4096-column pair
@@ -287,27 +289,26 @@ def _main_case(case: str):
 
 @functools.lru_cache(maxsize=None)
 def _fused_main(case: str):
-    """The DP shim's two passes with their tails on a main-layout case:
-    the first (rel_dp_rescue_host, pack=True), then the rescue pass
+    """The DP shim's two passes on a main-layout case: the first with its
+    prologue and tails (rel_dp_first_host), then the rescue pass
     (rel_dp_pack_host) into a copy of its packed buffer.  Returns a dict
-    of the planes, both passes, rescue, cov2 and both packed buffers."""
+    of the planes and coverages the prologue wrote, both passes, rescue,
+    cov2 and both packed buffers."""
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch.rel import prep_ref
 
     fb, ib, R, max_m = _main_case(case)
     P = _P(case)
-    planes, cov = prep_ref(fb, ib, P, R, max_m)
-    a1, _, m1, rescue, cov2, packed1 = kernels.rel_dp_rescue_host(
-        *planes, cov, P, pack=True)
+    planes, cov, a1, _, m1, rescue, cov2, packed1 = \
+        kernels.rel_dp_first_host(fb, ib, P, R, max_m)
     packed = packed1.clone()
     a2, _, m2 = kernels.rel_dp_pack_host(*planes, cov2, P, rescue, m1,
                                          packed)
     # the rows the rescue pass does not run hold no second pass
     a2 = torch.where(rescue[:, None], a2, a1)
     m2 = torch.where(rescue, m2, m1)
-    return {"planes": planes, "a1": a1, "m1": m1, "rescue": rescue,
-            "cov2": cov2, "a2": a2, "m2": m2, "packed1": packed1,
-            "packed": packed}
+    return {"planes": planes, "cov": cov, "a1": a1, "m1": m1,
+            "rescue": rescue, "cov2": cov2, "a2": a2, "m2": m2,
+            "packed1": packed1, "packed": packed}
 
 
 class _StubDP:
@@ -367,16 +368,18 @@ def _P(case: str):
 
 # ------------------------------------------------------ the main layout
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + TAIL_CASES)
 def test_rel_prep_main(case):
-    """rel_prep's shim == rel.prep_ref == the planes JAX's _rel_only_core
-    hands its DP, every plane bit for bit."""
-    from classpro_tpu_torch import kernels
+    """The planes, coverages, m, plen and fwd that the first pass's
+    prologue writes (rel_dp_first's shim) == rel.prep_ref == the planes
+    JAX's _rel_only_core hands its DP, every plane bit for bit (TAIL_CASES:
+    every row rescued; max_m past the shared-memory cap)."""
     from classpro_tpu_torch.rel import prep_ref
 
     fb, ib, R, max_m = _main_case(case)
     P = _P(case)
-    planes, cov = kernels.rel_prep_host(fb, ib, P, R, max_m)
+    F = _fused_main(case)
+    planes, cov = F["planes"], F["cov"]
     p_r, c_r = prep_ref(fb, ib, P, R, max_m)
     for a, b in zip(planes + (cov,), p_r + (c_r,)):
         assert a.dtype == b.dtype
@@ -392,10 +395,10 @@ def test_rel_prep_main(case):
 
 @pytest.mark.parametrize("case", CASES + TAIL_CASES)
 def test_rel_rescue(case):
-    """The first pass's rescue tail (rel_dp_rescue's shim): rescue and
+    """The first pass's rescue tail (rel_dp_first's shim): rescue and
     cov2 == rel.rescue_rows on that pass's assignments == JAX's rescue
     flags and rescue-pass coverages; the pass itself bit-equal to the DP
-    shim without tails."""
+    shim without prologue and tails on rel.prep_ref's planes."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import prep_ref, rescue_rows
 
@@ -426,8 +429,8 @@ def test_rel_rescue(case):
 
 @pytest.mark.parametrize("case", CASES + TAIL_CASES)
 def test_rel_pack(case):
-    """The two passes' pack tails (rel_dp_rescue's shim with pack=True,
-    then rel_dp_pack's): the packed buffer == rel.pack_ref of the two
+    """The two passes' pack tails (rel_dp_first's shim, then
+    rel_dp_pack's): the packed buffer == rel.pack_ref of the two
     passes == JAX's _pack_out of its merged passes, every byte (NaN
     margins: NaN on both sides); the first pass alone writes the rows it
     does not rescue as pack_ref with no row rescued, and a rescue pass
@@ -767,7 +770,7 @@ def test_rel_prep_alldev(case):
     Bn, max_n, R2, max_m = dims
     P = _P(case)
     planes, cov, un = kernels.rel_prep_host(fb, ib, P, R2 // 2, max_m,
-                                            alldev=(Bn, max_n))
+                                            (Bn, max_n))
     p_r, c_r, un_r = prep_ref(fb, ib, P, R2 // 2, max_m, Bn, max_n)
     for a, b in zip(planes + (cov,), p_r + (c_r,)):
         assert a.dtype == b.dtype
@@ -899,7 +902,7 @@ def test_edge_cases_reach_their_edges(case):
 
 def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
     """Wrong dtypes, shapes or blob lengths raise; on CPU tensors the
-    wrappers run the plain versions and count no launch (rel_dp_rescue's
+    wrappers run the plain versions and count no launch (rel_dp_first's
     plain version packs every row; its rescued rows are rel_dp_pack's)."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.rel import pack_ref, prep_ref
@@ -908,9 +911,9 @@ def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
     P = _P("rand0")
     F = _fused_main("rand0")
     with pytest.raises(ValueError, match="iblob"):
-        kernels.rel_prep_host(fb, ib[:-1], P, R, max_m)
+        kernels.rel_dp_first_host(fb, ib[:-1], P, R, max_m)
     with pytest.raises(ValueError, match="fblob"):
-        kernels.rel_prep_host(fb.to(torch.float32), ib, P, R, max_m)
+        kernels.rel_dp_first_host(fb.to(torch.float32), ib, P, R, max_m)
     planes, cov = prep_ref(fb, ib, P, R, max_m)
     with pytest.raises(ValueError, match="cov"):
         kernels.rel_dp_rescue_host(*planes, cov[:, :3].contiguous(), P)
@@ -925,40 +928,38 @@ def test_glue_wrappers_check_inputs_and_run_plain_on_cpu():
                                  F["rescue"].to(torch.uint8), F["m1"],
                                  F["packed"].clone())
     n0 = dict(kernels.LAUNCHES)
-    for a, b in zip(kernels.rel_prep(fb, ib, P, R, max_m)[0], planes):
-        assert_bits(a, b)
-    a1, _, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov, P,
-                                                            pack=True)
-    for a, b in zip((a1, m1, rescue, cov2),
-                    (F["a1"], F["m1"], F["rescue"], F["cov2"])):
+    p_k, c_k, a1, _, m1, rescue, cov2, packed = kernels.rel_dp_first(
+        fb, ib, P, R, max_m)
+    for a, b in zip(p_k + (c_k, a1, m1, rescue, cov2),
+                    planes + (cov, F["a1"], F["m1"], F["rescue"],
+                              F["cov2"])):
         assert_bits(a, b)
     assert_packed(packed.numpy(), pack_ref(a1, a1, m1, m1,
                                            torch.zeros_like(rescue)).numpy(),
                   max_m)
     a2, _, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
     assert_packed(packed.numpy(), F["packed"].numpy(), max_m)
-    assert kernels.rel_dp_rescue(*planes, cov, P)[5] is None
+    for a, b in zip(kernels.rel_dp_rescue(*planes, cov, P),
+                    (a1, None, m1, rescue, cov2)):
+        if b is not None:
+            assert_bits(a, b)
     assert kernels.LAUNCHES == n0
 
 
 def test_glue_geometry():
-    """Main-layout prep: one thread per cell in blocks of 256, grid-stride
-    past 2112 blocks; all-device prep: a block of 256 per tile of 256
+    """rel_prep (all-device layout): a block of 256 per tile of 256
     rel-plane cells, then per tile of interval cells, its records staged
     in 38,944 bytes of shared memory; rel_settle: a block of 128 per read
-    pair,
-    560 bytes of the warps' partials and a pair cache of 7 x min(max_m,
-    4096) bytes (int32 rel_cols, both rows' int8 states, the scatter's
-    candidates)."""
+    pair, 560 bytes of the warps' partials and a pair cache of 7 x
+    min(max_m, 4096) bytes (int32 rel_cols, both rows' int8 states, the
+    scatter's candidates)."""
     from classpro_tpu_torch import kernels
 
-    assert kernels.glue_geometry("rel_prep", 512 * 128, "host") == {
-        "threads_per_block": 256, "blocks": 256, "smem_bytes": 0}
-    assert kernels.glue_geometry("rel_prep", 10 ** 7, "host")["blocks"] \
-        == 132 * 16
     assert kernels.glue_geometry("rel_prep", 512 * 128, "host",
-                                 n2=256 * 192 + 1, alldev=True) == {
+                                 n2=256 * 192 + 1) == {
         "threads_per_block": 256, "blocks": 256 + 193, "smem_bytes": 38944}
+    assert kernels.glue_geometry("rel_prep", 512 * 128 + 1, "host",
+                                 n2=0)["blocks"] == 257
     for max_m, cache in ((128, 7 * 128), (8224, 7 * 4096)):
         assert kernels.glue_geometry("rel_settle", 511, "host",
                                      n2=max_m) == {
@@ -976,13 +977,14 @@ def _card_params(case):
 @pytest.mark.parametrize("case", ("medium0", "search9", "rand0", "rand1")
                          + TAIL_CASES)
 def test_main_glue_kernels_match_plain_on_card(case):
-    """rel_prep and the DP kernel's two launches with their tails
-    (rel_dp_rescue, rel_dp_pack) on the card against their plain versions
-    on the same card inputs, bit for bit: the planes, the first pass's
-    rescue and cov2 on its own assignments (rel.rescue_rows), the packed
-    buffer on its own two passes (rel.pack_ref), and the rescue pass's
-    pack tail on margins at the f32 conversion's edges; each launch
-    counted."""
+    """The DP kernel's two launches of the main path (rel_dp_first: the
+    prologue and both tails; rel_dp_pack) on the card against their plain
+    versions on the same card inputs, bit for bit: the planes and
+    coverages the prologue writes (rel.prep_ref), the first pass against
+    rel_dp's on those planes, its rescue and cov2 on its own assignments
+    (rel.rescue_rows), the packed buffer on its own two passes
+    (rel.pack_ref), and the rescue pass's pack tail on margins at the f32
+    conversion's edges; each launch counted, no rel_prep launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from classpro_tpu_torch import kernels
@@ -992,10 +994,10 @@ def test_main_glue_kernels_match_plain_on_card(case):
                         for t in _main_case(case))
     P = _card_params(case)
     n0 = dict(kernels.LAUNCHES)
-    planes, cov = kernels.rel_prep(fb, ib, P, R, max_m)
+    planes, cov, a1, d1, m1, rescue, cov2, packed = kernels.rel_dp_first(
+        fb, ib, P, R, max_m)
     p_r, c_r = prep_ref(fb, ib, P, R, max_m)
-    a1, _, m1, rescue, cov2, packed = kernels.rel_dp_rescue(*planes, cov, P,
-                                                            pack=True)
+    b1, e1, n1 = kernels.rel_dp(*p_r, c_r, P)
     r_r, c2_r = rescue_rows(planes, a1, P, max_m)
     a2, _, m2 = kernels.rel_dp_pack(*planes, cov2, P, rescue, m1, packed)
     want = pack_ref(a1, a2, m1, m2, rescue)
@@ -1004,7 +1006,7 @@ def test_main_glue_kernels_match_plain_on_card(case):
     efb, eib, eR, eM = (t.cuda() if isinstance(t, torch.Tensor) else t
                         for t in _one_state_chunk())
     EP = _card_params("rand0")
-    e_planes, e_cov = kernels.rel_prep(efb, eib, EP, eR, eM)
+    e_planes, e_cov = kernels.rel_dp_first(efb, eib, EP, eR, eM)[:2]
     every = torch.ones(2 * eR, dtype=torch.bool, device="cuda")
     edges = torch.from_numpy(np.concatenate([
         _margins(np.random.default_rng(5), 2 * eR - 2),
@@ -1015,13 +1017,14 @@ def test_main_glue_kernels_match_plain_on_card(case):
                                         e_packed)
     e_want = pack_ref(e_a2, e_a2, edges, e_m2, every)
     torch.cuda.synchronize()
-    for a, b in zip(planes + (cov, rescue, cov2), p_r + (c_r, r_r, c2_r)):
+    for a, b in zip(planes + (cov, a1, d1, m1, rescue, cov2),
+                    p_r + (c_r, b1, e1, n1, r_r, c2_r)):
         assert_bits(a.cpu(), b.cpu())
     assert_packed(packed.cpu().numpy(), want.cpu().numpy(), max_m)
     assert bool(torch.isinf(e_m2).all())
     assert_packed(e_packed.cpu().numpy(), e_want.cpu().numpy(), eM)
-    assert kernels.LAUNCHES["rel_prep"] == n0["rel_prep"] + 2
-    assert kernels.LAUNCHES["rel_dp"] == n0["rel_dp"] + 3
+    assert kernels.LAUNCHES["rel_prep"] == n0["rel_prep"]
+    assert kernels.LAUNCHES["rel_dp"] == n0["rel_dp"] + 5
     if case == "rescued":
         assert bool(rescue.all())
     if case == "scratch":
@@ -1078,11 +1081,9 @@ def test_alldev_glue_kernels_match_plain_on_card(case):
         assert_bits(a.cpu(), b.cpu())
     for k in un:
         assert_bits(un[k].cpu(), un_r[k].cpu())
-    k_a1, _, _, k_res, k_cov2, packed = kernels.rel_dp_rescue(*planes, cov,
-                                                              P)
+    k_a1, _, _, k_res, k_cov2 = kernels.rel_dp_rescue(*planes, cov, P)
     for a, b in zip((k_res, k_cov2), rescue_rows(planes, k_a1, P, max_m)):
         assert_bits(a.cpu(), b.cpu())
-    assert packed is None
     rescue, _ = rescue_rows(planes, a1, P, max_m)
     V = blob_views(fb, ib, *dims)
     args = (a1, a2, m1, m2, rescue, planes, V["rel_rows"], V["rel_cols"], P)

@@ -1,9 +1,11 @@
 """The slice as a whole: ``rel.rel_glued`` and ``alldev.classify_glued``
-(what ``rel_only`` and ``classify_batch`` run on a card) composed of the
-glue kernels' g++ shims and the DP and sweep kernels' shims
-(``rel_dp_host``, ``rel_dp_rescue_host``, ``rel_dp_pack_host``,
-``unrel_sweeps_host``), as the card runs them (three launches per
-main-path chunk; five and two torch ops per all-device chunk), against the JAX package's ``rel_only_dev`` and
+(what ``rel_only``'s graph replays and ``classify_batch`` runs on a card)
+composed of the glue kernels' g++ shims and the DP and sweep kernels'
+shims (``rel_dp_first_host``, ``rel_dp_host``, ``rel_dp_rescue_host``,
+``rel_dp_pack_host``, ``unrel_sweeps_host``), as the card runs them (two
+launches per main-path chunk, the first with its prologue; five and two
+torch ops per all-device chunk), against the JAX package's
+``rel_only_dev`` and
 ``classify_batch_dev`` on the CPU and against the port's plain glue
 around the same DP and sweep shims.
 
@@ -49,6 +51,7 @@ def _shims():
 
     return types.SimpleNamespace(
         rel_prep=kernels.rel_prep_host, rel_dp=kernels.rel_dp_host,
+        rel_dp_first=kernels.rel_dp_first_host,
         rel_dp_rescue=kernels.rel_dp_rescue_host,
         rel_dp_pack=kernels.rel_dp_pack_host,
         rel_settle=kernels.rel_settle_host,

@@ -251,15 +251,17 @@ def test_server_client_without_daemon_exits_1(tmp_path, capsys):
 @pytest.mark.gpu
 def test_serve_on_card_warms_one_launch_per_shape(tmp_path):
     """On the card: the daemon loads the kernels, uploads the tables once
-    and runs one DP launch per warm-up shape; a job's bytes are the
-    golden and its launches are counted in its reply."""
+    and readies each warm-up shape: one CUDA graph captured after the DP
+    kernel's two launches run eagerly; a job's bytes are the golden and
+    its launches and graph replays are counted in its reply."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     d = Daemon(["--warmup-root", TINY_FK, "--warmup-shape", "256x128",
                 "--warmup-shape", "256x192"], device="cuda")
     try:
         st = d.req({"cmd": "stats"})
-        assert st["launches"]["rel_dp"] == 2
+        assert st["launches"]["rel_dp"] == 4
+        assert st["graphs"]["captures"] == 2
         assert st["table_uploads"] == 1
         assert [256, 128] in st["warm_shapes"]
         out = tmp_path / "o.class"
@@ -267,6 +269,7 @@ def test_serve_on_card_warms_one_launch_per_shape(tmp_path):
                      "fastk_root": TINY_FK, "output": str(out)})
         assert rep["ok"], rep
         assert rep["launches"]["rel_dp"] > 0
+        assert rep["graphs"]["replays"] > 0
         assert out.read_bytes() == _gold()
         assert d.req({"cmd": "stats"})["table_uploads"] == 1
         assert d.req({"cmd": "shutdown"})["ok"]
