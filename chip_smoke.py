@@ -13,9 +13,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              C++ host library, all four at once, from the checkout; each
              entry function's registers, static shared bytes, stack and
              spill bytes (rel_dp_kernel and rel_dp_first_kernel, the DP
-             kernel's two instantiations; unrel_kernel,
-             rel_prep_alldev_kernel, rel_settle_kernel) are parsed from
-             the log, and a stack or a spill fails the run.
+             kernel's two instantiations; unrel_kernel and
+             unrel_gate_kernel, the sweep kernel's without and with its
+             gate tail; rel_prep_alldev_kernel, rel_settle_kernel) are
+             parsed from the log, and a stack or a spill fails the run.
 3. kernel  - the DP kernel against its plain torch version (rel_ref) on
              the card: the packs of the medium fixture's chunks (batch 200,
              their natural (R, max_m) buckets), a pack whose rows the
@@ -87,31 +88,48 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
              against its plain version (unrel_ref) on the card, asgn and
-             margins bit-equal; rel_prep in the all-device layout
-             (alldev.prep_ref), the DP's first pass with its rescue tail
-             (rel.rescue_rows) and rel_settle (alldev.settle_ref: the
-             sweeps' assignment rows and the margin gate) against their
-             plain versions, bit for bit; and the whole classify_batch
-             with the kernels against it with the plain versions,
-             outputs and flags equal; times each (every chunk kept),
-             the glue kernels with their launch geometry (threads and
-             blocks, shared bytes per block).  With --parent DIR (a
-             checkout of an earlier commit), that checkout's rel_prep and
-             rel_settle are held against
-             this tree's on every chunk, bit for bit, and timed in turns
-             with them (parent, this tree, this tree, parent).
-             Then one synthetic long-row chunk (the tests'
-             random_sweep_inputs, 256 rows of up to 1100 intervals: the
-             rows' state in the global scratch) through the sweep kernel,
+             margins bit-equal; its gate tail (unrel_gate_kernel: the
+             rows packed with each read's guard flag) against the plain
+             clamp == + cat (alldev.gate_ref) every byte, on the chunk's
+             margin gates and on 7 gates planted at each read's margin;
+             rel_prep in the all-device layout (alldev.prep_ref), the
+             DP's first pass with its rescue tail (rel.rescue_rows) and
+             rel_settle (alldev.settle_ref: the sweeps' assignment rows
+             and the margin gate) against their plain versions, bit for
+             bit; the whole classify_batch (the replay of the bucket's
+             CUDA graph) against it with the plain versions, outputs and
+             flags equal; the chunk's own alldev.BatchGraph: its replay's
+             packed bytes equal to the five eager launches' and to the
+             plain glue's around the DP and sweep kernels, every byte,
+             its capture and replay counted (five launches each); times
+             each (every chunk kept): the glue kernels with their launch
+             geometry (threads and blocks, shared bytes per block), the
+             sweep kernel with and without its gate tail in turns (CUDA
+             graphs of 20 launches), the graph replay beside the five
+             launches called eagerly (events around 20 calls), and the
+             memory the capture reserved.  With --parent DIR (a checkout
+             of an earlier commit), that checkout's rel_prep, rel_settle
+             and sweep kernel are held against this tree's on every
+             chunk, bit for bit, and timed in turns with them (parent,
+             this tree, this tree, parent; the sweep kernel against this
+             tree's with its gate tail).  Then one synthetic long-row
+             chunk (the tests' random_sweep_inputs, 256 rows of up to
+             1100 intervals: the rows' state in the global scratch)
+             through the sweep kernel with and without the tail,
              bit-equal and timed.  Then TorchEngine(alldev=True) over tiny
              and medium writes the golden bytes (launch counts reset just
              before and read after: every kernel of the path > 0, the
-             rescue tail run, the pack tail not), and the alldev stream
-             over medium (a warm-up of one sort window, three turns of
-             --alldev-passes passes), with each kernel's launches per chunk (five in
-             all), the K4+K6 glue's card ms per chunk
-             (classify_batch's span less the DP and sweep kernels') and
-             where the main thread's time goes.
+             rescue and gate tails run, the pack tail not, batch graphs
+             replayed, main chunk graphs not).
+   alldev_stream (in alldev, or alone) - the alldev stream over medium (a
+             warm-up of one sort window, which captures the buckets'
+             graphs: its captures, the graphs held and memory_reserved
+             before and after; then three turns of --alldev-passes
+             passes): k-mers/s, the replay's span on the card per chunk
+             (CUDA events around each BatchGraph.replay), launches,
+             replays and captures per chunk (five launches per replay and
+             per capture's eager run), the enqueue ms per chunk and where
+             the main thread's time goes.
    glue_ab (only when named) - both streams with the two compositions of
              the per-chunk glue taken in turns (plain glue, kernels,
              kernels, plain glue): the plain torch glue around the DP and
@@ -130,8 +148,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              tiny and medium goldens, and --resume after a truncated and
              a deleted shard recomputes only those two; (c)
              sharded_classify of 4 distinct medium read groups over
-             cuda:{i % cards} equals one classify_batch per shard, its
-             unflagged reads the C++ exact path, both kernels launched;
+             cuda:{i % cards} (cuda:0 four times on one card) equals
+             one classify_batch per shard, the four shards differ, its
+             unflagged reads the C++ exact path, every kernel of the path
+             launched, one batch graph replay per shard;
              (d) TorchEngine(devices=...) (every card, or cuda:0 twice on
              one card) writes the medium golden on both paths; (e)
              classify -s on tiny FASTX and on the tiny .dam fixture, and
@@ -174,7 +194,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              parity against the exact oracle (0 mismatches), the two-shard
              merge's byte equality and the served job's wall.
 
-It prints one {"kernels": [...]} line (rel_dp, with its two tails
+It prints one {"kernels": [...]} line (unrel_sweeps with its gate tail:
+the tail's launches on the all-device path, its time beside K5's
+without it in turns, with --parent the parent's K5 in turns; rel_dp,
+with its two tails
 (rel_rescue, rel_pack: each fused launch's time beside the DP launch's
 without it, the plain versions' times, the fused bounds, and with
 --parent the parent's rescue pass in turns); rel_dp_first, the DP
@@ -252,19 +275,20 @@ OPS_SETTLE_CELL = 40
 # two: the planes from another launch, and the main path's first pass
 # with its prologue)
 ENTRIES = {"rel_dp": ("rel_dp_kernel", "rel_dp_first_kernel"),
-           "unrel_sweeps": ("unrel_kernel",),
+           "unrel_sweeps": ("unrel_kernel", "unrel_gate_kernel"),
            "rel_prep": ("rel_prep_alldev_kernel",),
            "rel_settle": ("rel_settle_kernel",)}
-# the kernels each path launches, and the DP kernel's fused parts each
-# path runs (kernels.TAIL_LAUNCHES: launches of rel_dp that ran the part)
+# the kernels each path launches, and the DP and sweep kernels' fused
+# parts each path runs (kernels.TAIL_LAUNCHES: launches that ran the part)
 MAIN_PATH = ("rel_dp",)
 ALLDEV_PATH = ("rel_prep", "rel_dp", "rel_settle", "unrel_sweeps")
 MAIN_TAILS = ("prologue", "rel_rescue", "rel_pack")
-ALLDEV_TAILS = ("rel_rescue",)
+ALLDEV_TAILS = ("rel_rescue", "gate")
 # the JAX function each tail replaces (device_pipeline.py: _rel_pipeline's
 # rescue predicate and merge, _pack_out)
 TAIL_REPLACES = {"rel_rescue": "classpro_tpu/tpu/device_pipeline.py:153",
-                 "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638"}
+                 "rel_pack": "classpro_tpu/tpu/device_pipeline.py:638",
+                 "gate": "classpro_tpu/tpu/device_pipeline.py:698"}
 # the C argument lists of a tree before the prologue (its glue library
 # holds rel_prep_main_kernel): its DP kernel's (rel_dp.cu RD_ARGS_DECL
 # without the blobs) and its rel_prep's (glue.cu GP_ARGS_DECL with
@@ -275,6 +299,10 @@ PRE_PROLOGUE_ARGTYPES = {
     "rel_dp": [_P_] * 22 + [_I_, _I_, _P_, _P_, _I_, _D_, _L_] + [_D_] * 4,
     "rel_prep": ([_P_] * 4 + [_D_] + [_I_] * 4 + [_D_] * 2 + [_P_] * 18
                  + [_I_])}
+# the sweep kernel's C argument list in a tree before its gate tail
+# (unrel.cu UR_ARGS_DECL without the gate)
+PRE_GATE_ARGTYPES = ([_P_] * 12 + [_I_, _I_, _P_, _P_, _I_, _P_, _I_]
+                     + [_D_] * 5 + [_L_] * 3)
 
 
 def fail(msg: str) -> None:
@@ -287,36 +315,37 @@ def say(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    """Every kernel's launch count, the DP kernel's tail counts and the
-    chunk graphs' captures and replays to 0."""
-    from classpro_tpu_torch import kernels, rel
+    """Every kernel's launch count, the DP and sweep kernels' tail counts
+    and both kinds of chunk graph's captures and replays to 0."""
+    from classpro_tpu_torch import alldev, kernels, rel
 
     for counts in (kernels.LAUNCHES, kernels.TAIL_LAUNCHES,
-                   rel.GRAPH_COUNTS):
+                   rel.GRAPH_COUNTS, alldev.GRAPH_COUNTS):
         for k in counts:
             counts[k] = 0
 
 
-def _path_launches(path: str, kernels_of, tails_of,
-                   replays: bool = False) -> dict:
-    """The launch counts since the last _reset_launches, with the DP
-    kernel's tail counts under "tails" and the chunk graphs' under
-    "graphs"; fails unless each kernel of ``kernels_of`` and each tail of
-    ``tails_of`` ran at least once and, with ``replays``, a chunk graph
-    replayed (else none did)."""
-    from classpro_tpu_torch import kernels, rel
+def _path_launches(path: str, kernels_of, tails_of, graphs: str) -> dict:
+    """The launch counts since the last _reset_launches, with the tail
+    counts under "tails", the main chunk graphs' under "graphs" and the
+    all-device chunk graphs' under "batch_graphs"; fails unless each
+    kernel of ``kernels_of`` and each tail of ``tails_of`` ran at least
+    once and graphs of the kind ``graphs`` names replayed ("graphs" or
+    "batch_graphs"; the other kind none)."""
+    from classpro_tpu_torch import alldev, kernels, rel
 
     launches = dict(kernels.LAUNCHES, tails=dict(kernels.TAIL_LAUNCHES),
-                    graphs=dict(rel.GRAPH_COUNTS))
+                    graphs=dict(rel.GRAPH_COUNTS),
+                    batch_graphs=dict(alldev.GRAPH_COUNTS))
     for k in kernels_of:
         if launches[k] <= 0:
             fail(f"{path} launched kernel {k} no time")
     for k in tails_of:
         if launches["tails"][k] <= 0:
-            fail(f"{path} ran the DP kernel's {k} tail no time")
-    if (launches["graphs"]["replays"] > 0) != replays:
-        fail(f"{path} replayed {launches['graphs']['replays']} chunk "
-             f"graph(s)")
+            fail(f"{path} ran the {k} tail no time")
+    for kind in ("graphs", "batch_graphs"):
+        if (launches[kind]["replays"] > 0) != (kind == graphs):
+            fail(f"{path} replayed {launches[kind]['replays']} {kind}")
     return launches
 
 
@@ -618,14 +647,15 @@ def _check_pack(tag: str, got, args) -> float:
 
 
 def _counts() -> dict:
-    """The kernels' launch and tail counts and the chunk graphs' captures
-    and replays, flat (launches by kernel name, tails and graph counts by
-    "tails."/"graphs." names)."""
-    from classpro_tpu_torch import kernels, rel
+    """The kernels' launch and tail counts and both kinds of chunk graph's
+    captures and replays, flat (launches by kernel name, tails and graph
+    counts by "tails."/"graphs."/"batch." names)."""
+    from classpro_tpu_torch import alldev, kernels, rel
 
     out = dict(kernels.LAUNCHES)
     out.update({f"tails.{k}": n for k, n in kernels.TAIL_LAUNCHES.items()})
     out.update({f"graphs.{k}": n for k, n in rel.GRAPH_COUNTS.items()})
+    out.update({f"batch.{k}": n for k, n in alldev.GRAPH_COUNTS.items()})
     return out
 
 
@@ -1075,6 +1105,25 @@ def _glue_entry(name: str, g: dict, launches: int, err: float,
             **res[ENTRIES[name][0]], "resources": res, **g["geometry"]}
 
 
+def _gate_entry(arec: dict, launches: int, Bn: int) -> dict:
+    """The sweep kernel's gate tail for its entry of the {"kernels": [...]}
+    line: the JAX code it replaces, the launches that ran it on the
+    all-device path, its largest difference from its plain version (every
+    byte was checked equal), the medium chunk timed last with and without
+    the tail (in turns, CUDA graphs of 20 launches) and every chunk's, the
+    long-row chunk's, with --parent the parent's sweep kernel in turns,
+    and the tail's own bound (each read's gate read, its flag byte
+    written)."""
+    g, lr = arec["gate"], arec["long_row"]["gate"]
+    ab = g["tail_ab"][-1]
+    return {"replaces": TAIL_REPLACES["gate"], "launches": launches,
+            "max_abs_err": 0.0, "ms": (ab[1] + ab[2]) / 2,
+            "k5_ms": (ab[0] + ab[3]) / 2, "ab_ms": g["tail_ab"],
+            "long_row_ab_ms": lr["tail_ab"],
+            "parent_ab_ms": g.get("parent_ab"),
+            "tail_bound_ms": _bound(Bn * (16 + 1), 2 * Bn)["ms"]}
+
+
 def _first_entry(krec: dict, launches: dict, brec) -> dict:
     """The fused first pass's entry of the {"kernels": [...]} line (the
     DP kernel's rel_dp_first_kernel: the prologue that replaced rel_prep's
@@ -1407,7 +1456,7 @@ def phase_e2e():
                 f"{wall:.2f} s incl. set-up, guard_flagged "
                 f"{st['guard_flagged']}, buckets {st['shapes']})")
         launches = _path_launches("main path", MAIN_PATH, MAIN_TAILS,
-                                  replays=True)
+                                  "graphs")
         if launches["rel_prep"]:
             fail(f"main path launched rel_prep: {launches}")
         say(f"e2e launches: {launches}")
@@ -1526,11 +1575,11 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
     (n passes, every chunk checked against the golden; returns seconds),
     k-mers and reads per pass, ``comps`` ("plain_glue": the plain torch
     glue around the DP and sweep kernels, the composition before the glue
-    kernels, on the main path rel_only's eager launches after an upload;
-    "kernels": the path as it ships, on the main path the chunk graph's
-    replay) and ``install(fn)``, which puts fn in place of the path's
-    TorchEngine._rel / classify_batch and returns the undo."""
-    import functools
+    kernels, after an upload (on the main path rel_only's eager launches,
+    on the all-device path classify_batch's plain glue); "kernels": the
+    path as it ships, the bucket graph's replay) and ``install(fn)``,
+    which puts fn in place of TorchEngine._device_stage and returns the
+    undo."""
     import types
 
     from classpro_tpu_torch import alldev as alldev_mod
@@ -1543,17 +1592,16 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
                                  alldev=alldev)
     B = 200                                  # input chunks, as the CLI
     spans = [(lo, min(lo + B, len(seqs))) for lo in range(0, len(seqs), B)]
-    mod, attr = ((alldev_mod, "classify_batch") if alldev
-                 else (engine_mod.TorchEngine, "_rel"))
+    mod, attr = engine_mod.TorchEngine, "_device_stage"
     orig = getattr(mod, attr)
 
-    def plain_rel(self, f, i, P, R, max_m):
-        return engine_mod.rel_only(f.to(P.device, non_blocking=True),
-                                   i.to(P.device, non_blocking=True), P, R,
-                                   max_m, impl=kernels.rel_dp)
-
-    plain = (functools.partial(orig, impl=("cuda", "cuda")) if alldev
-             else plain_rel)
+    def plain(self, f, i, P, PP, shape):
+        f = f.to(P.device, non_blocking=True)
+        i = i.to(P.device, non_blocking=True)
+        if PP is not None:
+            return alldev_mod.pack_flags(*alldev_mod.classify_batch(
+                f, i, PP, *shape, impl=("cuda", "cuda")))
+        return engine_mod.rel_only(f, i, P, *shape, impl=kernels.rel_dp)
 
     def run(n):
         chunks = ((seqs[lo:hi], profs[lo:hi])
@@ -1838,7 +1886,7 @@ def _k6_bound(fb, ib, dims) -> dict:
 
 def _compare_sweeps(tag, args, P):
     """Sweep kernel vs plain on the same card inputs, bit for bit; returns
-    the plain version's output and its ms (one call)."""
+    the plain version's (asgn, margin) and its ms (one call)."""
     from classpro_tpu_torch import kernels
     from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
 
@@ -1855,7 +1903,7 @@ def _compare_sweeps(tag, args, P):
         fin = torch.isfinite(m_k) & torch.isfinite(m_r)
         fail(f"{tag}: sweep margins differ (finite max |err| "
              f"{float((m_k[fin] - m_r[fin]).abs().max()):.3e})")
-    return a_r, plain
+    return (a_r, m_r), plain
 
 
 def _time_sweeps(args, P, max_n: int, plain: float) -> dict:
@@ -1983,13 +2031,15 @@ def _glue_alldev(tag, fb_d, ib_d, P, dims) -> dict:
 
 def _parent_kernels(parent: str) -> dict:
     """The launch entries of the checkout ``parent`` (an earlier commit of
-    this repository): its classpro_tpu_torch/csrc/rel_dp.cu and glue.cu
-    built with this tree's nvcc flags into libraries of their own, both at
-    once.  A tree with the DP kernel's prologue (rel_dp_first_kernel in
-    its build log) is bound with this tree's argument lists; a tree
-    before it (rel_prep_main_kernel in its glue library) with those of
-    then (PRE_PROLOGUE_ARGTYPES), its rel_settle with this tree's.
-    Returns {"fns": name -> C launch entry, "prologue": bool}."""
+    this repository): its classpro_tpu_torch/csrc/rel_dp.cu, glue.cu and
+    unrel.cu built with this tree's nvcc flags into libraries of their
+    own, all at once.  A tree with the DP kernel's prologue
+    (rel_dp_first_kernel in its build log) is bound with this tree's
+    argument lists; a tree before it (rel_prep_main_kernel in its glue
+    library) with those of then (PRE_PROLOGUE_ARGTYPES), its rel_settle
+    with this tree's; its sweep kernel with this tree's where it has the
+    gate tail (unrel_gate_kernel), else with PRE_GATE_ARGTYPES.  Returns
+    {"fns": name -> C launch entry, "prologue": bool, "gate": bool}."""
     from classpro_tpu_torch import kernels
 
     csrc = os.path.join(parent, "classpro_tpu_torch", "csrc")
@@ -2001,7 +2051,7 @@ def _parent_kernels(parent: str) -> dict:
         + ["-I", csrc, os.path.join(csrc, src), "-o",
            os.path.join(out, f"lib{src[:-3]}_parent.so")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("rel_dp.cu", "glue.cu")}
+        for src in ("rel_dp.cu", "glue.cu", "unrel.cu")}
     logs = {src: p.communicate()[0] for src, p in procs.items()}
     for src, p in procs.items():
         if p.returncode != 0:
@@ -2012,26 +2062,32 @@ def _parent_kernels(parent: str) -> dict:
     if not prologue and "rel_prep_main_kernel" not in logs["glue.cu"]:
         fail(f"--parent {parent}: neither the DP kernel's prologue nor "
              f"rel_prep's main layout in its build")
+    gate = "unrel_gate_kernel" in logs["unrel.cu"]
     argtypes = kernels._ARGTYPES if prologue else dict(
         kernels._ARGTYPES, **PRE_PROLOGUE_ARGTYPES)
+    if not gate:
+        argtypes = dict(argtypes, unrel_sweeps=PRE_GATE_ARGTYPES)
     entries = (("rel_dp", "rel_dp.cu", ("rel_dp_kernel",)
                 + (("rel_dp_first_kernel",) if prologue else ())),
                ("rel_prep", "glue.cu", ("rel_prep_alldev_kernel",)
                 + (() if prologue else ("rel_prep_main_kernel",))),
-               ("rel_settle", "glue.cu", ("rel_settle_kernel",)))
+               ("rel_settle", "glue.cu", ("rel_settle_kernel",)),
+               ("unrel_sweeps", "unrel.cu", ("unrel_kernel",)
+                + (("unrel_gate_kernel",) if gate else ())))
     fns = {}
     for name, src, names in entries:
-        fn = getattr(libs[src], f"{name}_launch")
+        fn = getattr(libs[src], kernels._ENTRY[(name, "cuda")])
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes[name] + [ctypes.c_void_p]
         fns[name] = fn
         for entry in names:
             res = ptxas_resources(logs[src], entry)
             say(f"build: parent {entry} {json.dumps(res)}")
-    say(f"build: nvcc {parent}'s rel_dp.cu and glue.cu "
+    say(f"build: nvcc {parent}'s rel_dp.cu, glue.cu and unrel.cu "
         f"{time.time() - t0:.1f} s ({'with' if prologue else 'before'} the "
-        f"DP kernel's prologue)")
-    return {"fns": fns, "prologue": prologue}
+        f"DP kernel's prologue, {'with' if gate else 'before'} the sweep "
+        f"kernel's gate tail)")
+    return {"fns": fns, "prologue": prologue, "gate": gate}
 
 
 def _time_parent(g: dict, name: str, args, par: dict, fresh,
@@ -2081,6 +2137,144 @@ def _time_parent(g: dict, name: str, args, par: dict, fresh,
         f"bit-equal to this tree's")
 
 
+def _planted_gates(mm):
+    """Margin gates (2, B) planted at each read's margin m, each with lo <=
+    hi as rel_settle writes them: open; unflagged (lo, hi); [m, m]; one
+    ulp above m to inf; -inf to one ulp below m; [lo, max(m, lo)]; [min(m,
+    hi), hi] (a sweep's margin cannot be chosen, so the unflagged gate's
+    edges, the smallest positive double and the double below 1e-5, are
+    held at the margins the chunk has, at equality and one ulp off)."""
+    from classpro_tpu_torch.kernels import GATE_UNFLAGGED
+
+    inf = float("inf")
+    full = lambda v: torch.full_like(mm, v)
+    lo, hi = full(GATE_UNFLAGGED[0]), full(GATE_UNFLAGGED[1])
+    return [torch.stack(g) for g in (
+        (full(-inf), full(inf)), (lo, hi), (mm, mm),
+        (torch.nextafter(mm, full(inf)), full(inf)),
+        (full(-inf), torch.nextafter(mm, full(-inf))),
+        (lo, torch.maximum(mm, lo)), (torch.minimum(mm, hi), hi))]
+
+
+def _check_gate_tail(tag, args, P, plain, gates) -> int:
+    """The sweep kernel with its gate tail on each of ``gates`` against
+    the plain sweeps' (asgn, margin) ``plain`` and alldev.gate_ref, every
+    byte of the packed rows and every bit of the margins.  Returns the
+    flags set over all gates."""
+    from classpro_tpu_torch import alldev, kernels
+
+    flagged = 0
+    for k, gate in enumerate(gates):
+        packed, mm = kernels.unrel_sweeps(*args, P, gate=gate)
+        want = alldev.gate_ref(*plain, gate)
+        if not torch.equal(packed, want):
+            bad = int((packed != want).any(1).sum())
+            fail(f"{tag}: the gate tail's packed rows differ from the plain "
+                 f"clamp == + cat on {bad} row(s) (gate {k})")
+        _same(tag, "the gate tail launch's margins", mm, plain[1])
+        flagged += int(packed[:, -1].sum())
+    return flagged
+
+
+def _time_gate_tail(rec: dict, args, P, gate, par, tag: str) -> None:
+    """The sweep kernel with and without its gate tail, ms per launch in a
+    CUDA graph of 20 launches (``_graph_ms``), in turns (without, with,
+    with, without), appended to rec; with ``par`` (the parent's launch
+    entries) the parent's sweep kernel on the same inputs, its outputs
+    bit-equal to this tree's launch without the tail, timed in turns with
+    this tree's with the tail (parent, this tree, this tree, parent)."""
+    from classpro_tpu_torch import kernels
+
+    tail = lambda: kernels.unrel_sweeps(*args, P, gate=gate)
+    bare = lambda: kernels.unrel_sweeps(*args, P)
+    ab = [_graph_ms(bare, 20), _graph_ms(tail, 20), _graph_ms(tail, 20),
+          _graph_ms(bare, 20)]
+    rec.setdefault("tail_ab", []).append(ab)
+    say(f"  sweep kernel in a CUDA graph: without its gate tail {ab[0]:.4f}, "
+        f"{ab[3]:.4f} ms per launch, with it {ab[1]:.4f}, {ab[2]:.4f} (in "
+        f"turns)")
+    if par is None:
+        return
+    fn = par["fns"]["unrel_sweeps"]
+    dev = args[1].device
+
+    def parent():
+        cargs, out, mm, scratch = kernels._unrel_args(
+            tuple(args[:8]), args[8], P, dev, "cuda")
+        if not par["gate"]:
+            cargs = cargs[:9] + cargs[10:]       # no gate argument then
+        err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"parent unrel_sweeps launch failed: CUDA error {err}")
+        return out, mm, scratch
+
+    theirs = parent()
+    mine = bare()
+    for what, a, b in (("rows", theirs[0], mine[0]),
+                       ("margins", theirs[1], mine[1])):
+        _same(tag, f"the parent's sweep kernel's {what} against this "
+              f"tree's", a, b)
+    pab = [_graph_ms(parent, 20), _graph_ms(tail, 20), _graph_ms(tail, 20),
+           _graph_ms(parent, 20)]
+    rec.setdefault("parent_ab", []).append(pab)
+    say(f"  sweep kernel: the parent's {pab[0]:.4f}, {pab[3]:.4f} ms per "
+        f"launch, this tree's with its gate tail {pab[1]:.4f}, {pab[2]:.4f} "
+        f"(in turns); the parent's outputs bit-equal to this tree's")
+
+
+def _graph_alldev(tag, fb_d, ib_d, PP, dims) -> dict:
+    """The chunk's CUDA graph (an alldev.BatchGraph of its own, captured
+    here) against the eager launches and the plain glue, every byte: its
+    replay's packed output == alldev.classify_glued's five launches,
+    eagerly == the plain glue around the DP and sweep kernels
+    (classify_batch with impl=(rel_dp, unrel_sweeps), pack_flags); the
+    capture counts nothing but its eager run, each replay the five
+    launches (BATCH_LAUNCHES); a blob of another shape is refused.  Then
+    the replay's ms per chunk (CUDA events around 20 replays) beside the
+    eager launches' (CUDA events around 20 calls: what the card waits for
+    when the host launches them one by one).  Returns the times and the
+    memory the capture reserved."""
+    from classpro_tpu_torch import alldev, kernels
+
+    torch.cuda.synchronize()
+    r0, c0 = torch.cuda.memory_reserved(), _counts()
+    g = alldev.BatchGraph(PP, *dims)
+    c1 = _counts()
+    got = g.run(fb_d, ib_d).clone()
+    c2 = _counts()
+    reserved = torch.cuda.memory_reserved() - r0
+    eager = alldev.classify_glued(fb_d, ib_d, PP, *dims, kernels)
+    plain = alldev.pack_flags(*alldev.classify_batch(
+        fb_d, ib_d, PP, *dims, impl=(kernels.rel_dp, kernels.unrel_sweeps)))
+    torch.cuda.synchronize()
+    want_cap = dict(BATCH_LAUNCHES, **{"batch.captures": 1})
+    want_rep = dict(BATCH_LAUNCHES, **{"batch.replays": 1})
+    if _delta(c0, c1) != want_cap or _delta(c1, c2) != want_rep:
+        fail(f"{tag}: the batch graph's capture counted {_delta(c0, c1)} "
+             f"(want {want_cap}, its eager run), its replay "
+             f"{_delta(c1, c2)} (want {want_rep})")
+    for what, other in (("the eager launches'", eager),
+                        ("the plain glue's around the DP and sweep kernels",
+                         plain)):
+        if not torch.equal(got, other):
+            bad = int((got != other).any(1).sum())
+            fail(f"{tag}: the batch graph replay's packed output differs "
+                 f"from {what} on {bad} row(s)")
+    try:
+        g.run(fb_d[:-1], ib_d)
+    except ValueError:
+        pass
+    else:
+        fail(f"{tag}: the batch graph took a blob of another shape")
+    replay = _time_cuda(g.replay, 20)
+    eager_ms = _time_cuda(lambda: alldev.classify_glued(
+        fb_d, ib_d, PP, *dims, kernels), 20)
+    del g
+    return {"replay_ms": replay, "eager_ms": eager_ms,
+            "capture_reserved_bytes": reserved,
+            "flagged": int(got[:, -1].sum())}
+
+
 def phase_alldev(parent: dict | None = None):
     """Sweep kernel vs plain, the all-device glue kernels vs plain and
     classify_batch kernels vs plain on every medium chunk, and the sweep
@@ -2090,7 +2284,8 @@ def phase_alldev(parent: dict | None = None):
     turns.  Returns the record."""
     from classpro_tpu_torch import alldev, kernels
 
-    rec = {"max_abs_err": 0.0, "chunks": [], "glue": {}, "glue_err": {}}
+    rec = {"max_abs_err": 0.0, "chunks": [], "glue": {}, "glue_err": {},
+           "gate": {}}
     plains = {"rel_prep": lambda fb, ib, P, R, M, ad: alldev.prep_ref(
         fb, ib, P, R, M, *ad), "rel_settle": alldev.settle_ref}
     for k, c in enumerate(_alldev_chunks()):
@@ -2102,7 +2297,7 @@ def phase_alldev(parent: dict | None = None):
         Bn, max_n, R2, max_m = dims
         tag = f"medium alldev chunk {k} (Bn={Bn}, max_n={max_n}, " \
               f"R2={R2}, max_m={max_m})"
-        a_r, plain = _compare_sweeps(tag, args, PP.unrel)
+        (a_r, m_r), plain = _compare_sweeps(tag, args, PP.unrel)
         # the whole program with the kernels against the plain versions
         o_k, f_k = alldev.classify_batch(fb_d, ib_d, PP, *dims, impl="cuda")
         t0 = time.perf_counter()
@@ -2116,11 +2311,18 @@ def phase_alldev(parent: dict | None = None):
         gargs = _glue_alldev(tag, fb_d, ib_d, PP.rel, dims)
         for name, e in gargs["err"].items():
             rec["glue_err"][name] = max(rec["glue_err"].get(name, 0.0), e)
+        gate = gargs["rel_settle"][-1]
+        tail_flags = _check_gate_tail(tag, args, PP.unrel, (a_r, m_r),
+                                      [gate] + _planted_gates(m_r))
+        kg = _graph_alldev(tag, fb_d, ib_d, PP, dims)
         say(f"kernel == plain: {tag}: sweeps bit-equal on {Bn} rows "
             f"({changed} intervals decided by the sweeps), rel_prep, K1's "
             f"rescue tail and rel_settle bit-equal ({gargs['flagged']} reads "
-            f"with a risky rel margin), classify_batch equal "
-            f"({int(f_k.sum())} flagged)")
+            f"with a risky rel margin), the sweeps' gate tail == the plain "
+            f"clamp == + cat on the chunk's gate and 7 planted gates "
+            f"({tail_flags} flags set), classify_batch equal "
+            f"({int(f_k.sum())} flagged); the batch graph replay == the "
+            f"eager launches == the plain glue, every byte")
         for name in ("rel_prep", "rel_settle"):
             _time_glue(rec["glue"], name, gargs[name], plains[name],
                        gargs["bounds"][name])
@@ -2139,10 +2341,10 @@ def phase_alldev(parent: dict | None = None):
                 _time_parent(g, name, gargs[name], parent, gargs["fresh"],
                              tag)
         sw = _time_sweeps(args, PP.unrel, max_n, plain)
+        _time_gate_tail(rec["gate"], args, PP.unrel, gate, parent, tag)
         bnd = sw["bound"]
         k6 = _time_cuda(lambda: _k6(U, asgn8, rescue, PP.rel, dims), 10)
-        k7 = _time_cuda(lambda: alldev.classify_batch(fb_d, ib_d, PP, *dims,
-                                                      impl="cuda"), 5)
+        k7 = kg["replay_ms"]
         k6b = _k6_bound(fb, ib, dims)
         dpb = _bound_ms(planes, PP.rel.gcov[None, :].expand(
             R2, 4).contiguous(), PP.rel)
@@ -2151,6 +2353,8 @@ def phase_alldev(parent: dict | None = None):
         k7b_ops = dpb["steps"] * OPS_PER_STEP + bnd["ops"]
         k7b = max(k7b_bytes / PEAK_BYTES, k7b_ops / PEAK_F64) * 1e3
         ch = dict(sw, dims=list(dims), k6_ms=k6, k6_bound=k6b, k7_ms=k7,
+                  k7_eager_ms=kg["eager_ms"],
+                  k7_capture_reserved_bytes=kg["capture_reserved_bytes"],
                   k7_plain_ms=k7_plain, k7_bound_ms=k7b,
                   k7_bound_by="bytes" if k7b_bytes / PEAK_BYTES
                   >= k7b_ops / PEAK_F64 else "operations")
@@ -2165,19 +2369,26 @@ def phase_alldev(parent: dict | None = None):
             f"{bnd['records']} Skellam records and {bnd['tails']} tails, "
             f"operations {bnd['ops_ms']:.6f} ms for {bnd['steps']} active "
             f"steps); K6 glue {k6:.3f} ms (bound {k6b['ms']:.6f} ms, "
-            f"bytes); classify_batch {k7:.3f} ms per chunk, plain "
+            f"bytes); the chunk's graph replay {k7:.4f} ms per chunk "
+            f"(five launches called eagerly {kg['eager_ms']:.4f}; the "
+            f"capture reserved {kg['capture_reserved_bytes']} B), plain "
             f"{k7_plain:.1f} ms, bound {k7b:.6f} ms ({ch['k7_bound_by']})")
     rec["geometry"] = kernels.unrel_geometry(Bn, max_n)
     # a long-row chunk: the rows' state in the global scratch
     args = _long_row_chunk(c["gm"])
     B, N = args[1].shape
-    _, plain = _compare_sweeps(f"long-row chunk (B={B}, N={N})", args,
-                               PP.unrel)
+    tag = f"long-row chunk (B={B}, N={N})"
+    lr_plain, plain = _compare_sweeps(tag, args, PP.unrel)
+    gates = _planted_gates(lr_plain[1])
+    _check_gate_tail(tag, args, PP.unrel, lr_plain, gates)
     lr = _time_sweeps(args, PP.unrel, N, plain)
+    lr["gate"] = {}
+    _time_gate_tail(lr["gate"], args, PP.unrel, gates[1], parent, tag)
     lr.update(B=B, N=N, geometry=kernels.unrel_geometry(B, N))
     rec["long_row"] = lr
     say(f"kernel == plain: long-row chunk (B={B}, N={N}, launch geometry "
-        f"{json.dumps(lr['geometry'])}): bit-equal; {lr['ms']:.3f} ms per "
+        f"{json.dumps(lr['geometry'])}): bit-equal, the gate tail on 7 "
+        f"planted gates every byte; {lr['ms']:.3f} ms per "
         f"launch ({lr['us_per_step']:.2f} us per live step, "
         f"{lr['longest_live_steps']}; {lr['us_per_active_step']:.2f} us per "
         f"active step, {lr['longest_active_steps']}), plain torch "
@@ -2218,111 +2429,132 @@ def phase_alldev_e2e():
         say(f"alldev e2e {fx}: byte-identical to golden ({len(text)} bytes, "
             f"{time.time() - t0:.2f} s incl. set-up, guard_flagged "
             f"{eng.guard_flagged})")
-    launches = _path_launches("alldev path", ALLDEV_PATH, ALLDEV_TAILS)
+    launches = _path_launches("alldev path", ALLDEV_PATH, ALLDEV_TAILS,
+                              "batch_graphs")
     if launches["tails"]["rel_pack"] or launches["tails"]["prologue"]:
         fail("alldev path ran the DP kernel's pack tail or prologue")
     say(f"alldev e2e launches: {launches}")
     return launches
 
 
+# what one replay of an all-device chunk's graph (and one capture's eager
+# run) adds to the launch counts: its five launches, the first DP pass
+# with its rescue tail, the sweeps with their gate tail
+BATCH_LAUNCHES = {"rel_prep": 1, "rel_dp": 2, "rel_settle": 1,
+                  "unrel_sweeps": 1, "tails.rel_rescue": 1, "tails.gate": 1}
+
+
 def phase_alldev_stream(passes: int, turns=TURNS):
-    """The alldev stream over medium in the compositions of
-    classify_batch (``_medium_stream``) that ``turns`` names, in that
-    order.  Per turn: k-mers/s, the DP and sweep kernels' ms per launch (CUDA
-    events), launches per chunk, the glue's card ms per chunk
-    (classify_batch's span less the DP and sweep kernels'), where the
-    main thread's time goes and max_memory_allocated."""
+    """The alldev stream over medium in the compositions of the device
+    stage (``_medium_stream``) that ``turns`` names, in that order.  After
+    a warm-up of each (the passes of one sort window, which capture the
+    buckets' graphs; the graphs held and the memory the card's allocator
+    reserved before and after it), each turn is a run of ``passes``
+    passes that records every kernel's launches, the graphs' replays and
+    captures per chunk, the device stage's span on the card per chunk
+    (CUDA events on the stream around each graph replay; for the plain
+    glue around its classify_batch call), the main thread's enqueue ms
+    per chunk and where its time goes, and max_memory_allocated."""
+    from classpro_tpu_torch import alldev as alldev_mod
     from classpro_tpu_torch import engine as engine_mod
     from classpro_tpu_torch import kernels
 
     S = _medium_stream(True)
     eng = S.eng
 
-    def timed(fn, acc, host):
-        def g(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                host["classify_batch"] = host.get("classify_batch", 0.0) \
-                    + time.perf_counter() - t
-        return _spanned(g, acc)
-
     def turn(comp):
-        ev: dict = {name: [] for name in kernels.LAUNCHES}
-        ev["classify_batch"] = []
+        spans: list = []
         acc: dict = {}
-        undo = [S.install(timed(S.comps[comp], ev["classify_batch"], acc))]
-        undo.append(_launch_events(lambda name, args: ev[name]))
-        undo += [_clock(eng, n, acc) for n in ("_stage", "_submit", "_finish",
+        undo = [S.install(S.comps[comp]),
+                _span_attr(alldev_mod.BatchGraph, "replay", spans),
+                _span_attr(alldev_mod, "classify_batch", spans)]
+        undo += [_clock(eng, n, acc) for n in ("_stage", "_submit",
+                                               "_device_stage", "_finish",
                                                "_exact_full")]
         undo += [_clock(engine_mod, n, acc)
                  for n in ("pack_chunk", "expand_asgn")]
         torch.cuda.reset_peak_memory_stats()
-        c0, g0 = eng.chunks_done, eng.guard_flagged
+        g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
             wall = S.run(passes)
         finally:
-            for u in undo:
+            for u in reversed(undo):
                 u()
+        d = _delta(n0, _counts())
+        ms = [a.elapsed_time(b) for a, b in spans]
+        chunks = max(eng.chunks_done - c0, 1)
         a = lambda k: acc.get(k, 0.0)
+        enqueue = a("_submit") - a("_stage") - a("pack_chunk")
         host = {"wall_stage_cpp": a("_stage"),
                 "pack_chunk_numpy": a("pack_chunk"),
-                "classify_batch_enqueue": a("classify_batch"),
-                "pin_h2d_d2h_other_enqueue": a("_submit") - a("_stage")
-                - a("pack_chunk") - a("classify_batch"),
+                "device_stage_enqueue": a("_device_stage"),
+                "pin_h2d_d2h_other_enqueue": enqueue - a("_device_stage"),
                 "wait_device": a("_finish") - a("expand_asgn")
                 - a("_exact_full"),
                 "expand_asgn_numpy": a("expand_asgn"),
                 "exact_guard": a("_exact_full"),
                 "other": wall - a("_submit") - a("_finish")}
-        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
-        chunks = max(len(ms["classify_batch"]), 1)
-        glue = (sum(ms["classify_batch"]) - sum(ms["rel_dp"])
-                - sum(ms["unrel_sweeps"]))
-        per = lambda k: sum(ms[k]) / max(len(ms[k]), 1)
         return {"composition": comp,
                 "kmers_per_s": passes * S.kmers_pass / wall, "wall_s": wall,
-                "device_chunks": len(ms["classify_batch"]),
-                "engine_chunks": eng.chunks_done - c0,
-                "unrel_ms_per_launch": per("unrel_sweeps"),
-                "rel_dp_ms_per_launch": per("rel_dp"),
-                "launches_per_chunk": {
-                    k: len(ms[k]) / chunks for k in kernels.LAUNCHES},
-                "glue_k4_k6_ms_per_chunk": glue / chunks,
-                "classify_batch_ms_per_chunk": sum(ms["classify_batch"])
-                / chunks,
-                "classify_batch_enqueue_ms_per_chunk":
-                    host["classify_batch_enqueue"] * 1e3 / chunks,
-                "device_busy_share": sum(ms["classify_batch"]) / 1e3 / wall,
+                "device_chunks": chunks,
+                "launches_per_chunk": {k: d.get(k, 0) / chunks
+                                       for k in kernels.LAUNCHES},
+                "tails_per_chunk": {k: d.get(f"tails.{k}", 0) / chunks
+                                    for k in kernels.TAIL_LAUNCHES},
+                "replays_per_chunk": d.get("batch.replays", 0) / chunks,
+                "captures": d.get("batch.captures", 0),
+                "main_graph_replays": d.get("graphs.replays", 0),
+                "span_ms_per_chunk": sum(ms) / chunks,
+                "span_ms_min_max": [min(ms), max(ms)] if ms else None,
+                "device_busy_share": sum(ms) / 1e3 / wall,
+                "enqueue_ms_per_chunk": enqueue * 1e3 / chunks,
                 "guard_flagged": eng.guard_flagged - g0,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "host_s": host}
 
     comps = tuple(dict.fromkeys(turns))
+    torch.cuda.synchronize()
+    r0, c0 = torch.cuda.memory_reserved(), _counts()
     _warm(S, comps)
+    torch.cuda.synchronize()
+    warm = {"captures": _delta(c0, _counts()).get("batch.captures", 0),
+            "graphs": len(eng._batch_graphs),
+            "buckets": sorted(list(k[1:]) for k in eng._batch_graphs._graphs),
+            "memory_reserved_before": r0,
+            "memory_reserved_after": torch.cuda.memory_reserved()}
+    say(f"alldev stream warm-up: {warm['captures']} capture(s), "
+        f"{warm['graphs']} graph(s) held, buckets {warm['buckets']}; "
+        f"memory_reserved {r0} -> {warm['memory_reserved_after']} B")
     runs = [turn(c) for c in turns]
     for r in runs:
         if r["guard_flagged"]:
             fail(f"alldev stream ({r['composition']}): guard_flagged "
                  f"{r['guard_flagged']} on medium")
+        n = r["device_chunks"] * r["replays_per_chunk"] + r["captures"]
+        per = r["launches_per_chunk"]
+        if r["composition"] == "kernels" and (
+                r["main_graph_replays"] or r["replays_per_chunk"] <= 0
+                or any(abs(per[k] * r["device_chunks"] - v * n) > 1e-6
+                       for k, v in BATCH_LAUNCHES.items() if k in per)):
+            fail(f"alldev stream: the chunk is not one replay of five "
+                 f"launches: {json.dumps(r)}")
         say(f"alldev stream {r['composition']}: "
             f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s ({passes} passes of "
-            f"medium), sweep kernel {r['unrel_ms_per_launch']:.3f} ms per "
-            f"launch, DP kernel {r['rel_dp_ms_per_launch']:.3f} ms, K4+K6 "
-            f"glue {r['glue_k4_k6_ms_per_chunk']:.3f} ms/chunk, "
-            f"classify_batch {r['classify_batch_ms_per_chunk']:.3f} ms/chunk "
-            f"(enqueue {r['classify_batch_enqueue_ms_per_chunk']:.3f} ms), "
-            f"launches/chunk {json.dumps(r['launches_per_chunk'])}, "
+            f"medium), span {r['span_ms_per_chunk']:.3f} ms/chunk on the "
+            f"card ({'the graph replay' if r['composition'] == 'kernels'
+                     else 'classify_batch'}; min, max "
+            f"{r['span_ms_min_max']}), {r['replays_per_chunk']:.2f} replays, "
+            f"{r['captures']} captures, launches "
+            f"{json.dumps(r['launches_per_chunk'])} per chunk, enqueue "
+            f"{r['enqueue_ms_per_chunk']:.3f} ms/chunk, "
             f"max_memory_allocated {r['max_memory_allocated']}; main thread "
             f"s: " + ", ".join(f"{k} {v:.3f}" for k, v in r["host_s"].items()))
-    res = {"passes": passes, "runs": runs}
+    res = {"passes": passes, "warmup": warm, "runs": runs}
     for comp in comps:
         mine = [r for r in runs if r["composition"] == comp]
         res[comp] = {k: [r[k] for r in mine] for k in (
-            "kmers_per_s", "glue_k4_k6_ms_per_chunk",
-            "classify_batch_ms_per_chunk",
-            "classify_batch_enqueue_ms_per_chunk")}
+            "kmers_per_s", "span_ms_per_chunk", "enqueue_ms_per_chunk",
+            "replays_per_chunk")}
     return res
 
 
@@ -2503,7 +2735,7 @@ def _sharded(rec: dict, devices: list) -> None:
     fourth read in order of interval count, one common dims)."""
     import numpy as np
 
-    from classpro_tpu_torch import kernels
+    from classpro_tpu_torch import alldev, kernels
     from classpro_tpu_torch.alldev import classify_batch
     from classpro_tpu_torch.native import NativeWall
     from classpro_tpu_torch.pack import expand_asgn, pack_chunk
@@ -2538,8 +2770,13 @@ def _sharded(rec: dict, devices: list) -> None:
         runs.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(runs)
     launches = dict(kernels.LAUNCHES)
-    if any(launches[k] <= 0 for k in ALLDEV_PATH):
-        fail(f"sharded_classify launches {launches}: a kernel ran no time")
+    replays = alldev.GRAPH_COUNTS["replays"]
+    if any(launches[k] <= 0 for k in ALLDEV_PATH) \
+            or replays != SHARD_REPEATS * len(devices):
+        fail(f"sharded_classify launches {launches}, {replays} graph "
+             f"replays: a kernel ran no time, or a shard not by a replay")
+    if len({out[d].tobytes() for d in range(len(devices))}) != len(devices):
+        fail("sharded: two shards returned the same rows")
     checked = 0
     for d, (g, (fb, ib, _, meta)) in enumerate(zip(groups, packs)):
         dev = torch.device(devices[d])
@@ -2560,7 +2797,8 @@ def _sharded(rec: dict, devices: list) -> None:
     rec.update(sharded_devices=[str(d) for d in devices],
                sharded_dims=list(dims), sharded_ms=ms,
                sharded_ms_runs=runs,
-               sharded_launches=launches, sharded_reads_checked=checked,
+               sharded_launches=launches, sharded_replays=replays,
+               sharded_reads_checked=checked,
                sharded_flagged=int(flags.sum()))
     say(f"shard (c) sharded_classify over {devices}: 4 shards at dims "
         f"{dims} == one classify_batch each; {checked} unflagged reads == "
@@ -3127,6 +3365,7 @@ def main(argv=None) -> int:
     if "alldev" in phases:
         arec = phase_alldev(parent)
         alaunch = phase_alldev_e2e()
+    if phases & {"alldev", "alldev_stream"}:
         asrec = phase_alldev_stream(args.alldev_passes)
     if "profiled" in phases:                 # the child of _profiled_process
         say(json.dumps({"profiled": phase_profiled()}))
@@ -3191,6 +3430,10 @@ def main(argv=None) -> int:
             "long_row_ms": arec["long_row"]["ms"],
             "long_row_us_per_active_step":
                 arec["long_row"]["us_per_active_step"],
+            "tails": {"gate": _gate_entry(arec, alaunch["tails"]["gate"],
+                                          ch["dims"][0])},
+            "resources": {e: (brec or {}).get(e, {})
+                          for e in ENTRIES["unrel_sweeps"]},
             **(brec or {}).get("unrel_kernel", {}), **arec["geometry"]})
     if arec is not None:
         for name in ("rel_prep", "rel_settle"):

@@ -23,6 +23,7 @@ Layout
   steps
 - ``pack``       : the all-device path's blob packing and class expansion
 - ``alldev``     : ``classify_batch``, the all-device program of a chunk
+  (on a card one replay of its bucket's CUDA graph, ``BatchGraph``)
 - ``engine``     : ``TorchEngine`` streaming classifier (``alldev=True``
   takes the all-device path, ``devices=[...]`` round-robins chunks)
 - ``parallel``   : ``mesh`` (the histogram all-reduce, K8, and

@@ -23,13 +23,17 @@ divides in IEEE float64, so it equals the host ``rel.reconcile_fwbw`` on
 every row; the ``mode="drop"`` scatters send their sentinel indices to a
 spare row or column that is then cut off.
 
-On a card (``impl="cuda"``) a chunk is five launches and two torch ops
-(``classify_glued``): the glue kernels of csrc/glue.cu (rel_prep in this
-layout, rel_settle) around the DP kernel's two passes (the first with
-its rescue tail) and the sweep kernel.  The
+On a card (``impl="cuda"``) a chunk is five launches (``classify_glued``):
+the glue kernels of csrc/glue.cu (rel_prep in this layout, rel_settle)
+around the DP kernel's two passes (the first with its rescue tail) and
+the sweep kernel with its gate tail, which writes the packed result
+(each read's assignment bytes, then its guard flag).  The five are
+captured once per (device, Bn, max_n, R2, max_m) bucket and model in a
+CUDA graph (``BatchGraph``, cached by ``BatchGraphs``), which each chunk
+replays, as the JAX package runs one jitted program per bucket.  The
 torch functions here are their plain versions (``prep_ref``,
 ``settle_ref`` built from ``dp_planes``, ``un_planes``, ``demotes_dev``,
-``reconcile_dev`` and ``sweep_inputs``' scatter).
+``reconcile_dev`` and ``sweep_inputs``' scatter, ``gate_ref``).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ import torch
 
 from classpro_tpu_torch.kernels import GATE_UNFLAGGED, blob_views
 from classpro_tpu_torch.params import PipelineParams, RelParams
-from classpro_tpu_torch.rel import (REL_MARGIN_EPS, default_impl,
-                                    e_emission, merge_passes,
+from classpro_tpu_torch.rel import (REL_MARGIN_EPS, BlobGraph, GraphCache,
+                                    default_impl, e_emission, merge_passes,
                                     rel_pipeline as _rel_dp)
 
 ERROR, REPEAT, HAPLO, DIPLO, N_STATE = 0, 1, 2, 3, 4
@@ -312,47 +316,109 @@ def settle_ref(asgn1, asgn2, mm1, mm2, rescue, planes, rel_rows, rel_cols,
     gate[1].masked_fill_(f[:Bn] > 0, math.inf)
 
 
+def pack_flags(asgn, flags):
+    """The packed result of a chunk: uint8 (Bn, max_n + 1), each read's
+    assignment bytes, then its guard flag (0 or 1)."""
+    return torch.cat([asgn.view(torch.uint8),
+                      flags.to(torch.uint8)[:, None]], dim=1)
+
+
+def gate_ref(asgn, un_mm, gate):
+    """The sweep kernel's gate tail, plain: the rows ``asgn`` int8 (Bn,
+    max_n) packed with each read's guard flag, risky(un_mm) or the read's
+    rel flag as the margin ``gate`` (2, Bn) holds it.  The sweeps' margin
+    is never NaN (a NaN step margin counts as 1e-30), so a flagged read's
+    [-inf, inf] gate returns it unchanged."""
+    return pack_flags(asgn, torch.clamp(un_mm, gate[0], gate[1]) == un_mm)
+
+
 def classify_glued(fblob, iblob, P: PipelineParams, Bn: int, max_n: int,
                    R2: int, max_m: int, ops):
-    """classify_batch as five launches and two torch ops: ``ops`` holds
-    rel_prep, rel_dp_rescue, rel_dp, rel_settle and unrel_sweeps with the
-    contracts of the kernels module's wrappers (the kernels on a card; the
-    tests pass the g++ shims)."""
+    """classify_batch as five launches: ``ops`` holds rel_prep,
+    rel_dp_rescue, rel_dp, rel_settle and unrel_sweeps with the contracts
+    of the kernels module's wrappers (the kernels on a card; the tests
+    pass the g++ shims).  Returns the packed uint8 (Bn, max_n + 1)
+    (``pack_flags``), which the sweeps' gate tail writes."""
     R = R2 // 2
     V = blob_views(fblob, iblob, Bn, max_n, R2, max_m)
     planes, cov, un = ops.rel_prep(fblob, iblob, P.rel, R, max_m,
                                    alldev=(Bn, max_n))
     asgn1, _dp1, mm1, rescue, cov2 = ops.rel_dp_rescue(*planes, cov, P.rel)
     asgn2, _dp2, mm2 = ops.rel_dp(*planes, cov2, P.rel, active=rescue)
-    gate = un["gate"]
     ops.rel_settle(asgn1, asgn2, mm1, mm2, rescue, planes, V["rel_rows"],
-                   V["rel_cols"], P.rel, un["asgn"], gate)
-    out, un_mm = ops.unrel_sweeps(
+                   V["rel_cols"], P.rel, un["asgn"], un["gate"])
+    packed, _un_mm = ops.unrel_sweeps(
         un["is_rel"], un["asgn"], un["P13"], un["packL"], un["packR"],
-        V["idx_desc"], V["idx_asc"], un["live"], V["n"], P.unrel)
-    # risky(un_mm) or the read's rel flag: the sweeps' margin is never NaN
-    # (a NaN step margin counts as 1e-30), so a flagged read's [-inf, inf]
-    # gate returns it unchanged
-    return out, torch.clamp(un_mm, gate[0], gate[1]) == un_mm
+        V["idx_desc"], V["idx_asc"], un["live"], V["n"], P.unrel,
+        gate=un["gate"])
+    return packed
+
+
+def blob_sizes(Bn: int, max_n: int, R2: int, max_m: int) -> tuple:
+    """(fblob, iblob) element counts of an all-device chunk (the layout
+    above)."""
+    R = R2 // 2
+    return (5 * Bn * max_n + 3 * R2 * max_m,
+            10 * Bn * max_n + Bn + 5 * R2 * max_m + R * max_m + 3 * R2 + R)
+
+
+# captures and replays of the all-device chunk's CUDA graphs in this
+# process
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+class BatchGraph(BlobGraph):
+    """The all-device chunk of one (Bn, max_n, R2, max_m) bucket of one
+    PipelineParams on one card as one CUDA graph (rel.BlobGraph):
+    ``classify_glued``'s five launches, their planes and K5's scratch in
+    the graph's own pool; its output is the packed (Bn, max_n + 1) result
+    (the JAX package jits classify_batch_dev once per bucket)."""
+
+    COUNTS = GRAPH_COUNTS
+
+    def __init__(self, P: PipelineParams, Bn: int, max_n: int, R2: int,
+                 max_m: int):
+        from classpro_tpu_torch import kernels
+
+        self.P, self.dims = P, (Bn, max_n, R2, max_m)
+        super().__init__(P.device, *blob_sizes(*self.dims),
+                         lambda f, i: classify_glued(f, i, P, *self.dims,
+                                                     kernels))
+
+
+class BatchGraphs(GraphCache):
+    """BatchGraphs by (device, Bn, max_n, R2, max_m) and PipelineParams (the
+    object itself: its graph baked in the RelParams' and UnrelParams'
+    pointers and scalars).  An engine keeps its own; ``GRAPHS`` serves
+    ``classify_batch``."""
+
+    def __init__(self):
+        super().__init__(BatchGraph)
+
+
+GRAPHS = BatchGraphs()
 
 
 def classify_batch(fblob: torch.Tensor, iblob: torch.Tensor,
                    P: PipelineParams, Bn: int, max_n: int, R2: int,
                    max_m: int, impl=None):
     """Classify one packed read group on ``P``'s device
-    (device_pipeline.classify_batch_dev).  ``impl``: "cuda" (the kernels:
-    ``classify_glued``), "ref" (the plain versions) or a pair (DP, sweeps)
-    of callables with the kernels' contracts (the plain glue around them);
-    the default follows the device.
+    (device_pipeline.classify_batch_dev).  ``impl``: "cuda" (the replay of
+    the bucket's ``BatchGraph`` from the process-wide ``GRAPHS``, its
+    packed output copied out of the static buffer), "ref" (the plain
+    versions) or a pair (DP, sweeps) of callables with the kernels'
+    contracts (the plain glue around them); the default follows the
+    device.
 
     Returns (asgn int8 (Bn, max_n) per interval, flags bool (Bn,): reads
     whose rel or relaxation decisions fell inside the exactness-guard
-    epsilon, which the caller re-decides exactly)."""
+    epsilon, which the caller re-decides exactly); on a card both are
+    views of the packed result."""
     impl = impl or default_impl(fblob.device)
     if impl == "cuda":
-        from classpro_tpu_torch import kernels
-
-        return classify_glued(fblob, iblob, P, Bn, max_n, R2, max_m, kernels)
+        packed = GRAPHS.get(P, Bn, max_n, R2, max_m).run(fblob, iblob).clone()
+        return (packed[:, :max_n].view(torch.int8),
+                packed[:, max_n].view(torch.bool))
     dp_impl, un_impl = impl if isinstance(impl, tuple) else (impl, impl)
     R = R2 // 2
     U = unpack(fblob, iblob, Bn, max_n, R2, max_m)

@@ -36,6 +36,11 @@
 // and the tail gather under it, four shuffles and lane 0's compare-select
 // chain; the time is the longest row's chain, not bytes or flops
 // (PERF.md: cycles per step by phase, chip_smoke.py --phases k5profile).
+//
+// unrel_gate_kernel is the same body with the gate tail (unrel_row.cuh):
+// the all-device chunk's launch, which writes each row with the read's
+// guard flag as its last byte, the packed result the host copies back
+// (it replaces classify_batch_dev's flag, device_pipeline.py:698-705).
 
 // Build (see kernels.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 --fmad=false -Xptxas -v -shared -Xcompiler -fPIC.
@@ -47,8 +52,9 @@
 #define UR_ARGS_DECL                                                      \
   const void *is_rel, const void *asgn0, const void *P13,                 \
       const void *packL, const void *packR, const void *idx_desc,         \
-      const void *idx_asc, const void *live, const void *n, void *asgn,   \
-      void *mm_out, void *scratch, int B, int N, const void *tab, const void *lf_small,  \
+      const void *idx_asc, const void *live, const void *n,               \
+      const void *gate, void *asgn, void *mm_out, void *scratch, int B,    \
+      int N, const void *tab, const void *lf_small,                        \
       int n1, const void *btg_flat, int n_cap, double read_len,           \
       double r_logp, double log_1m_pe_mean, double log_pe_mean,           \
       double dr_ratio, long long cov_r, long long cov_h, long long cov_d
@@ -64,6 +70,7 @@ static ur::Args ur_make_args(UR_ARGS_DECL) {
   a.idx_asc = (const int*)idx_asc;
   a.live = (const unsigned char*)live;
   a.n = (const int*)n;
+  a.gate = (const double*)gate;
   a.asgn = (signed char*)asgn;
   a.mm_out = (double*)mm_out;
   a.scratch = (unsigned char*)scratch;
@@ -86,9 +93,9 @@ static ur::Args ur_make_args(UR_ARGS_DECL) {
 }
 
 #define UR_ARGS_PASS                                                      \
-  is_rel, asgn0, P13, packL, packR, idx_desc, idx_asc, live, n, asgn,     \
-      mm_out, scratch, B, N, tab, lf_small, n1, btg_flat, n_cap, read_len, r_logp, \
-      log_1m_pe_mean, log_pe_mean, dr_ratio, cov_r, cov_h, cov_d
+  is_rel, asgn0, P13, packL, packR, idx_desc, idx_asc, live, n, gate,    \
+      asgn, mm_out, scratch, B, N, tab, lf_small, n1, btg_flat, n_cap,    \
+      read_len, r_logp, log_1m_pe_mean, log_pe_mean, dr_ratio, cov_r, cov_h, cov_d
 
 // Launch geometry: one warp per block, ROWS_PER_WARP rows per block.
 constexpr int UR_THREADS = rd::WARP;
@@ -122,30 +129,68 @@ extern "C" int unrel_geometry(int B, int N, long long* out) {
 
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(UR_THREADS)
-unrel_kernel(ur::Args a, int use_smem) {
-  extern __shared__ __align__(16) unsigned char ur_smem[];
+extern __shared__ __align__(16) unsigned char ur_smem[];
+
+template <bool TAIL>
+__device__ __forceinline__ void unrel_block(const ur::Args& a,
+                                            int use_smem) {
   ur::Scratch scr{a.scratch, 0, false};
   if (use_smem) {
     scr.base = ur_smem;
     scr.row0 = blockIdx.x * UR_ROWS_PER_BLOCK;
     scr.packs = true;
   }
-  ur::warp_rows<1>(a, blockIdx.x * blockDim.x + threadIdx.x, scr);
+  ur::warp_rows<1, TAIL>(a, blockIdx.x * blockDim.x + threadIdx.x, scr);
 }
 
-// Launch on ``stream``; returns cudaGetLastError() (0 = launched).
+__global__ void __launch_bounds__(UR_THREADS)
+unrel_kernel(ur::Args a, int use_smem) {
+  unrel_block<false>(a, use_smem);
+}
+
+// with the gate tail: the rows and their guard flags, packed
+__global__ void __launch_bounds__(UR_THREADS)
+unrel_gate_kernel(ur::Args a, int use_smem) {
+  unrel_block<true>(a, use_smem);
+}
+
+// The dynamic shared bytes each kernel may take on each device, raised
+// (a call outside the stream) only when a launch needs more: the first
+// launch of a bucket, which a CUDA graph's capture follows, so that no
+// such call falls inside a capture.
+constexpr int UR_MAX_DEVICES = 64;
+static int ur_smem_set[2][UR_MAX_DEVICES];
+
+static int ur_allow_smem(const void* kernel, int tail, int bytes) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= UR_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (bytes <= 48 * 1024 || bytes <= ur_smem_set[tail][dev]) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == 0) ur_smem_set[tail][dev] = bytes;
+  return err;
+}
+
+// Launch on ``stream`` (unrel_gate_kernel where ``gate`` is given);
+// returns the CUDA error (0 = launched).
 extern "C" int unrel_launch(UR_ARGS_DECL, void* stream) {
   ur::Args a = ur_make_args(UR_ARGS_PASS);
   long long geo[6];
   unrel_geometry(B, N, geo);
-  if (geo[4] > 48 * 1024)
-    cudaFuncSetAttribute(unrel_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)geo[4]);
-  if (geo[3] > 0)
-    unrel_kernel<<<(int)geo[3], UR_THREADS, (size_t)geo[4],
-                   (cudaStream_t)stream>>>(a, geo[4] > 0);
+  const int tail = gate != nullptr;
+  const void* kernel = tail ? (const void*)unrel_gate_kernel
+                            : (const void*)unrel_kernel;
+  const int err = ur_allow_smem(kernel, tail, (int)geo[4]);
+  if (err != 0) return err;
+  if (geo[3] > 0) {
+    if (tail)
+      unrel_gate_kernel<<<(int)geo[3], UR_THREADS, (size_t)geo[4],
+                          (cudaStream_t)stream>>>(a, geo[4] > 0);
+    else
+      unrel_kernel<<<(int)geo[3], UR_THREADS, (size_t)geo[4],
+                     (cudaStream_t)stream>>>(a, geo[4] > 0);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -163,16 +208,20 @@ extern "C" int unrel_phase_clocks(unsigned long long* out, int reset) {
 
 #else
 
-// Host test shim: the same warp body, one warp's 32 lanes per call, over
-// the warps of the launch; the rows' state lives in the global scratch, in
-// the card's layout (with the records where the card keeps them in shared
-// memory).
+// Host test shim: the same warp body (with the gate tail where ``gate``
+// is given), one warp's 32 lanes per call, over the warps of the launch;
+// the rows' state lives in the global scratch, in the card's layout (with
+// the records where the card keeps them in shared memory).
 extern "C" int unrel_host(UR_ARGS_DECL) {
   ur::Args a = ur_make_args(UR_ARGS_PASS);
   const ur::Scratch scr{a.scratch, 0, ur_in_smem(N)};
   const int lanes = ur_blocks(B) * UR_THREADS;
-  for (int g0 = 0; g0 < lanes; g0 += rd::WARP)
-    ur::warp_rows<rd::WARP>(a, g0, scr);
+  for (int g0 = 0; g0 < lanes; g0 += rd::WARP) {
+    if (gate)
+      ur::warp_rows<rd::WARP, true>(a, g0, scr);
+    else
+      ur::warp_rows<rd::WARP, false>(a, g0, scr);
+  }
   return 0;
 }
 

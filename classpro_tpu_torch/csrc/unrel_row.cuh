@@ -52,6 +52,17 @@
 // saturate (NaN -> 0) and only the taken branch's value is used; int64
 // arithmetic wraps; _div_cr is plain IEEE division.  Values read from the
 // planes gain +0.0, as the JAX code's one-hot sums do.
+//
+// The gate tail (warp_rows<NL, true>, the all-device chunk's launch)
+// replaces classify_batch_dev's exactness flag (device_pipeline.py:
+// 698-705) and the host's concatenation of the rows and flags: each row
+// is written with a stride of N + 1, its byte N the read's guard flag,
+// lo <= mm <= hi for its margin gate (lo, hi) (rel_settle wrote it, an
+// earlier launch: risky rel margins open it to [-inf, inf], else it is
+// [the smallest positive double, the double below 1e-5], which holds
+// exactly the risky relaxation margins).  The margin is never NaN, so
+// the flag is clamp(mm, lo, hi) == mm, the plain version
+// (alldev.gate_ref).
 
 #pragma once
 
@@ -89,7 +100,9 @@ struct Args {
   const int *idx_desc, *idx_asc; // (B, N) step -> interval
   const unsigned char* live;     // (B, N) bool, step runs
   const int* n;                  // (B,)
-  signed char* asgn;             // out (B, N)
+  const double* gate;            // (2, B) margin gates (the gate tail)
+  signed char* asgn;             // out (B, N); with the gate tail
+                                 // (B, N + 1), byte N the guard flag
   double* mm_out;                // out (B,)
   unsigned char* scratch;        // (B, row_bytes) when not in shared memory
   int B, N;
@@ -254,8 +267,8 @@ RD_FN bool active_step(const Args& a, const Lane& L, const int* xs, int t,
 // Lanes g0 .. g0+NL-1 of the launch (lane g: slot g % 4 of row g / 4).
 // NL lanes run in this thread: 1 on the card, a whole warp of 32 in the
 // host shim (g0 a multiple of 32), phase by phase with the exchanges
-// between.
-template <int NL>
+// between.  TAIL: the rows out with their guard flags (the gate tail).
+template <int NL, bool TAIL>
 RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   const Params& P = a.P;
   const int N = a.N;
@@ -541,11 +554,18 @@ RD_FN void warp_rows(const Args& a, int g0, const Scratch& scr) {
   }
   RD_FLUSH(L[0].valid && L[0].j == 0, mw);
   // ---- the row out: lane j writes columns j, j+G, ..; lane 0 the margin
+  // and, with the tail, the guard flag from the read's gate
+  const long long stride = TAIL ? (long long)N + 1 : N;
   for (int l = 0; l < NL; ++l) {
     const Lane& x = L[l];
     if (!x.valid) continue;
-    for (int c = x.j; c < N; c += G) a.asgn[x.o + c] = x.m.w[c];
-    if (x.j == 0) a.mm_out[x.b] = x.mm;
+    signed char* row = a.asgn + x.b * stride;
+    for (int c = x.j; c < N; c += G) row[c] = x.m.w[c];
+    if (x.j == 0) {
+      a.mm_out[x.b] = x.mm;
+      if (TAIL)
+        row[N] = a.gate[x.b] <= x.mm && x.mm <= a.gate[a.B + x.b];
+    }
   }
 }
 

@@ -15,18 +15,21 @@ Stage split:
 
 ``TorchEngine(alldev=True)`` takes the all-device path instead (the JAX
 package's ``_chunk_alldev``): after the C++ wall stage, each chunk is
-packed by ``pack.pack_chunk`` and classified whole by
-``alldev.classify_batch`` (DP, demotions, reconciliation and both
-relaxation sweeps, the last as the kernel csrc/unrel.cu); the host
-expands the assignments into class strings, and each read the device
-flags is re-decided whole, exactly, by the C++ host plane.
+packed by ``pack.pack_chunk`` and classified whole on the device (DP,
+demotions, reconciliation and both relaxation sweeps: on a card one
+replay of its bucket's CUDA graph, alldev.BatchGraph, the five launches
+of ``alldev.classify_glued``, captured once per (device, Bn, max_n, R2,
+max_m) for the engine's tables; on the CPU ``alldev.classify_batch``'s
+plain versions); the host expands the assignments into class strings,
+and each read the device flags is re-decided whole, exactly, by the C++
+host plane.
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
 in which chunk k+1's host stages overlap chunk k's device work.  On a
 card each chunk's blobs go from pinned host memory straight into the
-bucket graph's static inputs on the engine's CUDA stream, the graph
-replays on that stream, the packed result comes back from its static
-output into a pinned buffer, and an event recorded after the copy is
+bucket graph's static inputs on the engine's CUDA stream (either path),
+the graph replays on that stream, the packed result comes back from its
+static output into a pinned buffer, and an event recorded after the copy is
 what ``_finish`` waits on; the one stream orders each chunk's use of
 the static buffers before the next chunk's.  ``classify_chunk`` is the
 synchronous single-chunk form.  Interval arrays are padded to bucketed
@@ -44,6 +47,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from classpro_tpu_torch import alldev as alldev_mod
+from classpro_tpu_torch import rel as rel_mod
 from classpro_tpu_torch.constants import DEFAULTS
 from classpro_tpu_torch.device import canonical_device, resolve_device
 from classpro_tpu_torch.estimation import GlobalModel, build_global_model
@@ -53,8 +58,14 @@ from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall
 from classpro_tpu_torch.pack import _bucket, expand_asgn, pack_chunk
 from classpro_tpu_torch.params import build_replicas
-from classpro_tpu_torch.rel import (DIPLO, HAPLO, RelGraphs, demote_host,
+from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
                                     reconcile_fwbw, rel_only, unpack_out)
+
+# the buckets ``TorchEngine.warmup`` readies by default: (R, max_m) on the
+# main path, (Bn, max_n, R2, max_m) on the all-device path (medium's
+# commonest chunk at batch 200)
+WARM_MAIN = ((256, 128), (256, 192))
+WARM_ALLDEV = ((256, 192, 512, 128),)
 
 
 _M_LADDER = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
@@ -197,9 +208,10 @@ class TorchEngine:
             stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
             self._on[dev] = (P, PP, stream)
         self.P, self.PP, _ = self._on[self.device]
-        # the main chunk's CUDA graphs, by device and bucket, for this
-        # engine's tables
-        self._graphs = RelGraphs()
+        # the main and the all-device chunk's CUDA graphs, by device and
+        # bucket, for this engine's tables
+        self._graphs = rel_mod.RelGraphs()
+        self._batch_graphs = alldev_mod.BatchGraphs()
         self._rr = 0
         # the (R, max_m) buckets the device ran, in first-use order
         self.shapes: dict = {}
@@ -234,28 +246,33 @@ class TorchEngine:
         self.shapes[(R, max_m)] = None
         WARM_SHAPES.add((R, max_m))
 
-    def warmup(self, shapes=((256, 128), (256, 192))) -> None:
-        """Make every device of the engine ready for the given (R, max_m)
-        buckets before the stream (the JAX engine's ``warmup``, which
-        compiles each bucket's program): the kernels built and loaded, the
-        tables on the device (the engine's construction put them there),
-        and on a card each bucket's CUDA graph captured (after an eager
-        run on an all-padding pack), waited for; on the CPU the plain
-        rel stage runs once on that pack.  The host plane's binomial-tail
-        tables for this model, which the first chunk would otherwise build
-        (seconds of numpy), are built too."""
+    def warmup(self, shapes=None) -> None:
+        """Make every device of the engine ready for the given buckets
+        before the stream (the JAX engine's ``warmup``, which compiles
+        each bucket's program): (R, max_m) on the main path, (Bn, max_n,
+        R2, max_m) on the all-device path (default ``WARM_MAIN`` /
+        ``WARM_ALLDEV``).  The kernels built and loaded, the tables on the
+        device (the engine's construction put them there), and on a card
+        each bucket's CUDA graph captured (after an eager run on an
+        all-padding pack), waited for; on the CPU the path's plain stage
+        runs once on that pack.  The host plane's binomial-tail tables for
+        this model, which the first chunk would otherwise build (seconds
+        of numpy), are built too."""
         self.wall._walk_tables()
-        for R, max_m in shapes:
-            fb = torch.full((R * max_m,), -np.inf, dtype=torch.float64)
-            ib = torch.ones(4 * R * max_m + 2 * R, dtype=torch.int32)
-            for dev, (P, _PP, stream) in self._on.items():
+        alldev = self.PP is not None
+        sizes = alldev_mod.blob_sizes if alldev else rel_mod.blob_sizes
+        for shape in shapes or (WARM_ALLDEV if alldev else WARM_MAIN):
+            n_f, n_i = sizes(*shape)
+            fb = torch.full((n_f,), -np.inf, dtype=torch.float64)
+            ib = torch.ones(n_i, dtype=torch.int32)
+            for dev, (P, PP, stream) in self._on.items():
                 if stream is None:
-                    rel_only(fb, ib, P, R, max_m)
+                    self._device_stage(fb, ib, P, PP, shape)
                     continue
                 with torch.cuda.device(dev), torch.cuda.stream(stream):
-                    self._graphs.get(P, R, max_m)
+                    self._graph(P, PP, shape)
                 stream.synchronize()
-            self._ran(R, max_m)
+            self._ran(*((shape[2] // 2, shape[3]) if alldev else shape))
 
     # ------------------------------------------------------------------
     def classify_chunk(self, seqs: list[str],
@@ -394,26 +411,37 @@ class TorchEngine:
             return self._submit_alldev(st)
         if "_plens" not in st:
             return st
-        R, max_m = st["_R"], st["_mm"]
-        fb, ib = self._pack_st(st, R, max_m)
-        self._ran(R, max_m)
+        shape = (st["_R"], st["_mm"])
+        fb, ib = self._pack_st(st, *shape)
+        self._ran(*shape)
         return self._enqueue(st, fb, ib, "out", lambda f, i, P, PP:
-                             self._rel(f, i, P, R, max_m))
+                             self._device_stage(f, i, P, PP, shape))
 
-    def _rel(self, fblob, iblob, P, R: int, max_m: int) -> torch.Tensor:
-        """The rel stage of one chunk: on a card the replay of the
-        bucket's graph, its host blobs copied into the graph's static
-        inputs on the current stream (the result is the graph's static
-        output); on the CPU ``rel_only``'s plain versions."""
+    def _device_stage(self, fblob, iblob, P, PP, shape) -> torch.Tensor:
+        """One chunk's device stage, the packed uint8 result: on a card
+        the replay of the bucket's graph (the main chunk's, or with ``PP``
+        the all-device chunk's), its host blobs copied into the graph's
+        static inputs on the current stream (the result is the graph's
+        static output); on the CPU the plain versions of ``rel_only`` or
+        ``alldev.classify_batch``."""
         if P.device.type == "cuda":
-            return self._graphs.get(P, R, max_m).run(fblob, iblob)
-        return rel_only(fblob, iblob, P, R, max_m)
+            return self._graph(P, PP, shape).run(fblob, iblob)
+        if PP is not None:
+            return alldev_mod.pack_flags(*alldev_mod.classify_batch(
+                fblob, iblob, PP, *shape))
+        return rel_only(fblob, iblob, P, *shape)
+
+    def _graph(self, P, PP, shape):
+        """The bucket's CUDA graph for this engine's tables, captured at
+        first use: the all-device chunk's with ``PP``, else the main
+        chunk's."""
+        if PP is not None:
+            return self._batch_graphs.get(PP, *shape)
+        return self._graphs.get(P, *shape)
 
     def _submit_alldev(self, st):
         """Pack the staged chunk's reads that have intervals and enqueue
-        classify_batch on them (the JAX package's _dispatch)."""
-        from classpro_tpu_torch.alldev import classify_batch
-
+        the device stage on them (the JAX package's _dispatch)."""
         if "g" not in st:
             return st
         g, slab, slot, n_out = st["g"], st["slab"], st["slot"], st["n_out"]
@@ -424,15 +452,8 @@ class TorchEngine:
         plens = [len(st["profiles"][i]) for i in g]
         fb, ib, dims, st["meta"] = pack_chunk(rows, ivs, plens)
         self._ran(dims[2] // 2, dims[3])
-
-        def run(f, i, P, PP):
-            out, flags = classify_batch(f.to(P.device, non_blocking=True),
-                                        i.to(P.device, non_blocking=True),
-                                        PP, *dims)
-            return torch.cat([out.view(torch.uint8),
-                              flags.to(torch.uint8)[:, None]], dim=1)
-
-        return self._enqueue(st, fb, ib, "un", run)
+        return self._enqueue(st, fb, ib, "un", lambda f, i, P, PP:
+                             self._device_stage(f, i, P, PP, dims))
 
     def _enqueue(self, st, fb, ib, key: str, run):
         """Deal the chunk to the next device and run ``run(fblob, iblob,

@@ -4,16 +4,18 @@
 launches it with its prologue, the planes from the chunk's blobs, and its
 row tails, the no-H rescue predicate and the packed result;
 ``rel_dp_rescue`` with the rescue tail, ``rel_dp_pack`` with the pack
-tail), ``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps) and
+tail), ``unrel_sweeps`` (csrc/unrel.cu: the two relaxation sweeps,
+with ``gate`` its gate tail: the rows packed with the reads' guard
+flags) and
 the all-device path's per-chunk glue around them (csrc/glue.cu:
 ``rel_prep``, ``rel_settle``) are the wrappers the paths call: on CUDA
 tensors they launch the sm_90a kernel on the current stream and count
 the launch in ``LAUNCHES``; on CPU tensors they run the plain torch
 version (rel_ref, unrel_ref, rel.prep_ref / rescue_rows / pack_out /
-pack_ref, alldev.prep_ref / settle_ref).  There is no fallback between
-the two: a failed nvcc build or a refused launch raises.  The launches
-need no host sync and allocate only through torch, so a CUDA graph can
-capture them (rel.ChunkGraph).
+pack_ref, alldev.prep_ref / settle_ref / gate_ref).  There is no
+fallback between the two: a failed nvcc build or a refused launch
+raises.  The launches need no host sync and allocate only through torch,
+so a CUDA graph can capture them (rel.ChunkGraph, alldev.BatchGraph).
 
 Each kernel is compiled at first use with nvcc into ``_build/`` (plain C
 interface, loaded with ctypes), never at import.  The ``*_host`` functions
@@ -63,8 +65,9 @@ HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
 LAUNCHES = {name: 0 for name in SOURCES}
 # of LAUNCHES["rel_dp"], those that ran the DP kernel's first-pass
 # prologue (the main layout's planes, once rel_prep's), its rescue tail
-# and its pack tail (rel_tail.cuh)
-TAIL_LAUNCHES = {"prologue": 0, "rel_rescue": 0, "rel_pack": 0}
+# and its pack tail (rel_tail.cuh); of LAUNCHES["unrel_sweeps"], those
+# that ran the sweep kernel's gate tail (unrel_row.cuh)
+TAIL_LAUNCHES = {"prologue": 0, "rel_rescue": 0, "rel_pack": 0, "gate": 0}
 # compiler output of the last build in this process, by (kernel, kind)
 # (nvcc's -Xptxas -v lines)
 BUILD_LOG: dict = {}
@@ -80,7 +83,7 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     "rel_dp": ([_PTR] * 25 + [_D, _I, _I, _PTR, _PTR, _I, _D, _LL]
                + [_D] * 4),
-    "unrel_sweeps": ([_PTR] * 12 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
+    "unrel_sweeps": ([_PTR] * 13 + [_I, _I, _PTR, _PTR, _I, _PTR, _I]
                      + [_D] * 5 + [_LL] * 3),
 }
 # glue.cu GP_ARGS_DECL, GS_ARGS_DECL
@@ -520,8 +523,9 @@ _UNREL_IN = (("is_rel", torch.bool, ()), ("asgn", torch.int32, ()),
              ("idx_asc", torch.int32, ()), ("live", torch.bool, ()))
 
 
-def _unrel_args(ins, n, P: UnrelParams, device, kind):
-    """Checks of the sweep inputs; outputs, the rows' scratch (the card
+def _unrel_args(ins, n, P: UnrelParams, device, kind, gate=None):
+    """Checks of the sweep inputs; outputs (with ``gate``, the (2, B) margin
+    gates, the packed rows: uint8 (B, N + 1)), the rows' scratch (the card
     needs it only where they do not fit its shared memory; the shim
     always) and the flat C argument list (UR_ARGS_DECL)."""
     if ins[1].dim() != 2:
@@ -541,7 +545,11 @@ def _unrel_args(ins, n, P: UnrelParams, device, kind):
             raise ValueError("kernel inputs must be contiguous")
     if P.btg_flat.numel() != P.n_cap * P.n_cap:
         raise ValueError("btg_flat must hold n_cap * n_cap entries")
-    asgn = torch.empty((B, N), dtype=torch.int8, device=device)
+    if gate is None:
+        out = torch.empty((B, N), dtype=torch.int8, device=device)
+    else:
+        _need("gate", gate, torch.float64, (2, B), device)
+        out = torch.empty((B, N + 1), dtype=torch.uint8, device=device)
     mm = torch.empty((B,), dtype=torch.float64, device=device)
     geo = unrel_geometry(B, N, kind)
     scratch = None
@@ -549,44 +557,54 @@ def _unrel_args(ins, n, P: UnrelParams, device, kind):
         scratch = torch.empty((max(B * geo["row_bytes"], 1),),
                               dtype=torch.uint8, device=device)
     args = ([t.data_ptr() for t in ins]
-            + [n.data_ptr(), asgn.data_ptr(), mm.data_ptr(),
-               scratch.data_ptr() if scratch is not None else None, B, N]
+            + [n.data_ptr(), _ptr(gate), out.data_ptr(), mm.data_ptr(),
+               _ptr(scratch), B, N]
             + [P.tab.data_ptr(), P.lf_small.data_ptr(),
                int(P.lf_small.shape[0]), P.btg_flat.data_ptr(),
                int(P.n_cap), float(P.read_len), float(P.r_logp),
                float(P.log_1m_pe_mean), float(P.log_pe_mean),
                float(P.dr_ratio), int(P.cov_r), int(P.cov_h),
                int(P.cov_d)])
-    return args, asgn, mm, scratch
+    return args, out, mm, scratch
 
 
 def unrel_sweeps(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live,
-                 n, P: UnrelParams):
+                 n, P: UnrelParams, gate=None):
     """Both relaxation sweeps (unrel_ref.unrel_sweeps_ref's contract; the
     kernel replaces unrel_dev2.unrel_sweeps2, unrel_dev2.py:67-283):
-    returns (asgn int8 (B, N), min decision margin f64 (B,)).  CUDA
-    tensors launch the kernel on the current stream; CPU tensors run the
-    plain torch version."""
+    returns (asgn int8 (B, N), min decision margin f64 (B,)).  With
+    ``gate`` (f64 (2, B), the reads' margin gates rel_settle wrote) the
+    kernel's gate tail runs and the first output is the packed uint8
+    (B, N + 1): each row's assignment bytes, then its guard flag lo <=
+    margin <= hi (the tail replaces classify_batch_dev's flag,
+    device_pipeline.py:698-705).  CUDA tensors launch the kernel on the
+    current stream; CPU tensors run the plain torch versions (unrel_ref,
+    alldev.gate_ref)."""
     ins = (is_rel, asgn, P13, packL, packR, idx_desc, idx_asc, live)
     if asgn.device.type == "cpu":
+        from classpro_tpu_torch.alldev import gate_ref
         from classpro_tpu_torch.unrel_ref import unrel_sweeps_ref
 
-        return unrel_sweeps_ref(*ins, n, P)
+        out, mm = unrel_sweeps_ref(*ins, n, P)
+        return (out, mm) if gate is None else (gate_ref(out, mm, gate), mm)
     _need_cuda(asgn)
-    args, out, mm, _scratch = _unrel_args(ins, n, P, asgn.device, "cuda")
+    args, out, mm, _scratch = _unrel_args(ins, n, P, asgn.device, "cuda",
+                                          gate)
     _launch("unrel_sweeps", asgn.device, args)
+    TAIL_LAUNCHES["gate"] += gate is not None
     return out, mm
 
 
 def unrel_sweeps_host(is_rel, asgn, P13, packL, packR, idx_desc, idx_asc,
-                      live, n, P: UnrelParams):
-    """The sweep kernel's warp body compiled by g++ and run on CPU tensors,
-    a warp's 32 lanes phase by phase (test-only; same contract as
-    ``unrel_sweeps``)."""
+                      live, n, P: UnrelParams, gate=None):
+    """The sweep kernel's warp body (with ``gate`` its gate tail) compiled
+    by g++ and run on CPU tensors, a warp's 32 lanes phase by phase
+    (test-only; same contract as ``unrel_sweeps``)."""
     ins = tuple(t.contiguous() for t in (is_rel, asgn, P13, packL, packR,
                                          idx_desc, idx_asc, live))
-    args, out, mm, _scratch = _unrel_args(ins, n.contiguous(), P,
-                                          torch.device("cpu"), "host")
+    args, out, mm, _scratch = _unrel_args(
+        ins, n.contiguous(), P, torch.device("cpu"), "host",
+        None if gate is None else gate.contiguous())
     if _fn("unrel_sweeps", "host")(*args) != 0:
         raise RuntimeError("host shim failed")
     return out, mm

@@ -73,9 +73,12 @@ def sharded_classify(devices, fblobs: np.ndarray, iblobs: np.ndarray, PPs,
     (Bn, max_n, R2, max_m)).  ``devices`` may repeat a device; ``PPs``
     maps each distinct device to its ``PipelineParams`` replica
     (``params.build_replicas(gm, devices, alldev=True)``).  Every shard is enqueued, on its device's
-    current stream, before any result is fetched.  Returns ((D, Bn,
-    max_n) int8, (D, Bn) bool exactness-guard flags: reads the caller
-    re-decides exactly), as numpy.  Zero collectives.
+    current stream, before any result is fetched: on a card one replay
+    of the bucket's CUDA graph (``alldev.classify_batch``), whose packed
+    output is copied out on that stream before the next shard's replay
+    on the same device overwrites it.  Returns ((D, Bn, max_n) int8,
+    (D, Bn) bool exactness-guard flags: reads the caller re-decides
+    exactly), as numpy.  Zero collectives.
 
     No entry point reaches it: the engine's ``devices=`` round robin deals
     whole chunks instead.  It is the counterpart of the JAX mesh program,

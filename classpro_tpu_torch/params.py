@@ -143,6 +143,10 @@ class PipelineParams:
     rel: RelParams
     unrel: UnrelParams
 
+    @property
+    def device(self) -> torch.device:
+        return self.rel.device
+
 
 def build_unrel_params(gm: GlobalModel, rel: RelParams) -> UnrelParams:
     """UnrelParams for ``gm`` on ``rel``'s device, sharing its table

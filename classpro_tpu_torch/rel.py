@@ -215,6 +215,12 @@ def rel_glued(fblob, iblob, P: RelParams, R: int, max_m: int, ops):
     return packed
 
 
+def blob_sizes(R: int, max_m: int) -> tuple:
+    """(fblob, iblob) element counts of a main-layout chunk (C++
+    ``pack_rel``: pe; b, e, ccb, cce, m, plen)."""
+    return R * max_m, 4 * R * max_m + 2 * R
+
+
 # captures and replays of the main chunk's CUDA graphs in this process
 GRAPH_COUNTS = {"captures": 0, "replays": 0}
 
@@ -226,50 +232,51 @@ def _launch_counts() -> dict:
             "tails": dict(kernels.TAIL_LAUNCHES)}
 
 
-class ChunkGraph:
-    """The main chunk of one (R, max_m) bucket of one RelParams on one card
-    as one CUDA graph: ``rel_glued``'s two launches of the DP kernel (the
-    first pass with its prologue and tails, the rescue pass with its pack
-    tail), captured once; a chunk copies its blobs into the graph's
-    static inputs, replays it and reads its static ``packed`` output (the
-    JAX package compiles rel_only_dev once per bucket, engine._rel_exec).
+class BlobGraph:
+    """One chunk's launches on one card as one CUDA graph: ``glued(fblob,
+    iblob)`` (-> one output tensor), captured once on static blobs of
+    ``n_f`` f64 and ``n_i`` int32 elements; a chunk copies its blobs into
+    them, replays the graph and reads the static output (the JAX package
+    compiles one program per bucket).  ``ChunkGraph`` (the main chunk) and
+    ``alldev.BatchGraph`` (the all-device chunk) are its two kinds, each
+    counting its captures and replays in its ``COUNTS``.
 
-    Capture: the bucket first runs eagerly on padding blobs (the kernels'
-    libraries load their modules lazily, and a first launch's API calls
-    would break a capture), then ``rel_glued`` is captured on a side
-    stream into a memory pool of the graph's own (buckets replay in any
-    order, so they share none).  The kernels' launch counts that the
-    capture made are taken back and added at every replay, which runs
-    those launches.  A failed capture or replay raises.
+    Capture: the launches first run eagerly on padding blobs (-inf, ones;
+    the kernels' libraries load their modules lazily, and a first
+    launch's API calls would break a capture), then ``glued`` is captured
+    on a side stream into a memory pool of the graph's own (buckets
+    replay in any order, so they share none; the pool also holds the
+    launches' scratch for as long as the graph lives).  The kernels'
+    launch counts that the capture made are taken back and added at every
+    replay, which runs those launches.  A failed capture or replay
+    raises.
 
     The static buffers are reused by every chunk: ``run`` copies in,
-    replays and hands back ``packed`` on the current stream, and the
-    caller copies ``packed`` out on that same stream, so the stream orders
-    each chunk's use of the buffers before the next chunk's, with any
-    number of chunks in flight."""
+    replays and hands back the output on the current stream, and the
+    caller copies it out on that same stream, so the stream orders each
+    chunk's use of the buffers before the next chunk's, with any number
+    of chunks in flight."""
 
-    def __init__(self, P: RelParams, R: int, max_m: int):
+    COUNTS: dict
+
+    def __init__(self, device: torch.device, n_f: int, n_i: int, glued):
         from classpro_tpu_torch import kernels
 
-        dev = P.device
-        if dev.type != "cuda":
-            raise ValueError(f"a chunk graph needs a CUDA card, not {dev}")
-        self.P, self.R, self.max_m = P, R, max_m
-        self.fblob = torch.full((R * max_m,), -float("inf"),
-                                dtype=torch.float64, device=dev)
-        self.iblob = torch.ones(4 * R * max_m + 2 * R, dtype=torch.int32,
-                                device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        if device.type != "cuda":
+            raise ValueError(f"a chunk graph needs a CUDA card, not {device}")
+        self.fblob = torch.full((n_f,), -float("inf"), dtype=torch.float64,
+                                device=device)
+        self.iblob = torch.ones(n_i, dtype=torch.int32, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            rel_glued(self.fblob, self.iblob, P, R, max_m, kernels)
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            glued(self.fblob, self.iblob)
             side.synchronize()
             before = _launch_counts()
             self.graph.capture_begin()
             try:
-                self.packed = rel_glued(self.fblob, self.iblob, P, R,
-                                        max_m, kernels)
+                self.out = glued(self.fblob, self.iblob)
             except BaseException:
                 try:
                     self.graph.capture_end()
@@ -281,10 +288,10 @@ class ChunkGraph:
                 kernels.LAUNCHES.update(before["launches"])
                 kernels.TAIL_LAUNCHES.update(before["tails"])
             self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.current_stream(device).wait_stream(side)
         self.counts = {g: {k: after[g][k] - before[g][k] for k in after[g]}
                        for g in after}
-        GRAPH_COUNTS["captures"] += 1
+        self.COUNTS["captures"] += 1
 
     def replay(self) -> None:
         """Replay the graph on the current stream; count its launches."""
@@ -295,13 +302,13 @@ class ChunkGraph:
             kernels.LAUNCHES[k] += n
         for k, n in self.counts["tails"].items():
             kernels.TAIL_LAUNCHES[k] += n
-        GRAPH_COUNTS["replays"] += 1
+        self.COUNTS["replays"] += 1
 
     def run(self, fblob: torch.Tensor, iblob: torch.Tensor) -> torch.Tensor:
         """One chunk on the current stream: its blobs (on the host, pinned
         for an asynchronous copy, or on the card) into the static inputs,
-        the replay; returns the static packed output (2R, max_m + 5),
-        which the next run overwrites."""
+        the replay; returns the static output, which the next run
+        overwrites."""
         for name, got, want in (("fblob", fblob, self.fblob),
                                 ("iblob", iblob, self.iblob)):
             if got.dtype != want.dtype or got.shape != want.shape:
@@ -311,32 +318,57 @@ class ChunkGraph:
         self.fblob.copy_(fblob, non_blocking=True)
         self.iblob.copy_(iblob, non_blocking=True)
         self.replay()
-        return self.packed
+        return self.out
 
 
-class RelGraphs:
-    """ChunkGraphs by (device, R, max_m) and model, captured at first use.
-    An entry holds the RelParams whose pointers and scalars its graph
-    baked in and is found only for that same object, so no graph replays
-    another model's tables (the JAX package keys its executables with the
-    parameters' signature, engine._rel_exec).  An engine keeps its own
-    (its RelParams live as long as it does); ``GRAPHS`` serves
-    ``rel_only``."""
+class ChunkGraph(BlobGraph):
+    """The main chunk of one (R, max_m) bucket of one RelParams on one card
+    (``rel_glued``'s two launches of the DP kernel: the first pass with
+    its prologue and tails, the rescue pass with its pack tail); its
+    output is the packed (2R, max_m + 5) result (the JAX package compiles
+    rel_only_dev once per bucket, engine._rel_exec)."""
 
-    def __init__(self):
+    COUNTS = GRAPH_COUNTS
+
+    def __init__(self, P: RelParams, R: int, max_m: int):
+        from classpro_tpu_torch import kernels
+
+        self.P, self.R, self.max_m = P, R, max_m
+        super().__init__(P.device, *blob_sizes(R, max_m),
+                         lambda f, i: rel_glued(f, i, P, R, max_m, kernels))
+
+
+class GraphCache:
+    """Graphs by (device, *shape) and model, made by ``make(P, *shape)`` at
+    first use.  An entry holds the parameters whose pointers and scalars
+    its graph baked in and is found only for that same object, so no
+    graph replays another model's tables (the JAX package keys its
+    executables with the parameters' signature, engine._rel_exec)."""
+
+    def __init__(self, make):
+        self._make = make
         self._graphs: dict = {}
 
-    def get(self, P: RelParams, R: int, max_m: int) -> ChunkGraph:
-        bucket = self._graphs.setdefault((P.device, R, max_m), [])
+    def get(self, P, *shape):
+        bucket = self._graphs.setdefault((P.device,) + shape, [])
         for g in bucket:
             if g.P is P:
                 return g
-        g = ChunkGraph(P, R, max_m)
+        g = self._make(P, *shape)
         bucket.append(g)
         return g
 
     def __len__(self) -> int:
         return sum(len(b) for b in self._graphs.values())
+
+
+class RelGraphs(GraphCache):
+    """ChunkGraphs by (device, R, max_m) and RelParams.  An engine keeps
+    its own (its RelParams live as long as it does); ``GRAPHS`` serves
+    ``rel_only``."""
+
+    def __init__(self):
+        super().__init__(ChunkGraph)
 
 
 GRAPHS = RelGraphs()

@@ -10,7 +10,9 @@ the CPU.
   host version (its XLA division may flip an exact hdrr tie).
 * ``pack_chunk`` == JAX ``pack_chunk`` blob for blob; ``classify_batch``
   == JAX ``classify_batch_dev`` on the reads neither flags, flags equal;
-  with the kernels' g++-built bodies it equals the plain versions.
+  with the kernels' g++-built bodies it equals the plain versions, and
+  ``classify_glued`` on those bodies (the sweeps with their gate tail)
+  gives JAX's flags.
 The engine's bytes are in test_torch_alldev_engine.py and
 test_torch_alldev_branch*.py.  Tolerance: exact equality everywhere
 (integer decisions).
@@ -172,8 +174,10 @@ def _chunks(fx, n=None, B=200):
 def test_classify_batch_matches_jax(fx, n):
     from classpro_tpu.tpu.device_pipeline import classify_batch_dev
 
+    from test_torch_glue_slice import _shims
+
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch.alldev import classify_batch
+    from classpro_tpu_torch.alldev import classify_batch, classify_glued
 
     pp, PP = _jax_pp(fx), _torch_pp(fx)
     for (fb, ib, dims, meta), (jfb, jib, jdims, _) in _chunks(fx, n):
@@ -195,3 +199,10 @@ def test_classify_batch_matches_jax(fx, n):
                                                  kernels.unrel_sweeps_host))
         np.testing.assert_array_equal(so.numpy(), out)
         np.testing.assert_array_equal(sf.numpy(), flags)
+        # the card's five launches as shims: the sweeps' gate tail writes
+        # JAX's flags and, on the reads neither flags, its assignments
+        packed = classify_glued(torch.from_numpy(fb), torch.from_numpy(ib),
+                                PP, *dims, _shims()).numpy()
+        np.testing.assert_array_equal(packed[:, -1] != 0, jf)
+        np.testing.assert_array_equal(packed[:, :-1].view(np.int8)[ok],
+                                      jo[ok])

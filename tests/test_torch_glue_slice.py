@@ -3,8 +3,9 @@
 composed of the glue kernels' g++ shims and the DP and sweep kernels'
 shims (``rel_dp_first_host``, ``rel_dp_host``, ``rel_dp_rescue_host``,
 ``rel_dp_pack_host``, ``unrel_sweeps_host``), as the card runs them (two
-launches per main-path chunk, the first with its prologue; five and two
-torch ops per all-device chunk), against the JAX package's
+launches per main-path chunk, the first with its prologue; five per
+all-device chunk, the sweeps' with the gate tail that packs the rows
+with their guard flags), against the JAX package's
 ``rel_only_dev`` and
 ``classify_batch_dev`` on the CPU and against the port's plain glue
 around the same DP and sweep shims.
@@ -102,19 +103,21 @@ def test_classify_batch_from_shims_matches_jax(fx, n):
     from classpro_tpu.tpu.device_pipeline import classify_batch_dev
 
     from classpro_tpu_torch import kernels
-    from classpro_tpu_torch.alldev import classify_batch, classify_glued
+    from classpro_tpu_torch.alldev import (classify_batch, classify_glued,
+                                           pack_flags)
 
     pp, PP = _jax_pp(fx), _torch_pp(fx)
     ops = _shims()
     reads = 0
     for (fb, ib, dims, meta), _ in _chunks(fx, n):
         tfb, tib = torch.from_numpy(fb), torch.from_numpy(ib)
-        out, flags = classify_glued(tfb, tib, PP, *dims, ops)
-        # the plain glue around the same DP and sweep shims: bit for bit
+        packed = classify_glued(tfb, tib, PP, *dims, ops)
+        # the plain glue around the same DP and sweep shims: every byte
         p_out, p_flags = classify_batch(
             tfb, tib, PP, *dims,
             impl=(kernels.rel_dp_host, kernels.unrel_sweeps_host))
-        assert torch.equal(out, p_out) and torch.equal(flags, p_flags)
+        assert torch.equal(packed, pack_flags(p_out, p_flags))
+        out, flags = packed[:, :-1].view(torch.int8), packed[:, -1] != 0
         jo, jf = (np.asarray(x) for x in classify_batch_dev(fb, ib, pp,
                                                             *dims))
         out, flags = out.numpy(), flags.numpy()
