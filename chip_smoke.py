@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              first-pass prologue and its rescue and pack tails),
              csrc/unrel.cu and csrc/glue.cu (the two all-device glue
              kernels) for sm_90a (printing -Xptxas -v) while g++ builds the
-             C++ host library, all four at once, from the checkout; each
+             C++ host library (classpro_tpu_torch/csrc/host/
+             classpro_host.cpp), all four at once, from the checkout; each
              entry function's registers, static shared bytes, stack and
              spill bytes (rel_dp_kernel and rel_dp_first_kernel, the DP
              kernel's two instantiations; unrel_kernel and
@@ -74,13 +75,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              pack with tiny's and with medium's RelParams through
              rel_only's process-wide graph cache, each replay equal to its
              own model's eager launches, one graph per model.
+   setup   - a cold job's set-up by stage: classify_file_torch on
+             medium (cuda) in a fresh process (its in-memory caches cold;
+             the libraries this run built loaded, the Skellam table from
+             its disk cache when an earlier phase wrote it), its .class
+             byte-equal to the golden; the seconds of the interpreter's
+             start, torch's import, the probe, the port's import, the
+             CUDA context, the histogram and model, build_tables (the C++
+             tail table), the Skellam table load, the tables' upload
+             (device_tables), the libraries' loads, the first wall stage,
+             the first graph capture and the first chunk's finish, each
+             without the timed calls nested in it; then the same model's
+             tail table by tables.btg_plain (numpy, the plain version),
+             timed, and a seeded draw of six error rates through both
+             versions: the run fails unless both tables are equal bit for
+             bit on this host.
 5. stream  - steady stream over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
              pipeline), every chunk checked against the golden: a warm-up
              (the passes of one sort window, which capture the buckets'
              graphs), then three runs (turns) of --passes passes.  Per
              turn: k-mers/s, the main thread's seconds by stage (host_s,
-             enqueue_h2d_dp_d2h among them), the rel stage's span on the
+             enqueue_h2d_dp_d2h, demote_reconcile and exact_guard among
+             them), the rel stage's span on the
              card per chunk (CUDA events around each graph replay),
              launches, replays and captures per chunk (two DP launches per
              replay and per capture's eager run, no rel_prep),
@@ -207,7 +224,9 @@ of the chunk graph and per eager call, and with --parent the parent's
 rel_prep + DP first pass in turns); unrel_sweeps, rel_prep (the
 all-device layout), rel_settle; each with its registers, shared bytes,
 stack and spill bytes and launch geometry, rel_prep and rel_settle with
-the parent's times when --parent is given), {"stream": {...}},
+the parent's times when --parent is given), {"setup": {...}} (the
+cold set-up's seconds by stage, the numpy and C++ tail tables' seconds),
+{"stream": {...}},
 {"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"shard":
 {...}} and {"serve": {...}} lines (ready_s, each job's wall_s and
 k-mers/s, table_uploads, launches and graph replays, the trace's busy
@@ -232,7 +251,10 @@ import tempfile
 import threading
 import time
 
-import torch
+# when torch's import starts and ends (the setup phase's child)
+_T0_WALL, _T0 = time.time(), time.perf_counter()
+import torch  # noqa: E402
+_T1 = time.perf_counter()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures")
@@ -1469,6 +1491,197 @@ def phase_e2e():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -------------------------------------------------------------------- 4b
+# a cold job's set-up, stage by stage: (stage, the functions whose calls
+# it times, as (module, class or None, attribute)); each call's seconds
+# exclude those of the timed calls it makes
+SETUP_STAGES = (
+    ("hist_model", (("engine", None, "load_histogram"),
+                    ("engine", None, "build_global_model"))),
+    ("build_tables", (("tables", None, "build_tables"),)),
+    ("skellam_load", (("skellam", None, "build_skellam_tables"),)),
+    ("device_tables", (("params", None, "device_tables"),)),
+    ("library_load", (("native", None, "get_lib"),
+                      ("kernels", None, "_entry"))),
+    ("wall_stage", (("engine", "TorchEngine", "_stage"),)),
+    ("graph_capture", (("rel", "ChunkGraph", "__init__"),)),
+    ("first_chunk", (("engine", "TorchEngine", "_finish"),)),
+)
+
+
+def _stage_clocks(rec: dict):
+    """Wrap every function of SETUP_STAGES so that each call adds its own
+    seconds (less those of the timed calls nested in it, per thread) to
+    ``rec[stage]``: "first" (the first call of each of the stage's
+    functions), "total" (every call) and "calls".  Returns the undo."""
+    import importlib
+
+    local = threading.local()
+    seen: set = set()                # the functions called at least once
+    undo = []
+    for stage, fns in SETUP_STAGES:
+        r = rec.setdefault(stage, {"first": 0.0, "total": 0.0, "calls": 0})
+        for mod, cls, name in fns:
+            obj = importlib.import_module(f"classpro_tpu_torch.{mod}")
+            obj = getattr(obj, cls) if cls else obj
+            f = getattr(obj, name)
+
+            def g(*a, _f=f, _r=r, _key=(mod, cls, name), **kw):
+                stack = local.__dict__.setdefault("stack", [])
+                stack.append(0.0)
+                t = time.perf_counter()
+                try:
+                    return _f(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t
+                    own = dt - stack.pop()
+                    if stack:
+                        stack[-1] += dt
+                    if _key not in seen:
+                        seen.add(_key)
+                        _r["first"] += own
+                    _r["total"] += own
+                    _r["calls"] += 1
+
+            setattr(obj, name, g)
+            undo.append(lambda o=obj, n=name, f=f: setattr(o, n, f))
+    return lambda: [u() for u in reversed(undo)]
+
+
+def _bits_differ(a, b) -> int:
+    import numpy as np
+
+    return int((np.asarray(a).view(np.int64)
+                != np.asarray(b).view(np.int64)).sum())
+
+
+def phase_setup_cold() -> dict:
+    """The child of phase_setup, a fresh process: classify_file_torch on
+    medium (cuda) with every set-up stage timed (SETUP_STAGES; before it,
+    each on its own, the interpreter's start from the parent's spawn,
+    torch's import, the probe, the port's import and the CUDA context),
+    its bytes held to the golden; then the model's tail table by
+    tables.btg_plain, the plain numpy version, timed and held to the one
+    the job built bit for bit, and the C++ call timed again warm
+    (three calls); and a seeded draw of error rates through both
+    versions, bit for bit."""
+    import numpy as np
+
+    t = time.perf_counter()
+    pre = {"torch_import": _T1 - _T0, "probe": t - _T1}
+    if "CHIP_SMOKE_SPAWN" in os.environ:     # set by phase_setup
+        pre = dict(interpreter=_T0_WALL
+                   - float(os.environ["CHIP_SMOKE_SPAWN"]), **pre)
+    from classpro_tpu_torch import kernels, native, rel, skellam, tables
+    from classpro_tpu_torch.engine import classify_file_torch
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram
+    from classpro_tpu_torch.numerics import LOGFACT
+
+    pre["port_import"] = time.perf_counter() - t
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    pre["cuda_init"] = time.perf_counter() - t
+    # before the job: the interpreter's start (from the parent's spawn),
+    # torch's import, the probe (arguments, the CUDA device query,
+    # nvidia-smi), the port's import and the CUDA context
+    rec = {k: {"first": v, "total": v, "calls": 1} for k, v in pre.items()}
+    d = os.path.join(FIX, "medium")
+    npz = skellam._cache_path(skellam.NMAX)
+    out = {"skellam_on_disk": os.path.exists(npz)}
+    undo = _stage_clocks(rec)
+    st: dict = {}
+    try:
+        t = time.perf_counter()
+        recs = classify_file_torch(os.path.join(d, "reads.fasta.gz"),
+                                   os.path.join(d, "reads"), device="cuda",
+                                   stats_out=st)
+        out["call_s"] = time.perf_counter() - t
+        got = []
+        for r in recs:
+            if not got:
+                out["to_first_record_s"] = time.perf_counter() - t
+            got.append(f"{r.header}\n{r.seq}\n+\n{r.classes}\n".encode())
+        out["wall_s"] = time.perf_counter() - t
+    finally:
+        undo()
+    if b"".join(got) != _gold_bytes("medium"):
+        fail("setup: medium's .class differs from golden.class.gz")
+    if kernels.LAUNCHES["rel_dp"] <= 0 or rel.GRAPH_COUNTS["replays"] <= 0:
+        fail(f"setup: the main path ran no DP launch or replay: "
+             f"{kernels.LAUNCHES} {rel.GRAPH_COUNTS}")
+    out["stages"] = rec
+    # the job's seconds in no timed stage (on the card mostly the stream's
+    # other chunks; on the CPU the plain DP)
+    out["untimed_s"] = out["wall_s"] - sum(
+        v["total"] for k, v in rec.items() if k not in pre)
+    out["cold_s"] = sum(pre.values()) + out["wall_s"]
+    out["guard_flagged"] = st["guard_flagged"]
+
+    dt = tables.build_tables(build_global_model(
+        load_histogram(os.path.join(d, "reads"))))
+    t = time.perf_counter()
+    plain = tables.btg_plain(dt.erates, dt.n_cap)
+    out["numpy_btg_s"] = time.perf_counter() - t
+    out["btg_shape"] = list(dt.btg.shape)
+    out["btg_bits_differing"] = _bits_differ(dt.btg, plain)
+    warm = []
+    for _ in range(3):
+        t = time.perf_counter()
+        again = native.build_btg(dt.erates, dt.n_cap, LOGFACT)
+        warm.append(time.perf_counter() - t)
+    out["cpp_btg_warm_s"] = warm
+    out["btg_bits_differing"] += _bits_differ(again, plain)
+    rates = np.exp(np.random.default_rng(0).uniform(np.log(1e-4),
+                                                    np.log(0.45), 6))
+    out["random_bits_differing"] = _bits_differ(
+        native.build_btg(rates, 300, LOGFACT), tables.btg_plain(rates, 300))
+    return out
+
+
+def phase_setup(smi: str) -> dict:
+    """phase_setup_cold in a process of its own (its caches cold: the
+    host tables, the Skellam table in memory, the tables on the card,
+    the loaded libraries; the kernels and the host library this run
+    built are loaded, not rebuilt, and the Skellam table comes from its
+    disk cache when an earlier phase wrote it); fails unless the child
+    wrote the golden bytes and both tail tables are equal bit for bit on
+    this host."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phases", "setup_cold"], cwd=HERE,
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, CHIP_SMOKE_SPAWN=repr(
+                           time.time())))
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith('{"setup_cold":')]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"the cold set-up's process failed (rc {r.returncode}): "
+             f"{r.stderr[-2000:]}")
+    rec = recs[0]["setup_cold"]
+    if rec["btg_bits_differing"] or rec["random_bits_differing"]:
+        fail(f"setup: the C++ tail table differs from _btg_row's on this "
+             f"host: {rec['btg_bits_differing']} entries (medium), "
+             f"{rec['random_bits_differing']} (random rates)")
+    st = rec["stages"]
+    say("setup (medium, a fresh process, cold; seconds of each stage's "
+        "first calls / all its calls): " + ", ".join(
+        f"{k} {v['first']:.4f}/{v['total']:.4f} s" if v["calls"]
+        else f"{k} not run" for k, v in st.items())
+        + f", untimed {rec['untimed_s']:.4f} s; first record after "
+        f"{rec['to_first_record_s']:.3f} s of classify_file_torch, whole "
+        f"file {rec['wall_s']:.3f} s, cold {rec['cold_s']:.3f} s from the "
+        f"process's spawn (Skellam table on disk: "
+        f"{rec['skellam_on_disk']})")
+    bt = st["build_tables"]["first"]
+    say(f"setup: build_tables (C++ tail table) {bt:.4f} s cold, C++ call "
+        f"warm {min(rec['cpp_btg_warm_s']):.4f} s; numpy btg_plain "
+        f"{rec['numpy_btg_s']:.3f} s ({rec['numpy_btg_s'] / bt:.0f}x); "
+        f"table {rec['btg_shape']} equal bit for bit, and on 6 random "
+        f"rates")
+    return dict(rec, card=smi)
+
+
 # --------------------------------------------------------------------- 5
 def _clock(obj, name: str, acc: dict):
     """Wrap obj.name to add its wall seconds to acc[name]; returns an
@@ -1756,8 +1969,9 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             "wait_device": acc["_finish"] - acc["unpack_out"]
             - acc["demote_host"] - acc["reconcile_fwbw"]
             - acc["_exact_guard"] - acc["finish_batch"],
-            "demote_reconcile_guard": acc["unpack_out"] + acc["demote_host"]
-            + acc["reconcile_fwbw"] + acc["_exact_guard"],
+            "demote_reconcile": acc["unpack_out"] + acc["demote_host"]
+            + acc["reconcile_fwbw"],
+            "exact_guard": acc["_exact_guard"],
             "finish_batch_cpp": acc["finish_batch"],
             "other": wall - acc["_submit"] - acc["_finish"]}
         return {
@@ -3298,8 +3512,8 @@ def phase_soak(gbp: float) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernel,e2e,stream,alldev,shard,serve,"
-                            "tools",
+                    default="build,kernel,e2e,setup,stream,alldev,shard,"
+                            "serve,tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile, k5profile and settleprofile, the kernels' "
                     "phase clocks, glue_ab, the streams with the plain glue "
@@ -3358,6 +3572,9 @@ def main(argv=None) -> int:
         say(json.dumps({"settle_profile": phase_settleprofile(),
                         "card": smi}))
     launches = phase_e2e() if "e2e" in phases else None
+    if "setup_cold" in phases:               # the child of phase_setup
+        say(json.dumps({"setup_cold": phase_setup_cold()}))
+    serec = phase_setup(smi) if "setup" in phases else None
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
                          sort_window=args.sort_window)
             if "stream" in phases else None)
@@ -3442,6 +3659,8 @@ def main(argv=None) -> int:
                                          arec["glue_err"][name], brec),
                              **({"parent_ab_ms": g["ab"]} if "ab" in g
                                 else {})))
+    if serec is not None:
+        say(json.dumps({"setup": serec}))
     if shrec is not None:
         say(json.dumps({"shard": shrec, "card": smi}))
     if svrec is not None:

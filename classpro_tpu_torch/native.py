@@ -1,7 +1,9 @@
-"""ctypes bindings for the C++ host data plane (csrc/classpro_host.cpp).
+"""ctypes bindings for the C++ host data plane (csrc/host/classpro_host.cpp).
 
-The library is compiled on demand (g++ -O3 -shared) from the repository's
-``csrc/classpro_host.cpp`` into ``classpro_tpu_torch/_build/``.  The
+The library is compiled on demand (g++ -O3 -shared) from the package's
+own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
+repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
+with ``cp_build_btg`` added) into ``classpro_tpu_torch/_build/``.  The
 engine has no pure-Python fallback: a failed build raises.
 """
 
@@ -15,7 +17,7 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "..", "csrc", "classpro_host.cpp")
+_SRC = os.path.join(_HERE, "csrc", "host", "classpro_host.cpp")
 _BUILD = os.path.join(_HERE, "_build")
 _SO = os.path.join(_BUILD, "_classpro_host.so")
 
@@ -111,6 +113,10 @@ def get_lib(force: bool = False):
             ctypes.c_double, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.cp_build_btg.restype = None
+        lib.cp_build_btg.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.cp_seed_ws_new.restype = ctypes.c_void_p
         lib.cp_seed_ws_new.argtypes = []
         lib.cp_seed_ws_free.restype = None
@@ -124,8 +130,26 @@ def get_lib(force: bool = False):
         return lib
 
 
+def build_btg(erates, n_cap: int, logfact: np.ndarray) -> np.ndarray:
+    """The (len(erates), n_cap, n_cap) binomial-tail table of
+    ``tables.build_tables`` in one C++ call (``cp_build_btg``): entry
+    [r, n, k] is ``numerics.binom_test_g(k, n, erates[r], False)`` for
+    1 <= n < n_cap, k <= n, 0.0 elsewhere; its terms read ``logfact``
+    (``numerics.LOGFACT``), as ``tables.btg_plain``, the plain version,
+    does."""
+    rates = np.ascontiguousarray(erates, np.float64)
+    lf = np.ascontiguousarray(logfact, np.float64)
+    if lf.shape[0] < n_cap:
+        raise ValueError(f"n_cap {n_cap} needs {n_cap} log-factorials, "
+                         f"got {lf.shape[0]}")
+    out = np.empty((len(rates), n_cap, n_cap), np.float64)
+    get_lib().cp_build_btg(rates.ctypes.data, len(rates), n_cap,
+                           lf.ctypes.data, out.ctypes.data)
+    return out
+
+
 class NativeSeedWorkspace:
-    """C++ seed selection (csrc/classpro_host.cpp cp_find_seeds, a port
+    """C++ seed selection (csrc/host/classpro_host.cpp cp_find_seeds, a port
     of the reference's seed.c): one workspace reused across consecutive
     reads, with the reference's stale-slot semantics (a -T1 worker)."""
 

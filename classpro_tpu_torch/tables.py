@@ -1,10 +1,12 @@
-"""Binomial-tail and threshold tables for the C++ host stages (numpy).
+"""Binomial-tail and threshold tables for the C++ host stages.
 
 All binomial-tail tests in the wall stage have small integer arguments
 (`cout < R-cov <= 255`), so they are precomputed once per dataset on the
 host with exact C semantics (same loop order/rounding as prob.c:76-112)
-and become table reads in csrc/classpro_host.cpp's wall walk and
-relaxation.
+and become table reads in csrc/host/classpro_host.cpp's wall walk and
+relaxation.  The tail table is built there too (``native.build_btg``,
+one C++ call); ``btg_plain`` (``_btg_row`` per row) is its plain numpy
+version, which only the tests and chip_smoke.py call.
 
 Table inventory (per GlobalModel):
   btg[r, n, k]    one-sided binomial tail binom_test_g(k, n, erate_r)
@@ -21,9 +23,9 @@ import dataclasses
 
 import numpy as np
 
-from classpro_tpu_torch.constants import Defaults, MAX_KMER_CNT
 from classpro_tpu_torch.estimation import GlobalModel
-from classpro_tpu_torch.numerics import LOGFACT, binom_test_g
+from classpro_tpu_torch.native import build_btg
+from classpro_tpu_torch.numerics import LOGFACT
 
 
 @dataclasses.dataclass
@@ -53,7 +55,8 @@ class DeviceTables:
 def _btg_row(n: int, erate: float) -> np.ndarray:
     """binom_test_g(k, n, erate, exact=False) for all k in [0, n],
     replicating the C loop order and early exit term-for-term
-    (prob.c:76-112) but vectorized over k.
+    (prob.c:76-112) but vectorized over k: the plain version of one row
+    of ``native.build_btg``'s table.
 
     Terms use math.exp (libm) for bit-parity with the scalar path; the
     per-k partial sums replay the sequential addition order via a masked
@@ -106,6 +109,17 @@ def _btg_row(n: int, erate: float) -> np.ndarray:
     return out
 
 
+def btg_plain(erates, n_cap: int) -> np.ndarray:
+    """The plain version of ``native.build_btg``'s table: one ``_btg_row``
+    per (rate, n), zeros elsewhere (seconds of numpy for a model; the
+    tests and chip_smoke.py hold the C++ table to it)."""
+    out = np.zeros((len(erates), n_cap, n_cap), np.float64)
+    for r, erate in enumerate(erates):
+        for n in range(1, n_cap):
+            out[r, n, :n + 1] = _btg_row(n, float(erate))
+    return out
+
+
 _CONTENT_CACHE: dict = {}
 
 
@@ -116,9 +130,8 @@ def build_tables(gm: GlobalModel, n_cap: int | None = None) -> DeviceTables:
     if cached is not None and cached.n_cap == n_cap:
         return cached
     # content-keyed process cache: every engine/CLI call builds a fresh
-    # GlobalModel for the same dataset, and the _btg_row precompute costs
-    # seconds — identical models must not pay it twice (measured 5.3 s
-    # per classify_file_tpu call before this cache)
+    # GlobalModel for the same dataset, and identical models must not
+    # build the tables twice
     import hashlib
 
     key = (gm.kmer, tuple(int(c) for c in gm.cov), float(gm.dr_ratio),
@@ -150,11 +163,7 @@ def build_tables(gm: GlobalModel, n_cap: int | None = None) -> DeviceTables:
     hc_idx = rate_id(float(em.hc_erate))
     unrel_idx = rate_id(0.1)
 
-    R = len(rates)
-    btg = np.zeros((R, n_cap, n_cap), dtype=np.float64)
-    for r, erate in enumerate(rates):
-        for n in range(1, n_cap):
-            btg[r, n, : n + 1] = _btg_row(n, erate)
+    btg = build_btg(rates, n_cap, LOGFACT)
     dt = DeviceTables(
         erates=np.asarray(rates), lerates=np.log(rates),
         l1merates=np.log1p(np.negative(rates)),
