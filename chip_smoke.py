@@ -156,6 +156,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              profiler session), one torch.profiler pass over medium of
              each composition of each stream: the kernel launch calls per
              device chunk and the kernels' time on the card by name.
+   guard   - the exactness guard where it fires: a dataset of
+             --guard-gbp (default 0.02) Gbp at K = 28 and 83x
+             (devtools.soak.generate, seed 11; ~1,650 reads of ~12 kb on
+             a 241 kb genome), made once in a temp dir.  (a) The main
+             stream over it (batch 200, sort_window 8): a warm-up, a
+             reference run with the guard's re-decisions as the plain
+             per-row exact_rel loop (chip_smoke swaps it in for
+             TorchEngine._exact_guard), three runs as the path ships (one
+             exact_rel_batch per chunk on the -T workers), every chunk's
+             bytes equal to the reference's, and a second plain run:
+             k-mers/s, guard_flagged and its rate (equal in every run),
+             the main thread's seconds by stage with exact_guard on its
+             own.  (b) The guard alone on the reference run's staged
+             chunks: the per-row loop and the batch (at the -T workers,
+             4, 2 and 1, and at 1 on a fresh thread) in turns
+             (GUARD_TURNS), seconds per chunk and ms
+             per flagged row, threads and os.cpu_count(), rel_out equal
+             byte for byte to the reference's.  (c) The all-device stream
+             (a warm-up, one run): k-mers/s, guard_flagged, the main
+             thread's seconds by stage (exact_guard among them, as the
+             alldev_stream phase prints them); its bytes equal to the
+             main path's.  (d) 50 flagged
+             reads against the port's exact oracle: 0 mismatches.  With
+             --parent DIR, that checkout's main and all-device streams and
+             this tree's, each tree a process of its own, in turns
+             (parent, this, this, parent): every stream's bytes equal to
+             the reference's, the same guard_flagged, k-mers/s and the
+             guard's seconds.
 7. shard   - the parallel layer (K8) and the rest of classify's surface:
              (a) psum_histogram in a NCCL world of one rank equals its
              input (medium's partial instance histogram), the all-reduce
@@ -227,7 +255,8 @@ stack and spill bytes and launch geometry, rel_prep and rel_settle with
 the parent's times when --parent is given), {"setup": {...}} (the
 cold set-up's seconds by stage, the numpy and C++ tail tables' seconds),
 {"stream": {...}},
-{"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"shard":
+{"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"guard":
+{...}} (the guard phase's runs, turns and spot parity), {"shard":
 {...}} and {"serve": {...}} lines (ready_s, each job's wall_s and
 k-mers/s, table_uploads, launches and graph replays, the trace's busy
 share), {"tools": {...}} and {"soak": {...}} lines, the card's name and
@@ -241,6 +270,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import gzip
+import hashlib
 import json
 import os
 import shutil
@@ -1695,8 +1725,10 @@ def _clock(obj, name: str, acc: dict):
         finally:
             acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
 
+    own = name in vars(obj)          # else f comes from obj's class
     setattr(obj, name, g)
-    return lambda: setattr(obj, name, f)
+    return ((lambda: setattr(obj, name, f)) if own
+            else (lambda: delattr(obj, name)))
 
 
 def _launch_events(sink):
@@ -1923,6 +1955,35 @@ def _span_attr(obj, name: str, sink: list):
     return lambda: setattr(obj, name, f)
 
 
+def _main_clocks(eng, acc: dict) -> list:
+    """Clock the main path's stages of ``eng`` into ``acc``
+    (``_clock``); returns the undos."""
+    from classpro_tpu_torch import engine as engine_mod
+
+    undo = [_clock(eng, n, acc) for n in ("_stage", "_pack_st", "_submit",
+                                          "_finish", "_exact_guard")]
+    undo += [_clock(eng.wall, "finish_batch", acc)]
+    undo += [_clock(engine_mod, n, acc)
+             for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
+    return undo
+
+
+def _main_host_s(acc: dict, wall: float) -> dict:
+    """The main thread's seconds by stage of a main-path run of ``wall``
+    seconds (``_main_clocks``), each without the stages nested in it."""
+    a = lambda k: acc.get(k, 0.0)             # noqa: E731
+    return {
+        "wall_stage_cpp": a("_stage"), "pack_rel_cpp": a("_pack_st"),
+        "enqueue_h2d_dp_d2h": a("_submit") - a("_stage") - a("_pack_st"),
+        "wait_device": a("_finish") - a("unpack_out") - a("demote_host")
+        - a("reconcile_fwbw") - a("_exact_guard") - a("finish_batch"),
+        "demote_reconcile": a("unpack_out") + a("demote_host")
+        + a("reconcile_fwbw"),
+        "exact_guard": a("_exact_guard"),
+        "finish_batch_cpp": a("finish_batch"),
+        "other": wall - a("_submit") - a("_finish")}
+
+
 def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
                  turns=TURNS):
     """Steady stream over medium in the compositions of the main path's
@@ -1946,12 +2007,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
         undo = [S.install(S.comps[comp]),
                 _span_attr(rel.ChunkGraph, "replay", spans),
                 _span_attr(engine_mod, "rel_only", spans)]
-        undo += [_clock(eng, n, acc) for n in ("_stage", "_pack_st",
-                                               "_submit", "_finish",
-                                               "_exact_guard")]
-        undo += [_clock(eng.wall, "finish_batch", acc)]
-        undo += [_clock(engine_mod, n, acc)
-                 for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
+        undo += _main_clocks(eng, acc)
         torch.cuda.reset_peak_memory_stats()
         g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
@@ -1962,18 +2018,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
         d = _delta(n0, _counts())
         ms = [a.elapsed_time(b) for a, b in spans]
         chunks = max(eng.chunks_done - c0, 1)
-        host = {
-            "wall_stage_cpp": acc["_stage"], "pack_rel_cpp": acc["_pack_st"],
-            "enqueue_h2d_dp_d2h": acc["_submit"] - acc["_stage"]
-            - acc["_pack_st"],
-            "wait_device": acc["_finish"] - acc["unpack_out"]
-            - acc["demote_host"] - acc["reconcile_fwbw"]
-            - acc["_exact_guard"] - acc["finish_batch"],
-            "demote_reconcile": acc["unpack_out"] + acc["demote_host"]
-            + acc["reconcile_fwbw"],
-            "exact_guard": acc["_exact_guard"],
-            "finish_batch_cpp": acc["finish_batch"],
-            "other": wall - acc["_submit"] - acc["_finish"]}
+        host = _main_host_s(acc, wall)
         return {
             "composition": comp,
             "kmers_per_s": passes * S.kmers_pass / wall,
@@ -2658,6 +2703,35 @@ BATCH_LAUNCHES = {"rel_prep": 1, "rel_dp": 2, "rel_settle": 1,
                   "unrel_sweeps": 1, "tails.rel_rescue": 1, "tails.gate": 1}
 
 
+def _alldev_clocks(eng, acc: dict) -> list:
+    """Clock the all-device path's stages of ``eng`` into ``acc``
+    (``_clock``); returns the undos."""
+    from classpro_tpu_torch import engine as engine_mod
+
+    undo = [_clock(eng, n, acc) for n in ("_stage", "_submit",
+                                          "_device_stage", "_finish",
+                                          "_exact_alldev")]
+    return undo + [_clock(engine_mod, n, acc)
+                   for n in ("pack_chunk", "expand_asgn")]
+
+
+def _alldev_host_s(acc: dict, wall: float) -> dict:
+    """The main thread's seconds by stage of an all-device run of
+    ``wall`` seconds (``_alldev_clocks``), each without the stages nested
+    in it."""
+    a = lambda k: acc.get(k, 0.0)             # noqa: E731
+    enqueue = a("_submit") - a("_stage") - a("pack_chunk")
+    return {"wall_stage_cpp": a("_stage"),
+            "pack_chunk_numpy": a("pack_chunk"),
+            "device_stage_enqueue": a("_device_stage"),
+            "pin_h2d_d2h_other_enqueue": enqueue - a("_device_stage"),
+            "wait_device": a("_finish") - a("expand_asgn")
+            - a("_exact_alldev"),
+            "expand_asgn_numpy": a("expand_asgn"),
+            "exact_guard": a("_exact_alldev"),
+            "other": wall - a("_submit") - a("_finish")}
+
+
 def phase_alldev_stream(passes: int, turns=TURNS):
     """The alldev stream over medium in the compositions of the device
     stage (``_medium_stream``) that ``turns`` names, in that order.  After
@@ -2670,7 +2744,6 @@ def phase_alldev_stream(passes: int, turns=TURNS):
     glue around its classify_batch call), the main thread's enqueue ms
     per chunk and where its time goes, and max_memory_allocated."""
     from classpro_tpu_torch import alldev as alldev_mod
-    from classpro_tpu_torch import engine as engine_mod
     from classpro_tpu_torch import kernels
 
     S = _medium_stream(True)
@@ -2682,11 +2755,7 @@ def phase_alldev_stream(passes: int, turns=TURNS):
         undo = [S.install(S.comps[comp]),
                 _span_attr(alldev_mod.BatchGraph, "replay", spans),
                 _span_attr(alldev_mod, "classify_batch", spans)]
-        undo += [_clock(eng, n, acc) for n in ("_stage", "_submit",
-                                               "_device_stage", "_finish",
-                                               "_exact_full")]
-        undo += [_clock(engine_mod, n, acc)
-                 for n in ("pack_chunk", "expand_asgn")]
+        undo += _alldev_clocks(eng, acc)
         torch.cuda.reset_peak_memory_stats()
         g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
@@ -2697,17 +2766,9 @@ def phase_alldev_stream(passes: int, turns=TURNS):
         d = _delta(n0, _counts())
         ms = [a.elapsed_time(b) for a, b in spans]
         chunks = max(eng.chunks_done - c0, 1)
-        a = lambda k: acc.get(k, 0.0)
-        enqueue = a("_submit") - a("_stage") - a("pack_chunk")
-        host = {"wall_stage_cpp": a("_stage"),
-                "pack_chunk_numpy": a("pack_chunk"),
-                "device_stage_enqueue": a("_device_stage"),
-                "pin_h2d_d2h_other_enqueue": enqueue - a("_device_stage"),
-                "wait_device": a("_finish") - a("expand_asgn")
-                - a("_exact_full"),
-                "expand_asgn_numpy": a("expand_asgn"),
-                "exact_guard": a("_exact_full"),
-                "other": wall - a("_submit") - a("_finish")}
+        host = _alldev_host_s(acc, wall)
+        enqueue = host["device_stage_enqueue"] \
+            + host["pin_h2d_d2h_other_enqueue"]
         return {"composition": comp,
                 "kmers_per_s": passes * S.kmers_pass / wall, "wall_s": wall,
                 "device_chunks": chunks,
@@ -2770,6 +2831,374 @@ def phase_alldev_stream(passes: int, turns=TURNS):
             "kmers_per_s", "span_ms_per_chunk", "enqueue_ms_per_chunk",
             "replays_per_chunk")}
     return res
+
+
+# ------------------------------------------------------------------ guard
+# the guard phase's dataset (devtools.soak.generate): K and coverage of
+# the 0.5 Gbp soak, whose DP force-flags a quarter of the reads
+GUARD_KMER = 28
+GUARD_COV = 83
+GUARD_SEED = 11
+GUARD_RUNS = 3          # timed runs of the main stream
+GUARD_SPOT = 50         # flagged reads held against the exact oracle
+# the guard alone, in turns: the plain per-row loop, the batch at the -T
+# workers ("batch"), at 4, 2 and 1 ("batch_tN"; one worker is the
+# calling thread), and at 1 on a fresh thread per chunk ("cold": its
+# Skellam memo starts empty, as a spawned worker's does)
+GUARD_TURNS = ("plain", "batch", "batch_t4", "batch_t2", "batch_t1",
+               "cold", "cold", "batch_t1", "batch_t2", "batch_t4", "batch",
+               "plain")
+
+
+def _plain_guard(self, st, rel_out) -> None:
+    """TorchEngine._exact_guard with the re-decisions as a per-row loop
+    of the plain version, ``exact_rel`` (the guard before the batch):
+    the guard phase's reference."""
+    import numpy as np
+
+    R = rel_out.shape[0]
+    mm = st["mm"]
+    pos = mm[(mm > 0.0) & np.isfinite(mm)]
+    if pos.size:
+        self.guard_min_margin = min(self.guard_min_margin, float(pos.min()))
+    flagged = st["risky"][:R] | st["risky"][R:]
+    if not flagged.any():
+        return
+    self.guard_flagged += int(flagged.sum())
+    _plain_rows(self.wall, st, rel_out, np.nonzero(flagged)[0])
+
+
+def _plain_rows(wall, st, rel_out, rows) -> None:
+    """The per-row loop: rel_out[j] re-decided by ``exact_rel`` for each
+    flagged row j that is not padding."""
+    import numpy as np
+
+    slab, slot, n_out = st["slab"], st["slot"], st["n_out"]
+    live = np.nonzero(st["n_rel"] > 0)[0]
+    for j in rows:
+        if j >= len(live):
+            continue
+        i = int(live[j])
+        recs = slab[i * slot: i * slot + int(n_out[i])]
+        rel_recs = recs[recs["is_rel"] != 0]
+        rel_out[j, :len(rel_recs)] = wall.exact_rel(rel_recs,
+                                                    int(st["_plens"][i]))
+
+
+def _guard_data(gbp: float, d: str):
+    """The guard dataset in ``d``: (meta, GlobalModel, seqs, profiles)."""
+    from classpro_tpu_torch.devtools import soak
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+    from classpro_tpu_torch.io.fastx import read_fastx
+
+    meta = soak.generate(d, gbp, seed=GUARD_SEED, kmer=GUARD_KMER,
+                         cov=GUARD_COV)
+    root = os.path.join(d, "reads")
+    gm = build_global_model(load_histogram(root))
+    P = open_profiles(root)
+    seqs = [r.seq for r in read_fastx(root + ".fasta")]
+    return meta, gm, seqs, [P.fetch(i) for i in range(len(seqs))]
+
+
+# both streams over the guard dataset from a checkout, as a process of
+# its own (that tree's package first on its path): per path a warm-up and
+# one timed run, the guard's seconds (the all-device guard is
+# _exact_alldev, or _exact_full per read in a tree before the batch);
+# prints one JSON line
+_TREE_STREAM = r"""
+import hashlib, json, sys, time
+import torch
+from classpro_tpu_torch.engine import TorchEngine
+from classpro_tpu_torch.estimation import build_global_model
+from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+from classpro_tpu_torch.io.fastx import read_fastx
+root = sys.argv[1]
+gm = build_global_model(load_histogram(root))
+P = open_profiles(root)
+seqs = [r.seq for r in read_fastx(root + ".fasta")]
+profs = [P.fetch(i) for i in range(len(seqs))]
+kmers = sum(len(p) for p in profs)
+def stream(alldev):
+    eng = TorchEngine(gm, batch_size=200, device="cuda", alldev=alldev)
+    name = "_exact_guard"
+    if alldev:
+        name = ("_exact_alldev" if hasattr(eng, "_exact_alldev")
+                else "_exact_full")
+    f, acc = getattr(eng, name), [0.0]
+    def g(*a):
+        t = time.perf_counter()
+        try:
+            return f(*a)
+        finally:
+            acc[0] += time.perf_counter() - t
+    setattr(eng, name, g)
+    def run():
+        chunks = ((seqs[lo:lo + 200], profs[lo:lo + 200])
+                  for lo in range(0, len(seqs), 200))
+        t = time.perf_counter()
+        out = [c for o in eng.classify_stream(chunks, sort_window=8)
+               for c in o]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+    run()
+    acc[0], g0 = 0.0, eng.guard_flagged
+    wall, out = run()
+    return {"wall_s": wall, "kmers_per_s": kmers / wall,
+            "exact_guard_s": acc[0],
+            "guard_flagged": eng.guard_flagged - g0,
+            "sha256": hashlib.sha256("\n".join(out).encode()).hexdigest()}
+rec = stream(False)
+rec["alldev"] = stream(True)
+print(json.dumps(rec))
+"""
+
+
+def _tree_stream(tree: str, root: str) -> dict:
+    """``_TREE_STREAM`` in checkout ``tree`` over the dataset ``root``."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    r = subprocess.run([sys.executable, "-c", _TREE_STREAM, root],
+                       cwd=tree, env=env, capture_output=True, text=True,
+                       timeout=900)
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith("{")]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"guard: the main stream of {tree} failed (rc "
+             f"{r.returncode}): {r.stderr[-2000:]}")
+    return recs[0]
+
+
+def _time_guard(wall, chunks, kind: str, T: int) -> dict:
+    """The guard's re-decisions of the staged ``chunks`` one way (a
+    GUARD_TURNS kind; T the -T workers): the plain per-row loop or one
+    batch per chunk; rel_out of each chunk checked against the reference
+    byte for byte."""
+    import numpy as np
+
+    threads = {"plain": 1, "batch": T, "cold": 1}.get(kind) or int(
+        kind.rsplit("t", 1)[1])
+    secs = []
+    for c in chunks:
+        rel_out = c["pre"].copy()
+        rows = c["rows"][c["rows"] < len(c["live"])]
+
+        def batch():
+            wall.exact_rel_batch(c["slab"], c["slot"], c["n_out"],
+                                 c["live"][rows],
+                                 c["_plens"][c["live"][rows]], rel_out,
+                                 rows, threads=threads)
+        t = time.perf_counter()
+        if kind == "plain":
+            _plain_rows(wall, c, rel_out, c["rows"])
+        elif kind == "cold":
+            th = threading.Thread(target=batch)
+            th.start()
+            th.join()
+        else:
+            batch()
+        secs.append(time.perf_counter() - t)
+        if not np.array_equal(rel_out, c["post"]):
+            fail(f"guard: {kind} re-decisions differ from the reference "
+                 f"in rel_out")
+    n = sum(len(c["rows"]) for c in chunks)
+    return {"kind": kind, "threads": threads, "s": sum(secs),
+            "s_per_chunk": sum(secs) / max(len(secs), 1),
+            "ms_per_flagged_row": 1e3 * sum(secs) / max(n, 1)}
+
+
+def phase_guard(gbp: float, parent: str | None, smi: str) -> dict:
+    """The exactness guard at the coverage that flags reads: a dataset of
+    ``gbp`` Gbp at K = 28 and 83x (devtools.soak.generate), then (a) the
+    main stream (a warm-up, a reference run with the guard as the plain
+    per-row loop, GUARD_RUNS runs as it ships, a second plain run), every
+    chunk's bytes equal to the reference's; (b) the guard alone on the
+    reference run's staged chunks, the per-row loop and the batch in
+    turns (GUARD_TURNS), rel_out equal; (c) the all-device stream (a
+    warm-up, one run), its bytes equal to the main path's; (d)
+    GUARD_SPOT flagged reads against the exact oracle; with ``parent``,
+    that checkout's streams and this tree's in turns (``_TREE_STREAM``)."""
+    import numpy as np
+
+    from classpro_tpu_torch import engine as engine_mod
+    from classpro_tpu_torch import native
+    from classpro_tpu_torch.exact.pipeline import ReadClassifier
+
+    d = tempfile.mkdtemp(prefix="cpguard")
+    try:
+        t0 = time.time()
+        meta, gm, seqs, profs = _guard_data(gbp, d)
+        gen_s = time.time() - t0
+        rec = {"gbp": gbp, "kmer": GUARD_KMER, "cov": GUARD_COV,
+               "seed": GUARD_SEED, "reads": meta["n_reads"],
+               "kmers": meta["n_kmers"], "gen_s": gen_s,
+               "threads": native._threads(0), "cpu_count": os.cpu_count(),
+               "card": smi}
+        kmers = meta["n_kmers"]
+        spans = [(lo, min(lo + 200, len(seqs)))
+                 for lo in range(0, len(seqs), 200)]
+
+        def chunks():
+            return ((seqs[lo:hi], profs[lo:hi]) for lo, hi in spans)
+
+        # (a) the main stream
+        eng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV)
+        cls = engine_mod.TorchEngine
+        staged: list = []
+        flagged_reads: list = []
+
+        def reference(self, st, rel_out):
+            """_plain_guard, keeping the chunk's guard inputs and
+            outputs and the flagged reads for (b) and (d)."""
+            R = rel_out.shape[0]
+            rows = np.nonzero(st["risky"][:R] | st["risky"][R:])[0]
+            pre = rel_out.copy()
+            _plain_guard(self, st, rel_out)
+            if not rows.size:
+                return
+            live = np.nonzero(st["n_rel"] > 0)[0]
+            n = len(st["n_out"])
+            staged.append({"slab": st["slab"][: n * st["slot"]].copy(),
+                           "slot": st["slot"],
+                           "n_out": st["n_out"].copy(),
+                           "n_rel": st["n_rel"].copy(),
+                           "_plens": st["_plens"].copy(), "live": live,
+                           "rows": rows, "pre": pre,
+                           "post": rel_out.copy()})
+            flagged_reads.extend(st["seqs"][st["g"][live[j]]]
+                                 for j in rows if j < len(live))
+
+        def run(guard, check=None):
+            acc: dict = {}
+            undo = [lambda: setattr(cls, "_exact_guard", orig)]
+            setattr(cls, "_exact_guard", guard)
+            undo += _main_clocks(eng, acc)
+            g0 = eng.guard_flagged
+            out = []
+            t = time.perf_counter()
+            try:
+                for k, res in enumerate(eng.classify_stream(
+                        chunks(), sort_window=8)):
+                    if check is not None and res != check[k]:
+                        fail(f"guard: main stream chunk {k} differs from "
+                             f"the plain guard's run")
+                    out.append(res)
+                torch.cuda.synchronize()
+            finally:
+                for u in reversed(undo):
+                    u()
+            wall = time.perf_counter() - t
+            return out, {"wall_s": wall, "kmers_per_s": kmers / wall,
+                         "guard_flagged": eng.guard_flagged - g0,
+                         "flag_rate": (eng.guard_flagged - g0)
+                         / meta["n_reads"],
+                         "host_s": _main_host_s(acc, wall)}
+
+        orig = cls._exact_guard
+        run(orig)                                          # warm-up
+        ref, plain1 = run(reference)
+        if not staged or plain1["guard_flagged"] == 0:
+            fail("guard: the dataset flagged no read")
+        runs = [run(orig, ref)[1] for _ in range(GUARD_RUNS)]
+        plain2 = run(_plain_guard, ref)[1]
+        for r in runs + [plain2]:
+            if r["guard_flagged"] != plain1["guard_flagged"]:
+                fail(f"guard: guard_flagged {r['guard_flagged']} against "
+                     f"the plain guard's {plain1['guard_flagged']}")
+        rec["main"] = {"runs": runs, "plain_guard_runs": [plain1, plain2],
+                       "bytes_equal_to_plain_guard": True}
+        for tag, r in ([("batch", r) for r in runs]
+                       + [("plain", plain1), ("plain", plain2)]):
+            say(f"guard main stream ({tag} guard): "
+                f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
+                f"{r['guard_flagged']} ({100 * r['flag_rate']:.2f}% of "
+                f"{meta['n_reads']} reads); main thread s: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items()))
+
+        # (b) the guard alone
+        T = rec["threads"]
+        turns = [_time_guard(eng.wall, staged, k, T) for k in GUARD_TURNS]
+        rows = sum(len(c["rows"]) for c in staged)
+        rec["alone"] = {"chunks": len(staged), "flagged_rows": rows,
+                        "turns": turns, "rel_out_equal": True}
+        say(f"guard alone ({len(staged)} chunks, {rows} flagged rows, "
+            f"threads {T}, os.cpu_count() {os.cpu_count()}): "
+            + "; ".join(f"{t['kind']} {t['s_per_chunk'] * 1e3:.3f} ms per "
+                        f"chunk, {t['ms_per_flagged_row']:.4f} ms per row"
+                        for t in turns) + "; rel_out equal")
+
+        # (c) the all-device stream
+        aeng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV,
+                                      alldev=True)
+        for _ in aeng.classify_stream(chunks(), sort_window=8):
+            pass                                           # warm-up
+        acc: dict = {}
+        g0 = aeng.guard_flagged
+        undo = _alldev_clocks(aeng, acc)
+        t = time.perf_counter()
+        try:
+            aout = list(aeng.classify_stream(chunks(), sort_window=8))
+            torch.cuda.synchronize()
+        finally:
+            for u in reversed(undo):
+                u()
+        wall = time.perf_counter() - t
+        if aout != ref:
+            fail("guard: the all-device stream's bytes differ from the "
+                 "main path's")
+        rec["alldev"] = {"wall_s": wall, "kmers_per_s": kmers / wall,
+                         "guard_flagged": aeng.guard_flagged - g0,
+                         "host_s": _alldev_host_s(acc, wall),
+                         "bytes_equal_to_main": True}
+        a = rec["alldev"]
+        say(f"guard alldev stream: {a['kmers_per_s'] / 1e6:.2f} M "
+            f"k-mers/s, guard_flagged {a['guard_flagged']}; bytes equal "
+            f"to the main path's; main thread s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in a["host_s"].items()))
+
+        # (d) spot parity
+        flat = [c for res in ref for c in res]
+        index = {sq: i for i, sq in enumerate(seqs)}
+        rng = np.random.default_rng(GUARD_SEED)
+        picks = rng.choice(len(flagged_reads),
+                           size=min(GUARD_SPOT, len(flagged_reads)),
+                           replace=False)
+        clf = ReadClassifier(gm)
+        t = time.time()
+        mism = sum(clf.classify(flagged_reads[p], profs[index[
+            flagged_reads[p]]]) != flat[index[flagged_reads[p]]]
+            for p in picks)
+        rec["spot_parity"] = {"sampled": len(picks), "mismatches": mism,
+                              "oracle_s": time.time() - t}
+        say(f"guard spot parity: {mism} of {len(picks)} flagged reads "
+            f"differ from the exact oracle")
+        if mism:
+            fail(f"guard: {mism} flagged reads differ from the exact "
+                 f"oracle")
+
+        # the parent's main stream in turns with this tree's
+        if parent:
+            root = os.path.join(d, "reads")
+            ab = []
+            for tree in (parent, HERE, HERE, parent):
+                r = _tree_stream(tree, root)
+                r["tree"] = "parent" if tree == parent else "this"
+                ab.append(r)
+                for path, x in (("main", r), ("alldev", r["alldev"])):
+                    say(f"guard {path} stream of {r['tree']} tree: "
+                        f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, "
+                        f"exact_guard {x['exact_guard_s']:.4f} s, "
+                        f"guard_flagged {x['guard_flagged']}")
+            shas = {x["sha256"] for r in ab for x in (r, r["alldev"])}
+            if shas != {hashlib.sha256("\n".join(
+                    c for res in ref for c in res).encode()).hexdigest()} \
+                    or len({r["guard_flagged"] for r in ab}) != 1 \
+                    or len({r["alldev"]["guard_flagged"] for r in ab}) != 1:
+                fail(f"guard: the parent's and this tree's streams differ: "
+                     f"{json.dumps(ab)}")
+            rec["parent_ab"] = ab
+        return rec
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- 7
@@ -3512,8 +3941,8 @@ def phase_soak(gbp: float) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernel,e2e,setup,stream,alldev,shard,"
-                            "serve,tools",
+                    default="build,kernel,e2e,setup,stream,alldev,guard,"
+                            "shard,serve,tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile, k5profile and settleprofile, the kernels' "
                     "phase clocks, glue_ab, the streams with the plain glue "
@@ -3522,6 +3951,9 @@ def main(argv=None) -> int:
                     "starts as a process of its own)")
     ap.add_argument("--soak-gbp", type=float, default=0.05,
                     help="soak phase: dataset size in billions of bases")
+    ap.add_argument("--guard-gbp", type=float, default=0.02,
+                    help="guard phase: dataset size in billions of bases "
+                    "(K = 28, 83x)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium (per turn)")
     ap.add_argument("--alldev-passes", type=int, default=10,
@@ -3536,7 +3968,8 @@ def main(argv=None) -> int:
                     "before the DP kernel's prologue, rel_prep's main "
                     "layout + the DP first pass with its tails) against "
                     "this tree's and times them in turns, the alldev "
-                    "phase its rel_prep and rel_settle")
+                    "phase its rel_prep and rel_settle, the guard phase "
+                    "its main stream")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3593,6 +4026,8 @@ def main(argv=None) -> int:
                  "alldev_stream": phase_alldev_stream(args.alldev_passes,
                                                       AB_TURNS),
                  "profiled": _profiled_process()}
+    gdrec = (phase_guard(args.guard_gbp, args.parent, smi)
+             if "guard" in phases else None)
     shrec = phase_shard() if "shard" in phases else None
     keep = tempfile.mkdtemp(prefix="cpk")
     try:
@@ -3609,6 +4044,8 @@ def main(argv=None) -> int:
                         "card": smi}))
     if abrec is not None:
         say(json.dumps({"glue_ab": abrec, "card": smi}))
+    if gdrec is not None:
+        say(json.dumps({"guard": gdrec}))
     kern = []
     if krec is not None and arec is not None:   # the alldev rescue tails
         krec["tail_err"]["rel_rescue"] = max(krec["tail_err"]["rel_rescue"],

@@ -12,10 +12,10 @@
 //   decode:    libfastk.c:1464-1534
 //
 // The port's own copy of the repository's csrc/classpro_host.cpp (the
-// JAX package builds that one), with cp_build_btg added.  Exposed via a
-// C ABI for ctypes (classpro_tpu_torch/native.py).  All floating point
-// follows C double semantics (this is the same libm the reference links,
-// so values are bit-identical to the oracle).
+// JAX package builds that one), with cp_build_btg and cp_exact_rel_batch
+// added.  Exposed via a C ABI for ctypes (classpro_tpu_torch/native.py).
+// All floating point follows C double semantics (this is the same libm
+// the reference links, so values are bit-identical to the oracle).
 
 #include <algorithm>
 #include <atomic>
@@ -2446,21 +2446,50 @@ static inline double x_logp_binom(int64_t k64, int64_t n64, double p) {
 // flagged read's fw+bw DP makes ~5k x_logp_trans calls with heavy
 // (k, lam) repetition (the 4 source-state ST rows usually coincide).
 // A direct-mapped cache returns the IDENTICAL bit-exact value (same
-// deterministic function, recompute on collision) — the guard's
-// exact-recompute contract is unchanged.  Measured on the soak
-// geometry's ~50 flagged reads/chunk: ~1.0 ms/read before.
+// deterministic function of (k, lam's bits), recompute on collision) —
+// the guard's exact-recompute contract is unchanged.  One table serves
+// every thread of the process, so the workers of cp_exact_rel_batch
+// start warm and reuse what the others computed: each entry is a
+// seqlock (a reader takes an entry only when its sequence is even,
+// non-zero and unchanged across its loads; a writer claims it by making
+// the sequence odd and leaves it to another writer that holds it).
+struct SkMemo {
+  std::atomic<uint32_t> seq;
+  std::atomic<int32_t> k;
+  std::atomic<uint64_t> lam, v;
+};
+static SkMemo g_sk_memo[1 << 16];
+
 static inline double x_skellam_memo(int k, double lam) {
-  struct Ent { uint64_t tag; int k; double lam, v; };
   constexpr size_t NB = 1 << 16;
-  thread_local std::vector<Ent> tab(NB);
+  constexpr auto rlx = std::memory_order_relaxed;
   uint64_t lb;
   std::memcpy(&lb, &lam, 8);
   uint64_t h = (uint64_t)(uint32_t)k * 0x9E3779B97F4A7C15ULL ^
                (lb * 0xC2B2AE3D27D4EB4FULL);
-  Ent& e = tab[h & (NB - 1)];
-  if (e.tag == h + 1 && e.k == k && e.lam == lam) return e.v;
+  SkMemo& e = g_sk_memo[h & (NB - 1)];
+  uint32_t s0 = e.seq.load(std::memory_order_acquire);
+  if (s0 != 0 && !(s0 & 1)) {
+    int32_t ek = e.k.load(rlx);
+    uint64_t el = e.lam.load(rlx), ev = e.v.load(rlx);
+    std::atomic_thread_fence(std::memory_order_acquire);
+    if (e.seq.load(rlx) == s0 && ek == k && el == lb) {
+      double v;
+      std::memcpy(&v, &ev, 8);
+      return v;
+    }
+  }
   double v = logp_skellam(k, lam);
-  e = Ent{h + 1, k, lam, v};
+  uint32_t s = e.seq.load(rlx);
+  if (!(s & 1) && e.seq.compare_exchange_strong(s, s + 1, rlx)) {
+    std::atomic_thread_fence(std::memory_order_release);
+    uint64_t vb;
+    std::memcpy(&vb, &v, 8);
+    e.k.store(k, rlx);
+    e.lam.store(lb, rlx);
+    e.v.store(vb, rlx);
+    e.seq.store(s + 2, std::memory_order_release);
+  }
   return v;
 }
 
@@ -3004,17 +3033,51 @@ static bool is_eq_suffix(const int8_t* a, int M) {
   return true;
 }
 
+// classify_rel (class_rel.c:871-963) of ONE read: the is_rel records
+// among recs[0, n) gathered into the caller's buffer, fw + bw +
+// reconciliation, the M = (rel count) states into asgn_out.  Returns 0;
+// -1 if a DP ends with all states impossible (the oracle raises there);
+// -2 if the numerics hit the oracle's own loud-failure domain
+// (math.log(0.0) ValueError / int(inf) OverflowError); -3 if M > cap
+// (asgn_out holds cap states).  The single and the batched entry both
+// run it, so they cannot drift apart.
+static int exact_rel_read(const Glob& G, const OutIntvl* recs, int n,
+                          int plen, std::vector<OutIntvl>& rels,
+                          int8_t* asgn_out, int cap) {
+  rels.clear();
+  for (int k = 0; k < n; k++)
+    if (recs[k].is_rel) rels.push_back(recs[k]);
+  const int M = (int)rels.size();
+  if (M > cap) return -3;
+  if (M == 0) return 0;
+  Cls C(G, M, plen);
+  std::vector<int8_t> af(M), ab(M);
+  double hf = 1.0, hb = 1.0;
+  int rc = C.classify_dir(rels.data(), true, af.data(), &hf);
+  if (rc < 0) return rc;
+  rc = C.classify_dir(rels.data(), false, ab.data(), &hb);
+  if (rc < 0) return rc;
+  bool eq = true;
+  for (int i = 0; i < M; i++)
+    if (af[i] != ab[i]) { eq = false; break; }
+  const int8_t* pick = af.data();
+  if (!eq) {
+    if (is_eq_prefix(af.data(), M)) pick = af.data();
+    else if (is_eq_suffix(af.data(), M)) pick = ab.data();
+    else pick = (std::fabs(hf - 1.0) <= std::fabs(hb - 1.0)) ? af.data()
+                                                             : ab.data();
+  }
+  memcpy(asgn_out, pick, (size_t)M);
+  return 0;
+}
+
 }  // namespace xrel
 
 extern "C" {
 
-// classify_rel (class_rel.c:871-963): fw + bw + reconciliation over the
-// reliable intervals of ONE read.  rels = contiguous OutIntvl records
-// (is_rel entries only), asgn_out = M int8 states.  Returns 0; -1 if
-// a DP ends with all states impossible (the oracle raises there); -2 if
-// the numerics hit the oracle's own loud-failure domain (math.log(0.0)
-// ValueError / int(inf) OverflowError) — callers must raise, not
-// silently continue.
+// exact_rel_read of ONE read; rels = its contiguous rel records (is_rel
+// entries only), asgn_out = M int8 states.  The return codes are
+// exact_rel_read's: callers must raise on any but 0, not continue.
 int cp_exact_rel(int cov_e, int cov_r, int cov_h, int cov_d,
                  double dr_ratio, int read_len, double r_logp,
                  double e_po_base, double pe_mean, int offset,
@@ -3024,25 +3087,56 @@ int cp_exact_rel(int cov_e, int cov_r, int cov_h, int cov_d,
   if (M <= 0) return 0;
   xrel::Glob G{{cov_e, cov_r, cov_h, cov_d}, dr_ratio, read_len,
                r_logp, e_po_base, pe_mean, offset};
-  xrel::Cls C(G, M, plen);
-  std::vector<int8_t> af(M), ab(M);
-  double hf = 1.0, hb = 1.0;
-  int rc = C.classify_dir(rels, true, af.data(), &hf);
-  if (rc < 0) return rc;
-  rc = C.classify_dir(rels, false, ab.data(), &hb);
-  if (rc < 0) return rc;
-  bool eq = true;
-  for (int i = 0; i < M; i++)
-    if (af[i] != ab[i]) { eq = false; break; }
-  const int8_t* pick = af.data();
-  if (!eq) {
-    if (xrel::is_eq_prefix(af.data(), M)) pick = af.data();
-    else if (xrel::is_eq_suffix(af.data(), M)) pick = ab.data();
-    else pick = (std::fabs(hf - 1.0) <= std::fabs(hb - 1.0)) ? af.data()
-                                                             : ab.data();
-  }
-  memcpy(asgn_out, pick, (size_t)M);
-  return 0;
+  std::vector<OutIntvl> buf;
+  return xrel::exact_rel_read(G, rels, M, plen, buf, asgn_out, M);
+}
+
+// The exactness guard's re-decisions of one chunk in one call: row k
+// re-decides slab read reads[k] (its records at iv[reads[k] * slot],
+// n_out[reads[k]] of them) with profile length plens[k] into
+// rel_out[dst[k] * max_m, + its rel count), and its return code into
+// rc[k].  Rows are independent, so the bytes do not depend on threads:
+// workers take rows off an atomic counter, longest read first (the DP
+// grows faster than linearly in a read's intervals, so no worker is left
+// with a long row at the end), the calling thread one of them; all share
+// the process's Skellam memo (x_skellam_memo).
+void cp_exact_rel_batch(int cov_e, int cov_r, int cov_h, int cov_d,
+                        double dr_ratio, int read_len, double r_logp,
+                        double e_po_base, double pe_mean, int offset,
+                        const OutIntvl* iv, int slot, const int* n_out,
+                        int n_rows, const int* reads, const int64_t* plens,
+                        const int* dst, int8_t* rel_out, int max_m,
+                        int* rc, int threads) {
+  init_logfact();   // not thread-safe: before any worker starts
+  const xrel::Glob G{{cov_e, cov_r, cov_h, cov_d}, dr_ratio, read_len,
+                     r_logp, e_po_base, pe_mean, offset};
+  int T = threads;
+  int hw = (int)std::thread::hardware_concurrency();
+  if (hw > 0 && T > hw) T = hw;
+  if (T > n_rows) T = n_rows;
+  if (T < 1) T = 1;
+  std::vector<int> order(n_rows);
+  for (int k = 0; k < n_rows; k++) order[k] = k;
+  std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
+    return n_out[reads[a]] > n_out[reads[b]];
+  });
+  std::atomic<int> next(0);
+  auto worker = [&]() {
+    std::vector<OutIntvl> buf;
+    for (;;) {
+      int q = next.fetch_add(1);
+      if (q >= n_rows) return;
+      int k = order[q], i = reads[k];
+      rc[k] = xrel::exact_rel_read(G, iv + (int64_t)i * slot, n_out[i],
+                                   (int)plens[k], buf,
+                                   rel_out + (int64_t)dst[k] * max_m,
+                                   max_m);
+    }
+  };
+  std::vector<std::thread> ts;
+  for (int t = 1; t < T; t++) ts.emplace_back(worker);
+  worker();
+  for (auto& th : ts) th.join();
 }
 
 }  // extern "C"

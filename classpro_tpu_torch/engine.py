@@ -22,7 +22,8 @@ of ``alldev.classify_glued``, captured once per (device, Bn, max_n, R2,
 max_m) for the engine's tables; on the CPU ``alldev.classify_batch``'s
 plain versions); the host expands the assignments into class strings,
 and each read the device flags is re-decided whole, exactly, by the C++
-host plane.
+host plane (one batched exact rel call and one relaxation call per
+chunk, over the -T workers).
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
 in which chunk k+1's host stages overlap chunk k's device work.  On a
@@ -491,35 +492,47 @@ class TorchEngine:
             buf = st["un"].numpy()
             out, flags = buf[:, :-1].view(np.int8), buf[:, -1] != 0
             expand_asgn(out, st["meta"], res_g, self.gm.kmer)
-            for p, r in enumerate(st["meta"][0]):
-                if flags[p]:
-                    self.guard_flagged += 1
-                    res_g[r] = self._exact_full(st, r)
+            rows = np.asarray(st["meta"][0], np.int64)
+            rs = rows[flags[:len(rows)]]
+            if rs.size:
+                self.guard_flagged += int(rs.size)
+                for r, c in zip(rs, self._exact_alldev(st, rs)):
+                    res_g[r] = c
         return res_g
 
-    def _exact_full(self, st, r: int) -> str:
-        """Whole-read exact classification of staged read ``r`` (the
-        all-device path's guard): the C++ exact rel oracle on its rel
-        records, then the C++ relaxation and expansion of that read
-        alone."""
-        slab, slot = st["slab"], st["slot"]
-        n_out = st["n_out"][r:r + 1]
-        n_rel = st["n_rel"][r:r + 1]
-        recs = slab[r * slot: (r + 1) * slot]
-        rel_recs = recs[: int(n_out[0])]
-        rel_recs = rel_recs[rel_recs["is_rel"] != 0]
+    def _exact_alldev(self, st, rs: np.ndarray) -> list[str]:
+        """Whole-read exact classification of the staged reads ``rs``
+        (the all-device path's guard): one C++ exact rel call over their
+        rel records, then one C++ relaxation and expansion over a compact
+        copy of their slab rows, both on the -T workers."""
+        slot = st["slot"]
+        n_out, n_rel = st["n_out"][rs], st["n_rel"][rs]
+        # row q of the compact slab = read rs[q]'s records
+        slot_c = int(n_out.max())
+        slab = st["slab"][: len(st["n_out"]) * slot].reshape(-1, slot)
+        slab_c = slab[rs, :slot_c].reshape(-1)
         rel_out = None
-        if n_rel[0] > 0:
-            plen = len(st["profiles"][st["g"][r]])
-            rel_out = self.wall.exact_rel(rel_recs, plen)[None, :]
-        out_off = np.array([0, len(st["seqs"][st["g"][r]])], np.int64)
-        buf = self.wall.finish_batch(recs, slot, n_out, n_rel, rel_out,
-                                     max(len(rel_recs), 1), out_off,
-                                     threads=1)
-        return str(memoryview(buf), "ascii")
+        live = rs[n_rel > 0]              # rel row j = the j-th such read
+        if live.size:
+            rel_out = np.zeros((live.size, int(n_rel.max())), np.int8)
+            plens = [len(st["profiles"][st["g"][r]]) for r in live]
+            self.wall.exact_rel_batch(st["slab"], slot, st["n_out"], live,
+                                      plens, rel_out,
+                                      np.arange(live.size),
+                                      threads=self.threads)
+        out_off = np.zeros(len(rs) + 1, np.int64)
+        out_off[1:] = np.cumsum([len(st["seqs"][st["g"][r]]) for r in rs])
+        buf = self.wall.finish_batch(
+            slab_c, slot_c, n_out, n_rel, rel_out,
+            rel_out.shape[1] if rel_out is not None else 1, out_off,
+            threads=self.threads)
+        mv = memoryview(buf)
+        return [str(mv[out_off[q]: out_off[q + 1]], "ascii")
+                for q in range(len(rs))]
 
     def _exact_guard(self, st, rel_out) -> None:
-        """Host-exact recompute of flagged rows (in place)."""
+        """Host-exact recompute of flagged rows (in place), one C++ call
+        over the -T workers."""
         # margin EXACTLY 0 = a bit-equal (same-expression) tie that
         # resolves first-wins identically on device and in C: exempt.
         # The risky comparison ran on the device in f64 (rel.pack_out);
@@ -540,17 +553,12 @@ class TorchEngine:
             print(f"exactness guard: {int(flagged.sum())} read(s) within "
                   f"the decision-margin epsilon — recomputing exactly on "
                   f"the host", file=sys.stderr)
-        slab, slot = st["slab"], st["slot"]
-        n_out, n_rel = st["n_out"], st["n_rel"]
-        live = np.nonzero(n_rel > 0)[0]          # row j -> slab read
-        for j in np.nonzero(flagged)[0]:
-            if j >= len(live):
-                continue                          # padded dead row
-            i = int(live[j])
-            recs = slab[i * slot: i * slot + int(n_out[i])]
-            rel_recs = recs[recs["is_rel"] != 0]
-            rel_out[j, :len(rel_recs)] = self.wall.exact_rel(
-                rel_recs, int(st["_plens"][i]))
+        live = np.nonzero(st["n_rel"] > 0)[0]    # row j -> slab read
+        rows = np.nonzero(flagged)[0]
+        rows = rows[rows < len(live)]              # padded dead rows
+        self.wall.exact_rel_batch(st["slab"], st["slot"], st["n_out"],
+                                  live[rows], st["_plens"][live[rows]],
+                                  rel_out, rows, threads=self.threads)
 
     def _finish(self, st) -> list[str]:
         """Wait for the chunk's device result, run the host rel steps,

@@ -3,8 +3,9 @@
 The library is compiled on demand (g++ -O3 -shared) from the package's
 own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
 repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
-with ``cp_build_btg`` added) into ``classpro_tpu_torch/_build/``.  The
-engine has no pure-Python fallback: a failed build raises.
+with ``cp_build_btg`` and ``cp_exact_rel_batch`` added) into
+``classpro_tpu_torch/_build/``.  The engine has no pure-Python fallback:
+a failed build, or a library without one of these entries, raises.
 """
 
 from __future__ import annotations
@@ -113,6 +114,15 @@ def get_lib(force: bool = False):
             ctypes.c_double, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.cp_exact_rel_batch.restype = None
+        lib.cp_exact_rel_batch.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_int, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int]
         lib.cp_build_btg.restype = None
         lib.cp_build_btg.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -128,6 +138,25 @@ def get_lib(force: bool = False):
             ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         return lib
+
+
+def _threads(threads: int) -> int:
+    """The host workers of ``threads`` (-T): <= 0 means min(cpus, 16)."""
+    return threads if threads > 0 else min(os.cpu_count() or 1, 16)
+
+
+def _exact_error(rc: int, where: str = "") -> Exception:
+    """The exception of a ``cp_exact_rel`` return code (not 0)."""
+    if rc == -3:
+        return ValueError(f"{where}more rel records than its rel_out row "
+                          f"holds")
+    if rc == -2:
+        # mirrors the oracle's own failure mode: math.log(0.0)
+        # ValueError / int(inf) OverflowError inside the DP
+        return ValueError(f"{where}exact rel DP hit log(0)/int(inf) "
+                          f"(oracle loud-failure domain)")
+    return RuntimeError(f"{where}all DP states impossible at final "
+                        f"interval")
 
 
 def build_btg(erates, n_cap: int, logfact: np.ndarray) -> np.ndarray:
@@ -225,12 +254,9 @@ class NativeWall:
         consumption by `pack_rel`/`finish_batch`.  Returns
         (slab structured array, n_out, n_rel, slot); retries the whole
         batch with a larger slot on overflow (rare)."""
-        import os as _os
-
         gm = self.gm
         n = len(seqs)
-        if threads <= 0:
-            threads = min(_os.cpu_count() or 1, 16)
+        threads = _threads(threads)
         # pointer arrays into the caller-owned buffers (no concatenation)
         profs_c = [np.ascontiguousarray(p, np.uint16) for p in profiles]
         seq_ptrs = (ctypes.c_char_p * n)(*seqs)
@@ -297,32 +323,71 @@ class NativeWall:
             iblob.ctypes.data, fblob.ctypes.data)
         return fblob, iblob
 
+    def _exact_globals(self) -> tuple:
+        """The model arguments of ``cp_exact_rel`` and its batch."""
+        gm = self.gm
+        d = gm.defaults
+        return (int(gm.cov[0]), int(gm.cov[1]), int(gm.cov[2]),
+                int(gm.cov[3]), float(gm.dr_ratio), gm.read_len, d.r_logp,
+                d.e_po_base, d.pe_mean, d.offset)
+
     def exact_rel(self, rels: np.ndarray, plen: int) -> np.ndarray:
         """Exact fw/bw reliable-interval classification (C++ port of the
         Python oracle exact/rel.py) for ONE read; ``rels`` is a
         structured _IVDT array holding its rel interval records only.
-        Used by the engine's exactness guard (engine._exact_guard)."""
-        gm = self.gm
-        d = gm.defaults
+        The plain version of ``exact_rel_batch`` (tests, chip_smoke)."""
         M = len(rels)
         out = np.empty(M, np.int8)
         if M == 0:
             return out
         rels = np.ascontiguousarray(rels)
         r = self.lib.cp_exact_rel(
-            int(gm.cov[0]), int(gm.cov[1]), int(gm.cov[2]), int(gm.cov[3]),
-            float(gm.dr_ratio), gm.read_len, d.r_logp, d.e_po_base,
-            d.pe_mean, d.offset,
-            rels.ctypes.data_as(ctypes.c_void_p), M, int(plen),
-            out.ctypes.data_as(ctypes.c_void_p))
-        if r == -2:
-            # mirrors the oracle's own failure mode: math.log(0.0)
-            # ValueError / int(inf) OverflowError inside the DP
-            raise ValueError("exact rel DP hit log(0)/int(inf) "
-                             "(oracle loud-failure domain)")
+            *self._exact_globals(), rels.ctypes.data_as(ctypes.c_void_p),
+            M, int(plen), out.ctypes.data_as(ctypes.c_void_p))
         if r != 0:
-            raise RuntimeError("all DP states impossible at final interval")
+            raise _exact_error(r)
         return out
+
+    def exact_rel_batch(self, slab: np.ndarray, slot: int,
+                        n_out: np.ndarray, reads, plens, rel_out: np.ndarray,
+                        rows, threads: int = 0) -> None:
+        """The exactness guard's re-decisions of one chunk in one threaded
+        C++ call (``cp_exact_rel_batch``): for each k, the rel records of
+        slab read ``reads[k]`` (profile length ``plens[k]``) re-decided as
+        ``exact_rel`` does, into ``rel_out[rows[k], :m]`` in place (m its
+        rel count; rel_out a C-contiguous int8 (R, max_m) array).  The
+        bytes do not depend on ``threads`` (<= 0: min(cpus, 16)).  Raises
+        what ``exact_rel`` raises, for the first failing k."""
+        reads = np.ascontiguousarray(reads, np.int32)
+        plens = np.ascontiguousarray(plens, np.int64)
+        rows = np.ascontiguousarray(rows, np.int32)
+        n = len(reads)
+        if len(plens) != n or len(rows) != n:
+            raise ValueError("reads, plens and rows differ in length")
+        if rel_out.dtype != np.int8 or rel_out.ndim != 2 \
+                or not rel_out.flags.c_contiguous:
+            raise ValueError("rel_out must be a C-contiguous int8 matrix")
+        if slab.dtype != _IVDT or not slab.flags.c_contiguous:
+            raise ValueError("slab must be a C-contiguous wall slab")
+        if n == 0:
+            return
+        n_out = np.ascontiguousarray(n_out, np.int32)
+        if reads.min() < 0 or reads.max() >= len(n_out) \
+                or rows.min() < 0 or rows.max() >= rel_out.shape[0]:
+            raise IndexError("a read or row index is out of range")
+        if len(slab) < len(n_out) * slot or n_out[reads].max() > slot:
+            raise ValueError("the slab is shorter than its reads' slots")
+        rc = np.zeros(n, np.int32)
+        self.lib.cp_exact_rel_batch(
+            *self._exact_globals(), slab.ctypes.data_as(ctypes.c_void_p),
+            slot, n_out.ctypes.data, n, reads.ctypes.data, plens.ctypes.data,
+            rows.ctypes.data, rel_out.ctypes.data, rel_out.shape[1],
+            rc.ctypes.data, _threads(threads))
+        bad = np.flatnonzero(rc)
+        if bad.size:
+            k = int(bad[0])
+            raise _exact_error(int(rc[k]), f"read {int(reads[k])} (batch "
+                                           f"row {k}): ")
 
     def finish_batch(self, slab: np.ndarray, slot: int, n_out: np.ndarray,
                      n_rel: np.ndarray, rel_out, max_m: int,
@@ -330,12 +395,9 @@ class NativeWall:
         """Scatter device rel assignments + relaxation sweeps + class
         expansion, one threaded native call.  rel_out may be None when
         no read had reliable intervals."""
-        import os as _os
-
         gm = self.gm
         d = gm.defaults
-        if threads <= 0:
-            threads = min(_os.cpu_count() or 1, 16)
+        threads = _threads(threads)
         if not hasattr(self, "_sk"):
             from classpro_tpu_torch.skellam import build_skellam_tables
             from classpro_tpu_torch.tables import build_tables
@@ -353,9 +415,9 @@ class NativeWall:
         # everywhere (null Skellam tables) — a self-consistency check
         # of the exactness guard: outputs must match the table path
         # byte for byte (tests/tools use it; production keeps tables)
-        sk_a = (None if _os.environ.get("CP_EXACT_SK")
+        sk_a = (None if os.environ.get("CP_EXACT_SK")
                 else self._sk[0].ctypes.data)
-        sk_b = (None if _os.environ.get("CP_EXACT_SK")
+        sk_b = (None if os.environ.get("CP_EXACT_SK")
                 else self._sk[1].ctypes.data)
         self.lib.cp_finish_batch(
             int(gm.cov[0]), int(gm.cov[1]), int(gm.cov[2]), int(gm.cov[3]),
