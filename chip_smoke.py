@@ -146,7 +146,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              (CUDA events around each BatchGraph.replay), launches,
              replays and captures per chunk (five launches per replay and
              per capture's eager run), the enqueue ms per chunk and where
-             the main thread's time goes.
+             the main thread's time goes (host_s: pack_chunk_cpp and
+             expand_cpp, the feed's C++ entries).  Then the feed alone:
+             every chunk of one sort window as the stream fed it, its C++
+             blobs (NativeWall.pack_chunk, the stream's own and again at
+             T = 8 and T = 1) held against numpy pack.pack_chunk bit for
+             bit (fblob as uint64), its C++ class lines (expand_rows)
+             against pack.expand_asgn byte for byte, and each stage timed
+             per chunk in FEED_TURNS (numpy, C++ at T = 8 and T = 1, and
+             back).  With --parent DIR, that checkout's all-device stream
+             and this tree's, each tree a process of its own, in turns
+             (parent, this, this, parent; TREE_RUNS runs of
+             --alldev-passes passes each, golden bytes): k-mers/s and the
+             feed's seconds.
    glue_ab (only when named) - both streams with the two compositions of
              the per-chunk glue taken in turns (plain glue, kernels,
              kernels, plain glue): the plain torch glue around the DP and
@@ -174,10 +186,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              (GUARD_TURNS), seconds per chunk and ms
              per flagged row, threads and os.cpu_count(), rel_out equal
              byte for byte to the reference's.  (c) The all-device stream
-             (a warm-up, one run): k-mers/s, guard_flagged, the main
-             thread's seconds by stage (exact_guard among them, as the
-             alldev_stream phase prints them); its bytes equal to the
-             main path's.  (d) 50 flagged
+             (a warm-up, then four runs: the C++ feed, the numpy feed
+             swapped in twice, the C++ feed): k-mers/s, guard_flagged
+             (equal in every run), the main thread's seconds by stage
+             (exact_guard among them, as the alldev_stream phase prints
+             them); every run's bytes equal to the main path's.  (d) 50
+             flagged
              reads against the port's exact oracle: 0 mismatches.  With
              --parent DIR, that checkout's main and all-device streams and
              this tree's, each tree a process of its own, in turns
@@ -192,7 +206,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              and with 4 in-process shards + the checked merge writes the
              tiny and medium goldens, and --resume after a truncated and
              a deleted shard recomputes only those two; (c)
-             sharded_classify of 4 distinct medium read groups over
+             sharded_classify of 4 distinct medium read groups (packed
+             and expanded by the C++ feed, held against numpy's) over
              cuda:{i % cards} (cuda:0 four times on one card) equals
              one classify_batch per shard, the four shards differ, its
              unflagged reads the C++ exact path, every kernel of the path
@@ -2074,20 +2089,77 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
 # --------------------------------------------------------------------- 6
 def _alldev_packs(eng, seqs, profs, B=200):
     """(fblob, iblob, dims) of every chunk, as TorchEngine(alldev=True)
-    packs them."""
-    from classpro_tpu_torch.pack import pack_chunk
+    packs them (the C++ entry, held bit for bit against numpy's)."""
+    import numpy as np
 
     out = []
     for lo in range(0, len(seqs), B):
         st = eng._stage(seqs[lo:lo + B], profs[lo:lo + B])
-        slab, slot, n_out = st["slab"], st["slot"], st["n_out"]
-        rows = [r for r in range(len(st["g"])) if n_out[r] > 0]
-        ivs = [slab[r * slot: r * slot + int(n_out[r])]
-               for r in range(len(st["g"]))]
-        fb, ib, dims, _ = pack_chunk(
-            rows, ivs, [len(st["profiles"][i]) for i in st["g"]])
+        rows = np.flatnonzero(st["n_out"] > 0).astype(np.int32)
+        plens = np.array([len(st["profiles"][i]) for i in st["g"]],
+                         np.int64)
+        fb, ib, dims = eng.wall.pack_chunk(
+            st["slab"], st["slot"], st["n_out"], st["n_rel"], plens, rows)
+        _numpy_pack(f"medium chunk {lo // B}", st["slab"], st["slot"],
+                    st["n_out"], plens, rows, (fb, ib, dims))
         out.append((fb, ib, dims))
     return out
+
+
+def _ivs(slab, slot: int, n_out) -> list:
+    """Each slab read's records (the plain feed's input)."""
+    return [slab[r * slot: r * slot + int(n_out[r])]
+            for r in range(len(n_out))]
+
+
+def _numpy_pack(tag: str, slab, slot: int, n_out, plens, rows, got):
+    """numpy pack.pack_chunk of the slab reads ``rows`` (the plain
+    version); fails unless the C++ pack ``got`` = (fblob, iblob, dims)
+    equals it, fblob as uint64 bit patterns.  Returns numpy's pack."""
+    import numpy as np
+
+    from classpro_tpu_torch.pack import pack_chunk
+
+    want = pack_chunk([int(r) for r in rows], _ivs(slab, slot, n_out),
+                      plens)
+    if got[2] != want[2] or not np.array_equal(got[1], want[1]) \
+            or not np.array_equal(got[0].view(np.uint64),
+                                  want[0].view(np.uint64)):
+        fail(f"{tag}: the C++ pack_chunk differs from numpy's (dims "
+             f"{got[2]} against {want[2]})")
+    return want
+
+
+def _numpy_feed(eng):
+    """Swap ``eng``'s C++ feed for the plain numpy versions (pack_chunk,
+    expand_asgn) behind the C++ entries' signatures, the expansion reading
+    the metadata its chunk's pack made (as the engine before the C++ feed
+    did); returns the undo."""
+    import numpy as np
+
+    from classpro_tpu_torch import pack
+
+    metas: dict = {}
+
+    def pack_chunk(slab, slot, n_out, n_rel, plens, rows, threads=0):
+        fb, ib, dims, meta = pack.pack_chunk(
+            [int(r) for r in rows], _ivs(slab, slot, n_out), plens)
+        metas[slab.ctypes.data, rows.tobytes()] = meta
+        return fb, ib, dims
+
+    def expand_rows(slab, slot, n_out, rows, asgn, out_off, threads=0):
+        meta = metas.pop((slab.ctypes.data, rows.tobytes()))
+        res = [None] * len(n_out)
+        pack.expand_asgn(asgn, meta, res, eng.gm.kmer)
+        return np.frombuffer("".join(res[r] for r in rows).encode("ascii"),
+                             np.uint8)
+
+    eng.wall.pack_chunk = pack_chunk
+    eng.wall.expand_rows = expand_rows
+
+    def undo():
+        del eng.wall.pack_chunk, eng.wall.expand_rows
+    return undo
 
 
 def _unrel_bound(args, P, max_n: int) -> dict:
@@ -2705,34 +2777,220 @@ BATCH_LAUNCHES = {"rel_prep": 1, "rel_dp": 2, "rel_settle": 1,
 
 def _alldev_clocks(eng, acc: dict) -> list:
     """Clock the all-device path's stages of ``eng`` into ``acc``
-    (``_clock``); returns the undos."""
-    from classpro_tpu_torch import engine as engine_mod
-
+    (``_clock``; the feed's two C++ entries on ``eng.wall``, or whatever
+    stands in their place); returns the undos."""
     undo = [_clock(eng, n, acc) for n in ("_stage", "_submit",
                                           "_device_stage", "_finish",
                                           "_exact_alldev")]
-    return undo + [_clock(engine_mod, n, acc)
-                   for n in ("pack_chunk", "expand_asgn")]
+    return undo + [_clock(eng.wall, n, acc)
+                   for n in ("pack_chunk", "expand_rows")]
 
 
-def _alldev_host_s(acc: dict, wall: float) -> dict:
+def _alldev_host_s(acc: dict, wall: float, feed: str = "cpp") -> dict:
     """The main thread's seconds by stage of an all-device run of
     ``wall`` seconds (``_alldev_clocks``), each without the stages nested
-    in it."""
+    in it; ``feed`` names the feed's stages (the C++ entries, or with
+    "numpy" the plain versions swapped in by ``_numpy_feed``)."""
     a = lambda k: acc.get(k, 0.0)             # noqa: E731
     enqueue = a("_submit") - a("_stage") - a("pack_chunk")
     return {"wall_stage_cpp": a("_stage"),
-            "pack_chunk_numpy": a("pack_chunk"),
+            f"pack_chunk_{feed}": a("pack_chunk"),
             "device_stage_enqueue": a("_device_stage"),
             "pin_h2d_d2h_other_enqueue": enqueue - a("_device_stage"),
-            "wait_device": a("_finish") - a("expand_asgn")
+            "wait_device": a("_finish") - a("expand_rows")
             - a("_exact_alldev"),
-            "expand_asgn_numpy": a("expand_asgn"),
+            ("expand_cpp" if feed == "cpp" else "expand_asgn_numpy"):
+                a("expand_rows"),
             "exact_guard": a("_exact_alldev"),
             "other": wall - a("_submit") - a("_finish")}
 
 
-def phase_alldev_stream(passes: int, turns=TURNS):
+# the all-device feed alone, per chunk, in turns: numpy pack_chunk /
+# expand_asgn (the plain versions) and the C++ entries at 8 and 1 workers
+FEED_TURNS = ("numpy", "cpp_t8", "cpp_t1", "cpp_t1", "cpp_t8", "numpy")
+
+
+def _feed_chunks(S) -> list:
+    """The all-device stream's chunks over one sort window's passes (so
+    every batch it composes), as its feed saw them: copies of the slab
+    rows, n_out, n_rel, plens, rows, the C++ pack, and the device result's
+    assignment columns with the class lines' offsets."""
+    import numpy as np
+
+    wall, recs = S.eng.wall, []
+    pack, expand = wall.pack_chunk, wall.expand_rows
+
+    def rec_pack(slab, slot, n_out, n_rel, plens, rows, threads=0):
+        got = pack(slab, slot, n_out, n_rel, plens, rows, threads=threads)
+        recs.append({"slab": slab[: len(n_out) * slot].copy(), "slot": slot,
+                     "n_out": n_out.copy(), "n_rel": n_rel.copy(),
+                     "plens": plens.copy(), "rows": rows.copy(),
+                     "pack": got})
+        return got
+
+    def rec_expand(slab, slot, n_out, rows, asgn, out_off, threads=0):
+        c = next(c for c in recs if "asgn" not in c)   # chunks finish in order
+        if not np.array_equal(c["rows"], rows):
+            fail("alldev feed: a chunk was expanded out of its order")
+        c["asgn"], c["out_off"] = asgn.copy(), out_off.copy()
+        return expand(slab, slot, n_out, rows, asgn, out_off,
+                      threads=threads)
+
+    wall.pack_chunk, wall.expand_rows = rec_pack, rec_expand
+    try:
+        S.run(S.warm_passes)
+    finally:
+        del wall.pack_chunk, wall.expand_rows
+    return recs
+
+
+def _time_feed(S) -> dict:
+    """The feed alone on every chunk of ``_feed_chunks``: the C++ blobs
+    (the stream's own and again at T = 8 and T = 1) held against numpy
+    pack_chunk bit for bit and the C++ class lines against expand_asgn
+    byte for byte, then each stage timed per chunk in FEED_TURNS."""
+    import numpy as np
+
+    from classpro_tpu_torch.pack import expand_asgn
+
+    wall, K = S.eng.wall, S.eng.gm.kmer
+    chunks = _feed_chunks(S)
+    if not chunks or any("asgn" not in c for c in chunks):
+        fail("alldev feed: a chunk was packed but not expanded")
+    for k, c in enumerate(chunks):
+        args = (c["slab"], c["slot"], c["n_out"])
+        c["meta"] = _numpy_pack(f"alldev feed chunk {k}", *args, c["plens"],
+                                c["rows"], c["pack"])[3]
+        res = [None] * len(c["n_out"])
+        expand_asgn(c["asgn"], c["meta"], res, K)
+        want = "".join(res[r] for r in c["rows"]).encode("ascii")
+        for T in (8, 1):
+            _numpy_pack(f"alldev feed chunk {k} at T={T}", *args,
+                        c["plens"], c["rows"], wall.pack_chunk(
+                            *args, c["n_rel"], c["plens"], c["rows"],
+                            threads=T))
+            if wall.expand_rows(*args, c["rows"], c["asgn"], c["out_off"],
+                                threads=T).tobytes() != want:
+                fail(f"alldev feed chunk {k}: the C++ class lines at T={T} "
+                     f"differ from expand_asgn's")
+
+    def pack(kind, c):
+        if kind == "numpy":
+            from classpro_tpu_torch.pack import pack_chunk
+            pack_chunk([int(r) for r in c["rows"]],
+                       _ivs(c["slab"], c["slot"], c["n_out"]), c["plens"])
+        else:
+            wall.pack_chunk(c["slab"], c["slot"], c["n_out"], c["n_rel"],
+                            c["plens"], c["rows"], threads=int(kind[-1]))
+
+    def expand(kind, c):
+        if kind == "numpy":
+            expand_asgn(c["asgn"], c["meta"], [None] * len(c["n_out"]), K)
+        else:
+            wall.expand_rows(c["slab"], c["slot"], c["n_out"], c["rows"],
+                             c["asgn"], c["out_off"], threads=int(kind[-1]))
+
+    rec = {"chunks": len(chunks), "dims": [list(c["pack"][2])
+                                           for c in chunks],
+           "turns": list(FEED_TURNS), "pack_ms": [], "expand_ms": []}
+    for kind in FEED_TURNS:
+        for stage, fn in (("pack_ms", pack), ("expand_ms", expand)):
+            ms = []
+            for c in chunks:
+                t = time.perf_counter()
+                fn(kind, c)
+                ms.append((time.perf_counter() - t) * 1e3)
+            rec[stage].append(ms)
+    for stage in ("pack_ms", "expand_ms"):
+        rec[stage + "_median"] = {
+            kind: statistics.median(x for t, ms in zip(FEED_TURNS,
+                                                       rec[stage])
+                                    if t == kind for x in ms)
+            for kind in dict.fromkeys(FEED_TURNS)}
+    return rec
+
+
+# one checkout's all-device stream over medium, as a process of its own
+# (that tree's package first on its path): a warm-up of one sort window,
+# then TREE_RUNS timed runs of argv[2] passes, every chunk checked against
+# the golden; the feed's seconds (the C++ entries on NativeWall, or in a
+# tree before them numpy pack_chunk / expand_asgn in the engine module);
+# prints one JSON line
+TREE_RUNS = 3
+_TREE_ALLDEV = r"""
+import gzip, json, sys, time
+import torch
+from classpro_tpu_torch import engine as engine_mod
+from classpro_tpu_torch.estimation import build_global_model
+from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+from classpro_tpu_torch.io.fastx import read_fastx
+fx, passes, runs = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+gm = build_global_model(load_histogram(fx + "/reads"))
+P = open_profiles(fx + "/reads")
+seqs = [r.seq for r in read_fastx(fx + "/reads.fasta.gz")]
+profs = [P.fetch(i) for i in range(len(seqs))]
+with gzip.open(fx + "/golden.class.gz", "rt") as f:
+    gold = f.read().splitlines()[3::4]
+kmers = sum(len(c) - c.count("N") for c in gold)
+eng = engine_mod.TorchEngine(gm, batch_size=200, device="cuda", alldev=True)
+acc = {}
+def clock(obj, name, key):
+    f = getattr(obj, name, None)
+    if f is None:
+        return
+    def g(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return f(*a, **kw)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+    setattr(obj, name, g)
+clock(engine_mod, "pack_chunk", "pack_s")
+clock(engine_mod, "expand_asgn", "expand_s")
+clock(eng.wall, "pack_chunk", "pack_s")
+clock(eng.wall, "expand_rows", "expand_s")
+spans = [(lo, min(lo + 200, len(seqs))) for lo in range(0, len(seqs), 200)]
+def run(n):
+    chunks = ((seqs[lo:hi], profs[lo:hi])
+              for _ in range(n) for lo, hi in spans)
+    t = time.perf_counter()
+    for k, res in enumerate(eng.classify_stream(chunks, sort_window=8)):
+        lo, hi = spans[k % len(spans)]
+        if res != gold[lo:hi]:
+            sys.exit(f"chunk {k} differs from the golden")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+run(max(1, -(-8 // len(spans))))
+out = []
+for _ in range(runs):
+    acc.clear()
+    g0 = eng.guard_flagged
+    wall = run(passes)
+    out.append({"wall_s": wall, "kmers_per_s": passes * kmers / wall,
+                "pack_s": acc.get("pack_s", 0.0),
+                "expand_s": acc.get("expand_s", 0.0),
+                "guard_flagged": eng.guard_flagged - g0})
+print(json.dumps({"runs": out}))
+"""
+
+
+def _tree_alldev(tree: str, passes: int) -> dict:
+    """``_TREE_ALLDEV`` in checkout ``tree``."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    r = subprocess.run([sys.executable, "-c", _TREE_ALLDEV,
+                        os.path.join(FIX, "medium"), str(passes),
+                        str(TREE_RUNS)], cwd=tree, env=env,
+                       capture_output=True, text=True, timeout=900)
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith("{")]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"alldev stream of {tree} failed (rc {r.returncode}): "
+             f"{r.stderr[-2000:]}")
+    return recs[0]
+
+
+def phase_alldev_stream(passes: int, turns=TURNS,
+                        parent: str | None = None):
     """The alldev stream over medium in the compositions of the device
     stage (``_medium_stream``) that ``turns`` names, in that order.  After
     a warm-up of each (the passes of one sort window, which capture the
@@ -2830,6 +3088,29 @@ def phase_alldev_stream(passes: int, turns=TURNS):
         res[comp] = {k: [r[k] for r in mine] for k in (
             "kmers_per_s", "span_ms_per_chunk", "enqueue_ms_per_chunk",
             "replays_per_chunk")}
+    feed = res["feed"] = _time_feed(S)
+    say(f"alldev feed alone ({feed['chunks']} chunks, dims {feed['dims']}; "
+        f"C++ blobs equal to numpy pack_chunk bit for bit and class lines "
+        f"to expand_asgn at T=8 and T=1), median ms per chunk in turns "
+        f"{' '.join(FEED_TURNS)}: pack "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    feed["pack_ms_median"].items())
+        + "; expand " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  feed["expand_ms_median"].items()))
+    if parent:
+        ab = []
+        for tree in (parent, HERE, HERE, parent):
+            r = _tree_alldev(tree, passes)
+            r["tree"] = "parent" if tree == parent else "this"
+            ab.append(r)
+            say(f"alldev stream of the {r['tree']} tree ({passes} passes of "
+                f"medium, a process of its own): "
+                + "; ".join(f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, feed "
+                            f"pack {x['pack_s']:.4f} s, expand "
+                            f"{x['expand_s']:.4f} s" for x in r["runs"]))
+        if any(x["guard_flagged"] for r in ab for x in r["runs"]):
+            fail("alldev stream: a tree flagged reads on medium")
+        res["parent_ab"] = ab
     return res
 
 
@@ -3126,34 +3407,46 @@ def phase_guard(gbp: float, parent: str | None, smi: str) -> dict:
                         f"chunk, {t['ms_per_flagged_row']:.4f} ms per row"
                         for t in turns) + "; rel_out equal")
 
-        # (c) the all-device stream
+        # (c) the all-device stream: the C++ feed as it ships and the
+        # numpy feed (the plain versions) in turns, every run's bytes equal
+        # to the main path's, guard_flagged equal in every run
         aeng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV,
                                       alldev=True)
         for _ in aeng.classify_stream(chunks(), sort_window=8):
             pass                                           # warm-up
-        acc: dict = {}
-        g0 = aeng.guard_flagged
-        undo = _alldev_clocks(aeng, acc)
-        t = time.perf_counter()
-        try:
-            aout = list(aeng.classify_stream(chunks(), sort_window=8))
-            torch.cuda.synchronize()
-        finally:
-            for u in reversed(undo):
-                u()
-        wall = time.perf_counter() - t
-        if aout != ref:
-            fail("guard: the all-device stream's bytes differ from the "
-                 "main path's")
-        rec["alldev"] = {"wall_s": wall, "kmers_per_s": kmers / wall,
-                         "guard_flagged": aeng.guard_flagged - g0,
-                         "host_s": _alldev_host_s(acc, wall),
-                         "bytes_equal_to_main": True}
-        a = rec["alldev"]
-        say(f"guard alldev stream: {a['kmers_per_s'] / 1e6:.2f} M "
-            f"k-mers/s, guard_flagged {a['guard_flagged']}; bytes equal "
-            f"to the main path's; main thread s: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in a["host_s"].items()))
+
+        def arun(feed):
+            acc: dict = {}
+            g0 = aeng.guard_flagged
+            undo = [_numpy_feed(aeng)] if feed == "numpy" else []
+            undo += _alldev_clocks(aeng, acc)
+            t = time.perf_counter()
+            try:
+                aout = list(aeng.classify_stream(chunks(), sort_window=8))
+                torch.cuda.synchronize()
+            finally:
+                for u in reversed(undo):
+                    u()
+            wall = time.perf_counter() - t
+            if aout != ref:
+                fail(f"guard: the all-device stream's bytes ({feed} feed) "
+                     f"differ from the main path's")
+            return {"feed": feed, "wall_s": wall, "kmers_per_s": kmers / wall,
+                    "guard_flagged": aeng.guard_flagged - g0,
+                    "host_s": _alldev_host_s(acc, wall, feed),
+                    "bytes_equal_to_main": True}
+
+        aruns = [arun(f) for f in ("cpp", "numpy", "numpy", "cpp")]
+        if len({r["guard_flagged"] for r in aruns}) != 1:
+            fail(f"guard: all-device guard_flagged differs between the C++ "
+                 f"and the numpy feed: {[r['guard_flagged'] for r in aruns]}")
+        rec["alldev"] = dict(aruns[0], feed_turns=aruns)
+        for a in aruns:
+            say(f"guard alldev stream ({a['feed']} feed): "
+                f"{a['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
+                f"{a['guard_flagged']}; bytes equal to the main path's; main "
+                f"thread s: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in a["host_s"].items()))
 
         # (d) spot parity
         flat = [c for res in ref for c in res]
@@ -3381,7 +3674,7 @@ def _sharded(rec: dict, devices: list) -> None:
     from classpro_tpu_torch import alldev, kernels
     from classpro_tpu_torch.alldev import classify_batch
     from classpro_tpu_torch.native import NativeWall
-    from classpro_tpu_torch.pack import expand_asgn, pack_chunk
+    from classpro_tpu_torch.pack import expand_asgn
     from classpro_tpu_torch.params import build_replicas
     from classpro_tpu_torch.parallel.mesh import sharded_classify
 
@@ -3395,8 +3688,12 @@ def _sharded(rec: dict, devices: list) -> None:
     plens = [len(p) for p in profs]
     order = sorted((i for i in range(len(seqs)) if n_out[i] > 0),
                    key=lambda i: (int(n_out[i]), int(n_rel[i])))
-    groups = [sorted(order[d::4]) for d in range(4)]
-    packs = [pack_chunk(g, ivs, plens) for g in groups]
+    groups = [np.array(sorted(order[d::4]), np.int32) for d in range(4)]
+    # each shard packed by the C++ entry, held against numpy's
+    packs = [wall.pack_chunk(slab, slot, n_out, n_rel, plens, g)
+             for g in groups]
+    metas = [_numpy_pack(f"sharded: shard {d}", slab, slot, n_out, plens, g,
+                         p)[3] for d, (g, p) in enumerate(zip(groups, packs))]
     dims = packs[0][2]
     if any(p[2] != dims for p in packs):
         fail(f"sharded: groups differ in dims {[p[2] for p in packs]}")
@@ -3421,15 +3718,25 @@ def _sharded(rec: dict, devices: list) -> None:
     if len({out[d].tobytes() for d in range(len(devices))}) != len(devices):
         fail("sharded: two shards returned the same rows")
     checked = 0
-    for d, (g, (fb, ib, _, meta)) in enumerate(zip(groups, packs)):
+    for d, (g, (fb, ib, _), meta) in enumerate(zip(groups, packs, metas)):
         dev = torch.device(devices[d])
         o, f = classify_batch(torch.from_numpy(fb).to(dev),
                               torch.from_numpy(ib).to(dev), PPs[dev], *dims)
         if not (np.array_equal(out[d], o.cpu().numpy())
                 and np.array_equal(flags[d], f.cpu().numpy())):
             fail(f"sharded: shard {d} != a single classify_batch on it")
+        # the class lines by the C++ expansion, held against expand_asgn
         res = [None] * len(seqs)
         expand_asgn(out[d], meta, res, gm.kmer)
+        out_off = np.zeros(len(g) + 1, np.int64)
+        out_off[1:] = np.cumsum([len(seqs[i]) for i in g])
+        cls = wall.expand_rows(slab, slot, n_out, g, out[d], out_off)
+        if cls.tobytes() != "".join(res[i] for i in g).encode("ascii"):
+            fail(f"sharded: shard {d}'s C++ class lines differ from "
+                 f"expand_asgn's")
+        mv = memoryview(cls)
+        res = {int(i): str(mv[out_off[r]: out_off[r + 1]], "ascii")
+               for r, i in enumerate(g)}
         for r, i in enumerate(g):
             if flags[d][r]:
                 continue
@@ -3968,8 +4275,9 @@ def main(argv=None) -> int:
                     "before the DP kernel's prologue, rel_prep's main "
                     "layout + the DP first pass with its tails) against "
                     "this tree's and times them in turns, the alldev "
-                    "phase its rel_prep and rel_settle, the guard phase "
-                    "its main stream")
+                    "phase its rel_prep and rel_settle, the alldev_stream "
+                    "phase its all-device stream, the guard phase its "
+                    "streams")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4016,7 +4324,7 @@ def main(argv=None) -> int:
         arec = phase_alldev(parent)
         alaunch = phase_alldev_e2e()
     if phases & {"alldev", "alldev_stream"}:
-        asrec = phase_alldev_stream(args.alldev_passes)
+        asrec = phase_alldev_stream(args.alldev_passes, parent=args.parent)
     if "profiled" in phases:                 # the child of _profiled_process
         say(json.dumps({"profiled": phase_profiled()}))
     abrec = None

@@ -8,7 +8,8 @@ then both relaxation sweeps (K5, the kernel csrc/unrel.cu).
 ``parallel.mesh.sharded_classify`` runs it once per read shard, each on
 its own device.
 
-Blob layouts (pack.pack_chunk builds them):
+Blob layouts (native.NativeWall.pack_chunk builds them, pack.pack_chunk
+is its plain version):
 
   iblob (int32): b,e,cb,ce,ccb,cce,idx_desc,idx_asc,is_rel,live
                  [10 x Bn*max_n] | n [Bn] |

@@ -12,8 +12,9 @@
 //   decode:    libfastk.c:1464-1534
 //
 // The port's own copy of the repository's csrc/classpro_host.cpp (the
-// JAX package builds that one), with cp_build_btg and cp_exact_rel_batch
-// added.  Exposed via a C ABI for ctypes (classpro_tpu_torch/native.py).
+// JAX package builds that one), with cp_build_btg, cp_exact_rel_batch,
+// cp_pack_chunk and cp_expand_rows added.  Exposed via a C ABI for
+// ctypes (classpro_tpu_torch/native.py).
 // All floating point follows C double semantics (this is the same libm
 // the reference links, so values are bit-identical to the oracle).
 
@@ -33,6 +34,10 @@
 #if defined(__AVX2__)
 #include <immintrin.h>
 #endif
+#include <condition_variable>
+#include <functional>
+#include <mutex>
+#include <pthread.h>
 #include <thread>
 #include <vector>
 
@@ -3192,6 +3197,343 @@ void cp_build_btg(const double* erates, int n_rates, int n_cap,
       }
     }
   }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// The all-device path's host feed (classpro_tpu_torch/pack.py holds the
+// plain versions, pack_chunk and expand_asgn; the blob layout is in
+// alldev.py's docstring).
+//
+// cp_pack_chunk fills the two transfer blobs of one read group: packed
+// row t is slab read rows[t] (its records at iv[rows[t] * slot], n_out of
+// them), rows t >= n_rows and rel rows j >= the group's rel reads are
+// padding, and every element of both blobs is written.  A row's live
+// columns are ordered by min(cb, ce), ties by column: numpy's stable
+// argsort permutation (a stable order is unique), here one sort of the
+// distinct keys min * 2^32 + column.  The log-factorials are the
+// caller's table (numpy's LOGFACT), indexed at min(count, 32767).  Rel
+// row j of the merged fw/bw planes is the j-th packed row with n_rel > 0
+// (a serial prefix), its bw twin R + j the same records reversed within
+// m.  Packed rows go to the workers (the feed's Pool) off an atomic
+// counter; each writes only its own rows, so the blobs do not depend on
+// threads.  Returns 0, or for the lowest failing packed row (in
+// *err_row): -1 a count below 0 where a log-factorial is read, -2 an
+// n_rel different from the row's count of is_rel records, -3 a row that
+// does not fit the dims.
+//
+// cp_expand_rows writes packed row r's class line at out_off[r]: K - 1
+// 'N', then each record's e - b bytes of "ERHD"[clip(a, 0, 3)], a its
+// assignment at asgn[r * stride + column].  Returns 0, or for the lowest
+// failing row (in *err_row): -4 when K - 1 plus the row's e - b do not
+// fill its line, -5 a record with e < b; a failing row's line is not
+// written.
+// ---------------------------------------------------------------------
+
+namespace feed {
+
+constexpr int LF_CAP = 32767;
+
+static inline bool lf_at(const double* logfact, int n_logfact, int cnt,
+                         double* out) {
+  const int k = cnt > LF_CAP ? LF_CAP : cnt;
+  if (k < 0 || k >= n_logfact) return false;
+  *out = logfact[k];
+  return true;
+}
+
+static inline int32_t minus1(int32_t v) {   // numpy's wrapping int32 - 1
+  return (int32_t)((uint32_t)v - 1u);
+}
+
+static int worker_count(int threads, int items) {
+  int T = threads;
+  int hw = (int)std::thread::hardware_concurrency();
+  if (hw > 0 && T > hw) T = hw;
+  if (T > items) T = items;
+  return T < 1 ? 1 : T;
+}
+
+// Worker threads kept for the process: a job runs on the calling thread
+// and T - 1 of them, so a call pays a wake-up, not threads' start and
+// join (on the 8-core host of an H100 machine, eight workers started per
+// call took an expansion 1.5 ms against 0.58 ms on one).  One job at a
+// time; the threads are never joined, and a forked child starts a pool
+// of its own (the parent's threads do not exist there).
+class Pool {
+ public:
+  static Pool& get() {
+    static std::once_flag once;
+    std::call_once(once, [] {
+      g_pool = new Pool();
+      pthread_atfork(nullptr, nullptr, [] { g_pool = new Pool(); });
+    });
+    return *g_pool;
+  }
+
+  void run(int T, const std::function<void()>& job) {
+    std::lock_guard<std::mutex> one(run_mu_);
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      while ((int)n_threads_ < T - 1) {
+        const int idx = n_threads_++;
+        new std::thread([this, idx] { loop(idx); });   // lives on
+      }
+      job_ = &job;
+      helpers_ = pending_ = T - 1;
+      gen_++;
+    }
+    wake_.notify_all();
+    job();
+    std::unique_lock<std::mutex> lk(mu_);
+    done_.wait(lk, [this] { return pending_ == 0; });
+  }
+
+ private:
+  static Pool* g_pool;
+
+  void loop(int idx) {
+    uint64_t seen = 0;
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      wake_.wait(lk, [&] { return gen_ != seen; });
+      seen = gen_;
+      if (idx >= helpers_) continue;
+      const std::function<void()>* job = job_;
+      lk.unlock();
+      (*job)();
+      lk.lock();
+      if (--pending_ == 0) done_.notify_one();
+    }
+  }
+
+  std::mutex run_mu_, mu_;
+  std::condition_variable wake_, done_;
+  const std::function<void()>* job_ = nullptr;
+  uint64_t gen_ = 0;
+  int n_threads_ = 0, helpers_ = 0, pending_ = 0;
+};
+Pool* Pool::g_pool = nullptr;
+
+// run body(t) for t in [0, items) on T workers (the caller one of them),
+// rows off an atomic counter
+template <class F>
+static void parallel_rows(int items, int threads, F body) {
+  const int T = worker_count(threads, items);
+  std::atomic<int> next(0);
+  const std::function<void()> worker = [&]() {
+    for (;;) {
+      int t = next.fetch_add(1);
+      if (t >= items) return;
+      body(t);
+    }
+  };
+  if (T == 1) worker();
+  else Pool::get().run(T, worker);
+}
+
+static int first_error(const std::vector<int>& rc, int* err_row) {
+  for (size_t t = 0; t < rc.size(); t++)
+    if (rc[t]) {
+      *err_row = (int)t;
+      return rc[t];
+    }
+  *err_row = -1;
+  return 0;
+}
+
+}  // namespace feed
+
+extern "C" {
+
+int cp_pack_chunk(const OutIntvl* iv, int slot, const int* n_out,
+                  const int* n_rel, const int64_t* plens, const int* rows,
+                  int n_rows, int Bn, int max_n, int R, int max_m,
+                  const double* logfact, int n_logfact, int32_t* iblob,
+                  double* fblob, int* err_row, int threads) {
+  const size_t BN = (size_t)Bn * max_n;
+  const size_t RM = (size_t)R * max_m;      // one half of a rel plane
+  const size_t base = 10 * BN + Bn;
+  int32_t* ip[10];
+  for (int k = 0; k < 10; k++) ip[k] = iblob + k * BN;
+  int32_t *pb = ip[0], *pe_ = ip[1], *pcb = ip[2], *pce = ip[3],
+          *pccb = ip[4], *pcce = ip[5], *pdesc = ip[6], *pasc = ip[7],
+          *pisrel = ip[8], *plive = ip[9];
+  int32_t* pn = iblob + 10 * BN;
+  int32_t* bpos = iblob + base;
+  int32_t* bcnt = bpos + 2 * RM;
+  int32_t* epos = bpos + 4 * RM;
+  int32_t* ecnt = bpos + 6 * RM;
+  int32_t* maxcc = bpos + 8 * RM;
+  int32_t* rcols = bpos + 10 * RM;
+  int32_t* pm = rcols + RM;
+  int32_t* pplen = pm + 2 * R;
+  int32_t* pfwd = pm + 4 * R;
+  int32_t* prows = pm + 6 * R;
+  double *fpe = fblob, *fpeob = fblob + BN, *fpeoe = fblob + 2 * BN,
+         *flcb = fblob + 3 * BN, *flce = fblob + 4 * BN;
+  double* rpe = fblob + 5 * BN;
+  double* rlb = rpe + 2 * RM;
+  double* rle = rpe + 4 * RM;
+
+  const int items = std::max(Bn, R);
+  std::vector<int> rc(items > 0 ? items : 1, 0);
+  // rel row of each packed row (the enumeration of pack.py's rel_pos)
+  std::vector<int> jrow(n_rows > 0 ? n_rows : 1, -1);
+  int n_relrows = 0;
+  for (int t = 0; t < n_rows; t++) {
+    const int i = rows[t];
+    if (n_out[i] < 0 || n_out[i] > max_n || n_rel[i] > max_m) rc[t] = -3;
+    else if (n_rel[i] > 0) jrow[t] = n_relrows++;
+  }
+  if (n_rows > Bn || n_relrows > R) {
+    *err_row = -1;
+    return -3;
+  }
+  for (int t = 0; t < n_rows; t++)
+    if (rc[t]) return feed::first_error(rc, err_row);
+  double lf1;
+  if (!feed::lf_at(logfact, n_logfact, 1, &lf1)) {
+    *err_row = -1;
+    return -1;
+  }
+
+  // a rel row pair (fw j, bw R + j) as padding from column c0 on
+  auto rel_pad = [&](int j, int c0) {
+    for (int h = 0; h < 2; h++) {
+      const size_t o = (size_t)(h * R + j) * max_m;
+      for (int c = c0; c < max_m; c++) {
+        bpos[o + c] = 0; bcnt[o + c] = 1; epos[o + c] = 0;
+        ecnt[o + c] = 1; maxcc[o + c] = 1;
+        rpe[o + c] = NEG_INF; rlb[o + c] = lf1; rle[o + c] = lf1;
+      }
+    }
+  };
+  auto rel_head = [&](int j, int m, int32_t plen, int32_t row) {
+    pm[j] = pm[R + j] = m;
+    pplen[j] = pplen[R + j] = plen;
+    pfwd[j] = 1;
+    pfwd[R + j] = 0;
+    prows[j] = row;
+  };
+
+  feed::parallel_rows(items, threads, [&](int t) {
+    thread_local std::vector<int64_t> ord;
+    thread_local std::vector<int> ks;
+    if (ord.size() < (size_t)max_n) ord.resize(max_n);
+    if (ks.size() < (size_t)max_m) ks.resize(max_m);
+    if (t < R && (t >= n_relrows)) {        // padding rel rows
+      rel_pad(t, 0);
+      for (int c = 0; c < max_m; c++) rcols[(size_t)t * max_m + c] = max_n;
+      rel_head(t, 1, 1, Bn);
+    }
+    if (t >= Bn) return;
+    const size_t o = (size_t)t * max_n;
+    int N = 0;
+    if (t < n_rows) {
+      const int i = rows[t];
+      const OutIntvl* rec = iv + (int64_t)i * slot;
+      N = n_out[i];
+      int nrel = 0;
+      for (int c = 0; c < N; c++) {
+        const OutIntvl& r = rec[c];
+        pb[o + c] = r.b; pe_[o + c] = r.e; pcb[o + c] = r.cb;
+        pce[o + c] = r.ce; pccb[o + c] = r.ccb; pcce[o + c] = r.cce;
+        pisrel[o + c] = r.is_rel; plive[o + c] = 1;
+        fpe[o + c] = r.pe; fpeob[o + c] = r.pe_o_b; fpeoe[o + c] = r.pe_o_e;
+        if (!feed::lf_at(logfact, n_logfact, r.cb, &flcb[o + c]) ||
+            !feed::lf_at(logfact, n_logfact, r.ce, &flce[o + c]))
+          rc[t] = -1;
+        nrel += r.is_rel != 0;
+      }
+      // processing orders of the sweeps: live columns by min(cb, ce),
+      // ties by column
+      for (int c = 0; c < N; c++)
+        ord[c] = (int64_t)std::min(rec[c].cb, rec[c].ce) * (INT64_C(1) << 32)
+                 + c;
+      std::sort(ord.begin(), ord.begin() + N);
+      for (int c = 0; c < N; c++) {
+        pasc[o + c] = (int32_t)(ord[c] & 0xffffffff);
+        pdesc[o + c] = (int32_t)(ord[N - 1 - c] & 0xffffffff);
+      }
+      const int j = jrow[t];
+      if (nrel != n_rel[i]) {
+        if (!rc[t]) rc[t] = -2;
+      } else if (j >= 0) {
+        const int m = nrel;                 // ks: the row's rel columns
+        for (int c = 0, w = 0; c < N; c++)
+          if (rec[c].is_rel) ks[w++] = c;
+        const size_t fo = (size_t)j * max_m, bo = (size_t)(R + j) * max_m;
+        for (int c = 0; c < m; c++) {
+          const OutIntvl& f = rec[ks[c]];           // forward column c
+          const OutIntvl& v = rec[ks[m - 1 - c]];   // reversed column c
+          bpos[fo + c] = f.b; bcnt[fo + c] = f.ccb;
+          epos[fo + c] = feed::minus1(f.e); ecnt[fo + c] = f.cce;
+          maxcc[fo + c] = std::max(f.ccb, f.cce);
+          bpos[bo + c] = feed::minus1(v.e); bcnt[bo + c] = v.cce;
+          epos[bo + c] = v.b; ecnt[bo + c] = v.ccb;
+          maxcc[bo + c] = std::max(v.ccb, v.cce);
+          rpe[fo + c] = f.pe; rpe[bo + c] = v.pe;
+          rcols[fo + c] = ks[c];
+          if (!feed::lf_at(logfact, n_logfact, f.ccb, &rlb[fo + c]) ||
+              !feed::lf_at(logfact, n_logfact, f.cce, &rle[fo + c]) ||
+              !feed::lf_at(logfact, n_logfact, v.cce, &rlb[bo + c]) ||
+              !feed::lf_at(logfact, n_logfact, v.ccb, &rle[bo + c]))
+            rc[t] = -1;
+        }
+        rel_pad(j, m);
+        for (int c = m; c < max_m; c++) rcols[fo + c] = max_n;
+        rel_head(j, m, (int32_t)plens[i], t);
+      }
+    }
+    for (int c = N; c < max_n; c++) {
+      pb[o + c] = 0; pe_[o + c] = 1; pcb[o + c] = 0; pce[o + c] = 0;
+      pccb[o + c] = 0; pcce[o + c] = 0; pisrel[o + c] = 0; plive[o + c] = 0;
+      pdesc[o + c] = 0; pasc[o + c] = 0;
+      fpe[o + c] = NEG_INF; fpeob[o + c] = NEG_INF; fpeoe[o + c] = NEG_INF;
+      flcb[o + c] = 0.0; flce[o + c] = 0.0;
+    }
+    pn[t] = N;
+  });
+  return feed::first_error(rc, err_row);
+}
+
+int cp_expand_rows(const OutIntvl* iv, int slot, const int* n_out,
+                   const int* rows, int n_rows, const int8_t* asgn,
+                   int64_t stride, int K, const int64_t* out_off, char* out,
+                   int* err_row, int threads) {
+  static const char stoc[4] = {'E', 'R', 'H', 'D'};
+  std::vector<int> rc(n_rows > 0 ? n_rows : 1, 0);
+  feed::parallel_rows(n_rows, threads, [&](int r) {
+    const int i = rows[r];
+    const OutIntvl* rec = iv + (int64_t)i * slot;
+    const int N = n_out[i] > 0 ? n_out[i] : 0;
+    const int64_t len = out_off[r + 1] - out_off[r];
+    int64_t body = 0;
+    for (int c = 0; c < N; c++) {
+      if (rec[c].e < rec[c].b) {
+        rc[r] = -5;
+        return;
+      }
+      body += (int64_t)rec[c].e - rec[c].b;
+    }
+    if (K - 1 < 0 || body + K - 1 != len) {
+      rc[r] = -4;
+      return;
+    }
+    char* dst = out + out_off[r];
+    memset(dst, 'N', (size_t)(K - 1));
+    dst += K - 1;
+    const int8_t* a = asgn + (int64_t)r * stride;
+    for (int c = 0; c < N; c++) {
+      int s = a[c] < 0 ? 0 : (a[c] > 3 ? 3 : a[c]);
+      const size_t n = (size_t)(rec[c].e - rec[c].b);
+      memset(dst, stoc[s], n);
+      dst += n;
+    }
+  });
+  return feed::first_error(rc, err_row);
 }
 
 }  // extern "C"

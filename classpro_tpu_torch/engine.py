@@ -15,15 +15,17 @@ Stage split:
 
 ``TorchEngine(alldev=True)`` takes the all-device path instead (the JAX
 package's ``_chunk_alldev``): after the C++ wall stage, each chunk is
-packed by ``pack.pack_chunk`` and classified whole on the device (DP,
-demotions, reconciliation and both relaxation sweeps: on a card one
-replay of its bucket's CUDA graph, alldev.BatchGraph, the five launches
-of ``alldev.classify_glued``, captured once per (device, Bn, max_n, R2,
-max_m) for the engine's tables; on the CPU ``alldev.classify_batch``'s
-plain versions); the host expands the assignments into class strings,
-and each read the device flags is re-decided whole, exactly, by the C++
-host plane (one batched exact rel call and one relaxation call per
-chunk, over the -T workers).
+packed by the C++ host plane (``NativeWall.pack_chunk``, on the -T
+workers; ``pack.pack_chunk`` is its plain version) and classified whole
+on the device (DP, demotions, reconciliation and both relaxation sweeps:
+on a card one replay of its bucket's CUDA graph, alldev.BatchGraph, the
+five launches of ``alldev.classify_glued``, captured once per (device,
+Bn, max_n, R2, max_m) for the engine's tables; on the CPU
+``alldev.classify_batch``'s plain versions); the host plane expands the
+assignments into class strings (``NativeWall.expand_rows``, plain version
+``pack.expand_asgn``), and each read the device flags is re-decided
+whole, exactly, by the C++ host plane (one batched exact rel call and one
+relaxation call per chunk, over the -T workers).
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
 in which chunk k+1's host stages overlap chunk k's device work.  On a
@@ -57,7 +59,7 @@ from classpro_tpu_torch.io.classfile import ClassRecord, class_header
 from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
 from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall
-from classpro_tpu_torch.pack import _bucket, expand_asgn, pack_chunk
+from classpro_tpu_torch.pack import _bucket
 from classpro_tpu_torch.params import build_replicas
 from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
                                     reconcile_fwbw, rel_only, unpack_out)
@@ -441,17 +443,20 @@ class TorchEngine:
         return self._graphs.get(P, *shape)
 
     def _submit_alldev(self, st):
-        """Pack the staged chunk's reads that have intervals and enqueue
-        the device stage on them (the JAX package's _dispatch)."""
+        """Pack the staged chunk's reads that have intervals (one C++
+        call on the -T workers) and enqueue the device stage on them (the
+        JAX package's _dispatch)."""
         if "g" not in st:
             return st
-        g, slab, slot, n_out = st["g"], st["slab"], st["slot"], st["n_out"]
-        rows = [r for r in range(len(g)) if n_out[r] > 0]
-        if not rows:
+        rows = np.flatnonzero(st["n_out"] > 0).astype(np.int32)
+        if not rows.size:
             return st
-        ivs = [slab[r * slot: r * slot + int(n_out[r])] for r in range(len(g))]
-        plens = [len(st["profiles"][i]) for i in g]
-        fb, ib, dims, st["meta"] = pack_chunk(rows, ivs, plens)
+        plens = np.array([len(st["profiles"][i]) for i in st["g"]],
+                         np.int64)
+        fb, ib, dims = self.wall.pack_chunk(
+            st["slab"], st["slot"], st["n_out"], st["n_rel"], plens, rows,
+            threads=self.threads)
+        st["rows"] = rows
         self._ran(dims[2] // 2, dims[3])
         return self._enqueue(st, fb, ib, "un", lambda f, i, P, PP:
                              self._device_stage(f, i, P, PP, dims))
@@ -483,17 +488,24 @@ class TorchEngine:
 
     def _finish_alldev(self, st) -> list[str]:
         """Class strings of an all-device chunk, in g order: expand the
-        interval assignments, re-decide the flagged reads exactly."""
+        interval assignments (one C++ call on the -T workers), re-decide
+        the flagged reads exactly."""
         g = st["g"]
         res_g = [""] * len(g)
-        if "meta" in st:
+        if "rows" in st:
             if "done" in st:
                 st["done"].synchronize()
             buf = st["un"].numpy()
-            out, flags = buf[:, :-1].view(np.int8), buf[:, -1] != 0
-            expand_asgn(out, st["meta"], res_g, self.gm.kmer)
-            rows = np.asarray(st["meta"][0], np.int64)
-            rs = rows[flags[:len(rows)]]
+            rows = st["rows"]
+            out_off = np.zeros(len(rows) + 1, np.int64)
+            out_off[1:] = np.cumsum([len(st["seqs"][g[r]]) for r in rows])
+            cls = self.wall.expand_rows(st["slab"], st["slot"], st["n_out"],
+                                        rows, buf[:, :-1].view(np.int8),
+                                        out_off, threads=self.threads)
+            mv = memoryview(cls)
+            for k, r in enumerate(rows):
+                res_g[r] = str(mv[out_off[k]: out_off[k + 1]], "ascii")
+            rs = rows[buf[:len(rows), -1] != 0]
             if rs.size:
                 self.guard_flagged += int(rs.size)
                 for r, c in zip(rs, self._exact_alldev(st, rs)):

@@ -3,7 +3,8 @@
 The library is compiled on demand (g++ -O3 -shared) from the package's
 own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
 repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
-with ``cp_build_btg`` and ``cp_exact_rel_batch`` added) into
+with ``cp_build_btg``, ``cp_exact_rel_batch``, ``cp_pack_chunk`` and
+``cp_expand_rows`` added) into
 ``classpro_tpu_torch/_build/``.  The engine has no pure-Python fallback:
 a failed build, or a library without one of these entries, raises.
 """
@@ -16,6 +17,10 @@ import subprocess
 import threading
 
 import numpy as np
+
+from classpro_tpu_torch.alldev import blob_sizes
+from classpro_tpu_torch.numerics import LOGFACT as _LOGFACT
+from classpro_tpu_torch.pack import _bucket, _bucket32
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "csrc", "host", "classpro_host.cpp")
@@ -123,6 +128,18 @@ def get_lib(force: bool = False):
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int]
+        lib.cp_pack_chunk.restype = ctypes.c_int
+        lib.cp_pack_chunk.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int]
+        lib.cp_expand_rows.restype = ctypes.c_int
+        lib.cp_expand_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.cp_build_btg.restype = None
         lib.cp_build_btg.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -157,6 +174,40 @@ def _exact_error(rc: int, where: str = "") -> Exception:
                           f"(oracle loud-failure domain)")
     return RuntimeError(f"{where}all DP states impossible at final "
                         f"interval")
+
+
+# the messages of the all-device feed's return codes (cp_pack_chunk,
+# cp_expand_rows)
+_FEED_ERRORS = {
+    -1: "a record count below 0 where a log-factorial is read",
+    -2: "n_rel differs from the read's count of is_rel records",
+    -3: "a read does not fit the chunk's dims",
+    -4: "K - 1 plus the read's interval lengths do not fill its class line",
+    -5: "a record ends before it begins (e < b)"}
+
+
+def _feed_error(rc: int, err_row, rows) -> ValueError:
+    k = int(err_row[0])
+    where = (f"packed row {k} (slab read {int(rows[k])}): " if k >= 0
+             else "")
+    return ValueError(where + _FEED_ERRORS.get(rc, f"error {rc}"))
+
+
+def _feed_args(slab, slot: int, n_out, rows):
+    """The validated slab, n_out (int32) and rows (int32) of a feed call:
+    every row a slab read whose records fit its slot."""
+    if slab.dtype != _IVDT or not slab.flags.c_contiguous:
+        raise ValueError("slab must be a C-contiguous wall slab")
+    n_out = np.ascontiguousarray(n_out, np.int32)
+    rows = np.ascontiguousarray(rows, np.int32)
+    if rows.ndim != 1 or not rows.size:
+        raise ValueError("rows must name at least one slab read")
+    if rows.min() < 0 or rows.max() >= len(n_out):
+        raise IndexError("a row is out of the slab's range")
+    if len(slab) < len(n_out) * slot or n_out[rows].min() < 0 \
+            or n_out[rows].max() > slot:
+        raise ValueError("the slab is shorter than its reads' slots")
+    return n_out, rows
 
 
 def build_btg(erates, n_cap: int, logfact: np.ndarray) -> np.ndarray:
@@ -388,6 +439,74 @@ class NativeWall:
             k = int(bad[0])
             raise _exact_error(int(rc[k]), f"read {int(reads[k])} (batch "
                                            f"row {k}): ")
+
+    def pack_chunk(self, slab: np.ndarray, slot: int, n_out, n_rel, plens,
+                   rows, threads: int = 0):
+        """The all-device transfer blobs of the slab reads ``rows`` (in
+        the order they are packed; the engine packs those with records)
+        in one threaded C++ call (``cp_pack_chunk``); ``plens`` is indexed
+        by slab read.  The layout, bytes and dims of ``pack.pack_chunk``, its
+        plain version, whatever ``threads`` (<= 0: min(cpus, 16)).
+        Returns (fblob, iblob, (Bn, max_n, R2, max_m)); raises ValueError
+        for a negative count where a log-factorial is read and for an
+        ``n_rel`` that differs from the read's is_rel records."""
+        n_out, rows = _feed_args(slab, slot, n_out, rows)
+        n_rel = np.ascontiguousarray(n_rel, np.int32)
+        plens = np.ascontiguousarray(plens, np.int64)
+        if len(n_rel) != len(n_out) or len(plens) != len(n_out):
+            raise ValueError("n_out, n_rel and plens differ in length")
+        rel = n_rel[rows]
+        Bn = _bucket(len(rows))
+        max_n = _bucket32(int(n_out[rows].max()))
+        R = _bucket(max(int((rel > 0).sum()), 1))
+        max_m = _bucket32(max(int(rel.max()), 1))
+        dims = (Bn, max_n, 2 * R, max_m)
+        n_f, n_i = blob_sizes(*dims)
+        fblob = np.empty(n_f, np.float64)
+        iblob = np.empty(n_i, np.int32)
+        err = np.zeros(1, np.int32)
+        rc = self.lib.cp_pack_chunk(
+            slab.ctypes.data_as(ctypes.c_void_p), slot, n_out.ctypes.data,
+            n_rel.ctypes.data, plens.ctypes.data, rows.ctypes.data,
+            len(rows), Bn, max_n, R, max_m, _LOGFACT.ctypes.data,
+            len(_LOGFACT), iblob.ctypes.data, fblob.ctypes.data,
+            err.ctypes.data, _threads(threads))
+        if rc:
+            raise _feed_error(rc, err, rows)
+        return fblob, iblob, dims
+
+    def expand_rows(self, slab: np.ndarray, slot: int, n_out, rows,
+                    asgn: np.ndarray, out_off: np.ndarray,
+                    threads: int = 0) -> np.ndarray:
+        """The class lines of the slab reads ``rows`` in one threaded C++
+        call (``cp_expand_rows``): read ``rows[r]``'s line, at
+        ``out_off[r]``, is K - 1 'N' and then each record's e - b bytes of
+        "ERHD"[clip(asgn[r, column], 0, 3)], as ``pack.expand_asgn``, its
+        plain version, writes it.  ``asgn`` is a 1-byte matrix with
+        unit column stride (the all-device result's assignment columns).
+        Returns the uint8 buffer of ``out_off[-1]`` bytes; raises
+        ValueError when a line's length is not K - 1 plus its records'."""
+        n_out, rows = _feed_args(slab, slot, n_out, rows)
+        out_off = np.ascontiguousarray(out_off, np.int64)
+        if asgn.itemsize != 1 or asgn.ndim != 2 or asgn.strides[1] != 1 \
+                or asgn.shape[0] < len(rows) \
+                or asgn.shape[1] < n_out[rows].max():
+            raise ValueError("asgn must be a 1-byte matrix with unit column "
+                             "stride, a row per read and a column per "
+                             "record")
+        if len(out_off) != len(rows) + 1 or out_off[0] != 0 \
+                or (np.diff(out_off) < 0).any():
+            raise ValueError("out_off must rise from 0 over the rows")
+        buf = np.empty(int(out_off[-1]), np.uint8)
+        err = np.zeros(1, np.int32)
+        rc = self.lib.cp_expand_rows(
+            slab.ctypes.data_as(ctypes.c_void_p), slot, n_out.ctypes.data,
+            rows.ctypes.data, len(rows), asgn.ctypes.data, asgn.strides[0],
+            self.gm.kmer, out_off.ctypes.data, buf.ctypes.data,
+            err.ctypes.data, _threads(threads))
+        if rc:
+            raise _feed_error(rc, err, rows)
+        return buf
 
     def finish_batch(self, slab: np.ndarray, slot: int, n_out: np.ndarray,
                      n_rel: np.ndarray, rel_out, max_m: int,

@@ -1,11 +1,15 @@
-"""Blob packing and class expansion of the all-device path (numpy).
+"""Blob packing and class expansion of the all-device path: the plain
+numpy versions.
 
 Copies of the JAX package's ``engine.pack_chunk`` and ``expand_asgn``:
 ``pack_chunk`` turns one read group's wall-stage records into the two
 transfer blobs of ``alldev.classify_batch`` (layout in alldev.py), and
 ``expand_asgn`` turns the per-interval assignments that come back into
 class strings.  The records are ``native._IVDT`` rows, read ``i``'s being
-``slab[i*slot : i*slot+n_out[i]]`` of the C++ wall slab.
+``slab[i*slot : i*slot+n_out[i]]`` of the C++ wall slab.  The engine runs
+their C++ counterparts, ``native.NativeWall.pack_chunk`` and
+``expand_rows``, which write the same blobs and class lines; these stay
+as the reference the tests and chip_smoke.py hold them to.
 """
 
 from __future__ import annotations
