@@ -198,6 +198,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              (parent, this, this, parent): every stream's bytes equal to
              the reference's, the same guard_flagged, k-mers/s and the
              guard's seconds.
+   bench   - the port's benchmark runner (python -m
+             classpro_tpu_torch.devtools.bench) as four child processes:
+             medium and the guard dataset (the guard phase's directory
+             when that phase ran in this call, else made the same way),
+             each on the main and the all-device path.  Each run must
+             exit 0 with phase "done", parity_ok (every read of its first
+             pass against medium's golden, the guard dataset's first 64
+             reads against the exact oracle) and both rates (the steady
+             stream's and the end-to-end one's, each the median of up to
+             5 windows of ~4 s) above 0; medium's guard_flagged must be 0.
+             A dataset's two runs must write the same bytes in their
+             untimed first pass (the sha256 of every read's classes);
+             when the guard phase ran, the guard dataset's must also be
+             that phase's reference stream's, and its reads flagged per
+             pass that phase's count on the same path.  Prints each run's
+             medians, its windows' spread and the phase's seconds.
 7. shard   - the parallel layer (K8) and the rest of classify's surface:
              (a) psum_histogram in a NCCL world of one rank equals its
              input (medium's partial instance histogram), the all-reduce
@@ -271,7 +287,8 @@ the parent's times when --parent is given), {"setup": {...}} (the
 cold set-up's seconds by stage, the numpy and C++ tail tables' seconds),
 {"stream": {...}},
 {"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"guard":
-{...}} (the guard phase's runs, turns and spot parity), {"shard":
+{...}} (the guard phase's runs, turns and spot parity), {"bench": [...],
+"card": ..., "seconds": ...} (the runner's four records), {"shard":
 {...}} and {"serve": {...}} lines (ready_s, each job's wall_s and
 k-mers/s, table_uploads, launches and graph replays, the trace's busy
 share), {"tools": {...}} and {"soak": {...}} lines, the card's name and
@@ -3287,9 +3304,10 @@ def _time_guard(wall, chunks, kind: str, T: int) -> dict:
             "ms_per_flagged_row": 1e3 * sum(secs) / max(n, 1)}
 
 
-def phase_guard(gbp: float, parent: str | None, smi: str) -> dict:
+def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
     """The exactness guard at the coverage that flags reads: a dataset of
-    ``gbp`` Gbp at K = 28 and 83x (devtools.soak.generate), then (a) the
+    ``gbp`` Gbp at K = 28 and 83x (devtools.soak.generate) written into
+    ``d`` (the bench phase reuses it), then (a) the
     main stream (a warm-up, a reference run with the guard as the plain
     per-row loop, GUARD_RUNS runs as it ships, a second plain run), every
     chunk's bytes equal to the reference's; (b) the guard alone on the
@@ -3304,194 +3322,286 @@ def phase_guard(gbp: float, parent: str | None, smi: str) -> dict:
     from classpro_tpu_torch import native
     from classpro_tpu_torch.exact.pipeline import ReadClassifier
 
-    d = tempfile.mkdtemp(prefix="cpguard")
+    t0 = time.time()
+    meta, gm, seqs, profs = _guard_data(gbp, d)
+    gen_s = time.time() - t0
+    rec = {"gbp": gbp, "kmer": GUARD_KMER, "cov": GUARD_COV,
+           "seed": GUARD_SEED, "reads": meta["n_reads"],
+           "kmers": meta["n_kmers"], "gen_s": gen_s,
+           "threads": native._threads(0), "cpu_count": os.cpu_count(),
+           "card": smi}
+    kmers = meta["n_kmers"]
+    spans = [(lo, min(lo + 200, len(seqs)))
+             for lo in range(0, len(seqs), 200)]
+
+    def chunks():
+        return ((seqs[lo:hi], profs[lo:hi]) for lo, hi in spans)
+
+    # (a) the main stream
+    eng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV)
+    cls = engine_mod.TorchEngine
+    staged: list = []
+    flagged_reads: list = []
+
+    def reference(self, st, rel_out):
+        """_plain_guard, keeping the chunk's guard inputs and
+        outputs and the flagged reads for (b) and (d)."""
+        R = rel_out.shape[0]
+        rows = np.nonzero(st["risky"][:R] | st["risky"][R:])[0]
+        pre = rel_out.copy()
+        _plain_guard(self, st, rel_out)
+        if not rows.size:
+            return
+        live = np.nonzero(st["n_rel"] > 0)[0]
+        n = len(st["n_out"])
+        staged.append({"slab": st["slab"][: n * st["slot"]].copy(),
+                       "slot": st["slot"],
+                       "n_out": st["n_out"].copy(),
+                       "n_rel": st["n_rel"].copy(),
+                       "_plens": st["_plens"].copy(), "live": live,
+                       "rows": rows, "pre": pre,
+                       "post": rel_out.copy()})
+        flagged_reads.extend(st["seqs"][st["g"][live[j]]]
+                             for j in rows if j < len(live))
+
+    def run(guard, check=None):
+        acc: dict = {}
+        undo = [lambda: setattr(cls, "_exact_guard", orig)]
+        setattr(cls, "_exact_guard", guard)
+        undo += _main_clocks(eng, acc)
+        g0 = eng.guard_flagged
+        out = []
+        t = time.perf_counter()
+        try:
+            for k, res in enumerate(eng.classify_stream(
+                    chunks(), sort_window=8)):
+                if check is not None and res != check[k]:
+                    fail(f"guard: main stream chunk {k} differs from "
+                         f"the plain guard's run")
+                out.append(res)
+            torch.cuda.synchronize()
+        finally:
+            for u in reversed(undo):
+                u()
+        wall = time.perf_counter() - t
+        return out, {"wall_s": wall, "kmers_per_s": kmers / wall,
+                     "guard_flagged": eng.guard_flagged - g0,
+                     "flag_rate": (eng.guard_flagged - g0)
+                     / meta["n_reads"],
+                     "host_s": _main_host_s(acc, wall)}
+
+    orig = cls._exact_guard
+    run(orig)                                          # warm-up
+    ref, plain1 = run(reference)
+    if not staged or plain1["guard_flagged"] == 0:
+        fail("guard: the dataset flagged no read")
+    runs = [run(orig, ref)[1] for _ in range(GUARD_RUNS)]
+    plain2 = run(_plain_guard, ref)[1]
+    for r in runs + [plain2]:
+        if r["guard_flagged"] != plain1["guard_flagged"]:
+            fail(f"guard: guard_flagged {r['guard_flagged']} against "
+                 f"the plain guard's {plain1['guard_flagged']}")
+    rec["main"] = {"runs": runs, "plain_guard_runs": [plain1, plain2],
+                   "bytes_equal_to_plain_guard": True,
+                   "sha256": hashlib.sha256("\n".join(
+                       c for res in ref for c in res).encode()).hexdigest()}
+    for tag, r in ([("batch", r) for r in runs]
+                   + [("plain", plain1), ("plain", plain2)]):
+        say(f"guard main stream ({tag} guard): "
+            f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
+            f"{r['guard_flagged']} ({100 * r['flag_rate']:.2f}% of "
+            f"{meta['n_reads']} reads); main thread s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items()))
+
+    # (b) the guard alone
+    T = rec["threads"]
+    turns = [_time_guard(eng.wall, staged, k, T) for k in GUARD_TURNS]
+    rows = sum(len(c["rows"]) for c in staged)
+    rec["alone"] = {"chunks": len(staged), "flagged_rows": rows,
+                    "turns": turns, "rel_out_equal": True}
+    say(f"guard alone ({len(staged)} chunks, {rows} flagged rows, "
+        f"threads {T}, os.cpu_count() {os.cpu_count()}): "
+        + "; ".join(f"{t['kind']} {t['s_per_chunk'] * 1e3:.3f} ms per "
+                    f"chunk, {t['ms_per_flagged_row']:.4f} ms per row"
+                    for t in turns) + "; rel_out equal")
+
+    # (c) the all-device stream: the C++ feed as it ships and the
+    # numpy feed (the plain versions) in turns, every run's bytes equal
+    # to the main path's, guard_flagged equal in every run
+    aeng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV,
+                                  alldev=True)
+    for _ in aeng.classify_stream(chunks(), sort_window=8):
+        pass                                           # warm-up
+
+    def arun(feed):
+        acc: dict = {}
+        g0 = aeng.guard_flagged
+        undo = [_numpy_feed(aeng)] if feed == "numpy" else []
+        undo += _alldev_clocks(aeng, acc)
+        t = time.perf_counter()
+        try:
+            aout = list(aeng.classify_stream(chunks(), sort_window=8))
+            torch.cuda.synchronize()
+        finally:
+            for u in reversed(undo):
+                u()
+        wall = time.perf_counter() - t
+        if aout != ref:
+            fail(f"guard: the all-device stream's bytes ({feed} feed) "
+                 f"differ from the main path's")
+        return {"feed": feed, "wall_s": wall, "kmers_per_s": kmers / wall,
+                "guard_flagged": aeng.guard_flagged - g0,
+                "host_s": _alldev_host_s(acc, wall, feed),
+                "bytes_equal_to_main": True}
+
+    aruns = [arun(f) for f in ("cpp", "numpy", "numpy", "cpp")]
+    if len({r["guard_flagged"] for r in aruns}) != 1:
+        fail(f"guard: all-device guard_flagged differs between the C++ "
+             f"and the numpy feed: {[r['guard_flagged'] for r in aruns]}")
+    rec["alldev"] = dict(aruns[0], feed_turns=aruns)
+    for a in aruns:
+        say(f"guard alldev stream ({a['feed']} feed): "
+            f"{a['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
+            f"{a['guard_flagged']}; bytes equal to the main path's; main "
+            f"thread s: " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in a["host_s"].items()))
+
+    # (d) spot parity
+    flat = [c for res in ref for c in res]
+    index = {sq: i for i, sq in enumerate(seqs)}
+    rng = np.random.default_rng(GUARD_SEED)
+    picks = rng.choice(len(flagged_reads),
+                       size=min(GUARD_SPOT, len(flagged_reads)),
+                       replace=False)
+    clf = ReadClassifier(gm)
+    t = time.time()
+    mism = sum(clf.classify(flagged_reads[p], profs[index[
+        flagged_reads[p]]]) != flat[index[flagged_reads[p]]]
+        for p in picks)
+    rec["spot_parity"] = {"sampled": len(picks), "mismatches": mism,
+                          "oracle_s": time.time() - t}
+    say(f"guard spot parity: {mism} of {len(picks)} flagged reads "
+        f"differ from the exact oracle")
+    if mism:
+        fail(f"guard: {mism} flagged reads differ from the exact "
+             f"oracle")
+
+    # the parent's main stream in turns with this tree's
+    if parent:
+        root = os.path.join(d, "reads")
+        ab = []
+        for tree in (parent, HERE, HERE, parent):
+            r = _tree_stream(tree, root)
+            r["tree"] = "parent" if tree == parent else "this"
+            ab.append(r)
+            for path, x in (("main", r), ("alldev", r["alldev"])):
+                say(f"guard {path} stream of {r['tree']} tree: "
+                    f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, "
+                    f"exact_guard {x['exact_guard_s']:.4f} s, "
+                    f"guard_flagged {x['guard_flagged']}")
+        shas = {x["sha256"] for r in ab for x in (r, r["alldev"])}
+        if shas != {rec["main"]["sha256"]} \
+                or len({r["guard_flagged"] for r in ab}) != 1 \
+                or len({r["alldev"]["guard_flagged"] for r in ab}) != 1:
+            fail(f"guard: the parent's and this tree's streams differ: "
+                 f"{json.dumps(ab)}")
+        rec["parent_ab"] = ab
+    return rec
+
+
+# the bench phase's runs of the port's benchmark runner: (dataset, path)
+BENCH_RUNS = (("medium", "main"), ("medium", "alldev"), ("guard", "main"),
+              ("guard", "alldev"))
+BENCH_TIMEOUT = 600
+
+
+def _bench_child(fixture: str, path: str) -> dict:
+    """``python -m classpro_tpu_torch.devtools.bench`` over ``fixture`` on
+    ``path`` on the card, as a child process: its record (the last line
+    of its stdout) with the child's wall seconds (``child_s``); fails
+    unless it exits 0 with phase done, parity and both rates above 0."""
+    cmd = [sys.executable, "-m", "classpro_tpu_torch.devtools.bench",
+           "--fixture", fixture, "--path", path, "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t = time.time()
+    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=BENCH_TIMEOUT)
+    lines = r.stdout.strip().splitlines()
     try:
-        t0 = time.time()
-        meta, gm, seqs, profs = _guard_data(gbp, d)
-        gen_s = time.time() - t0
-        rec = {"gbp": gbp, "kmer": GUARD_KMER, "cov": GUARD_COV,
-               "seed": GUARD_SEED, "reads": meta["n_reads"],
-               "kmers": meta["n_kmers"], "gen_s": gen_s,
-               "threads": native._threads(0), "cpu_count": os.cpu_count(),
-               "card": smi}
-        kmers = meta["n_kmers"]
-        spans = [(lo, min(lo + 200, len(seqs)))
-                 for lo in range(0, len(seqs), 200)]
+        rec = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"bench: {path} over {fixture} printed no record (rc "
+             f"{r.returncode}): {r.stderr[-2000:]}")
+    rec["child_s"] = time.time() - t
+    if (r.returncode != 0 or rec.get("phase") != "done"
+            or rec.get("parity_ok") is not True
+            or not (rec.get("value") or 0) > 0
+            or not (rec.get("e2e") or 0) > 0):
+        fail(f"bench: {path} over {fixture} (rc {r.returncode}): "
+             f"{json.dumps(rec)}\n{r.stderr[-2000:]}")
+    return rec
 
-        def chunks():
-            return ((seqs[lo:hi], profs[lo:hi]) for lo, hi in spans)
 
-        # (a) the main stream
-        eng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV)
-        cls = engine_mod.TorchEngine
-        staged: list = []
-        flagged_reads: list = []
+def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
+    """The port's benchmark runner (devtools.bench) as four child
+    processes (BENCH_RUNS): medium against its golden and the guard
+    dataset in ``d`` (generated here unless the guard phase wrote it;
+    its first 64 reads against the exact oracle), each on both paths.
+    Every run must end done with parity and both rates above 0, medium's
+    with guard_flagged 0.  A dataset's two paths must write the same
+    bytes in their untimed pass (parity_sha256), on the guard dataset
+    also the guard phase's reference stream's when that phase ran, and
+    there the reads flagged per pass must equal the guard phase's count
+    on the same path."""
+    from classpro_tpu_torch.devtools import soak
 
-        def reference(self, st, rel_out):
-            """_plain_guard, keeping the chunk's guard inputs and
-            outputs and the flagged reads for (b) and (d)."""
-            R = rel_out.shape[0]
-            rows = np.nonzero(st["risky"][:R] | st["risky"][R:])[0]
-            pre = rel_out.copy()
-            _plain_guard(self, st, rel_out)
-            if not rows.size:
-                return
-            live = np.nonzero(st["n_rel"] > 0)[0]
-            n = len(st["n_out"])
-            staged.append({"slab": st["slab"][: n * st["slot"]].copy(),
-                           "slot": st["slot"],
-                           "n_out": st["n_out"].copy(),
-                           "n_rel": st["n_rel"].copy(),
-                           "_plens": st["_plens"].copy(), "live": live,
-                           "rows": rows, "pre": pre,
-                           "post": rel_out.copy()})
-            flagged_reads.extend(st["seqs"][st["g"][live[j]]]
-                                 for j in rows if j < len(live))
-
-        def run(guard, check=None):
-            acc: dict = {}
-            undo = [lambda: setattr(cls, "_exact_guard", orig)]
-            setattr(cls, "_exact_guard", guard)
-            undo += _main_clocks(eng, acc)
-            g0 = eng.guard_flagged
-            out = []
-            t = time.perf_counter()
-            try:
-                for k, res in enumerate(eng.classify_stream(
-                        chunks(), sort_window=8)):
-                    if check is not None and res != check[k]:
-                        fail(f"guard: main stream chunk {k} differs from "
-                             f"the plain guard's run")
-                    out.append(res)
-                torch.cuda.synchronize()
-            finally:
-                for u in reversed(undo):
-                    u()
-            wall = time.perf_counter() - t
-            return out, {"wall_s": wall, "kmers_per_s": kmers / wall,
-                         "guard_flagged": eng.guard_flagged - g0,
-                         "flag_rate": (eng.guard_flagged - g0)
-                         / meta["n_reads"],
-                         "host_s": _main_host_s(acc, wall)}
-
-        orig = cls._exact_guard
-        run(orig)                                          # warm-up
-        ref, plain1 = run(reference)
-        if not staged or plain1["guard_flagged"] == 0:
-            fail("guard: the dataset flagged no read")
-        runs = [run(orig, ref)[1] for _ in range(GUARD_RUNS)]
-        plain2 = run(_plain_guard, ref)[1]
-        for r in runs + [plain2]:
-            if r["guard_flagged"] != plain1["guard_flagged"]:
-                fail(f"guard: guard_flagged {r['guard_flagged']} against "
-                     f"the plain guard's {plain1['guard_flagged']}")
-        rec["main"] = {"runs": runs, "plain_guard_runs": [plain1, plain2],
-                       "bytes_equal_to_plain_guard": True}
-        for tag, r in ([("batch", r) for r in runs]
-                       + [("plain", plain1), ("plain", plain2)]):
-            say(f"guard main stream ({tag} guard): "
-                f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
-                f"{r['guard_flagged']} ({100 * r['flag_rate']:.2f}% of "
-                f"{meta['n_reads']} reads); main thread s: "
-                + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items()))
-
-        # (b) the guard alone
-        T = rec["threads"]
-        turns = [_time_guard(eng.wall, staged, k, T) for k in GUARD_TURNS]
-        rows = sum(len(c["rows"]) for c in staged)
-        rec["alone"] = {"chunks": len(staged), "flagged_rows": rows,
-                        "turns": turns, "rel_out_equal": True}
-        say(f"guard alone ({len(staged)} chunks, {rows} flagged rows, "
-            f"threads {T}, os.cpu_count() {os.cpu_count()}): "
-            + "; ".join(f"{t['kind']} {t['s_per_chunk'] * 1e3:.3f} ms per "
-                        f"chunk, {t['ms_per_flagged_row']:.4f} ms per row"
-                        for t in turns) + "; rel_out equal")
-
-        # (c) the all-device stream: the C++ feed as it ships and the
-        # numpy feed (the plain versions) in turns, every run's bytes equal
-        # to the main path's, guard_flagged equal in every run
-        aeng = engine_mod.TorchEngine(gm, batch_size=200, device=DEV,
-                                      alldev=True)
-        for _ in aeng.classify_stream(chunks(), sort_window=8):
-            pass                                           # warm-up
-
-        def arun(feed):
-            acc: dict = {}
-            g0 = aeng.guard_flagged
-            undo = [_numpy_feed(aeng)] if feed == "numpy" else []
-            undo += _alldev_clocks(aeng, acc)
-            t = time.perf_counter()
-            try:
-                aout = list(aeng.classify_stream(chunks(), sort_window=8))
-                torch.cuda.synchronize()
-            finally:
-                for u in reversed(undo):
-                    u()
-            wall = time.perf_counter() - t
-            if aout != ref:
-                fail(f"guard: the all-device stream's bytes ({feed} feed) "
-                     f"differ from the main path's")
-            return {"feed": feed, "wall_s": wall, "kmers_per_s": kmers / wall,
-                    "guard_flagged": aeng.guard_flagged - g0,
-                    "host_s": _alldev_host_s(acc, wall, feed),
-                    "bytes_equal_to_main": True}
-
-        aruns = [arun(f) for f in ("cpp", "numpy", "numpy", "cpp")]
-        if len({r["guard_flagged"] for r in aruns}) != 1:
-            fail(f"guard: all-device guard_flagged differs between the C++ "
-                 f"and the numpy feed: {[r['guard_flagged'] for r in aruns]}")
-        rec["alldev"] = dict(aruns[0], feed_turns=aruns)
-        for a in aruns:
-            say(f"guard alldev stream ({a['feed']} feed): "
-                f"{a['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
-                f"{a['guard_flagged']}; bytes equal to the main path's; main "
-                f"thread s: " + ", ".join(f"{k} {v:.4f}"
-                                          for k, v in a["host_s"].items()))
-
-        # (d) spot parity
-        flat = [c for res in ref for c in res]
-        index = {sq: i for i, sq in enumerate(seqs)}
-        rng = np.random.default_rng(GUARD_SEED)
-        picks = rng.choice(len(flagged_reads),
-                           size=min(GUARD_SPOT, len(flagged_reads)),
-                           replace=False)
-        clf = ReadClassifier(gm)
-        t = time.time()
-        mism = sum(clf.classify(flagged_reads[p], profs[index[
-            flagged_reads[p]]]) != flat[index[flagged_reads[p]]]
-            for p in picks)
-        rec["spot_parity"] = {"sampled": len(picks), "mismatches": mism,
-                              "oracle_s": time.time() - t}
-        say(f"guard spot parity: {mism} of {len(picks)} flagged reads "
-            f"differ from the exact oracle")
-        if mism:
-            fail(f"guard: {mism} flagged reads differ from the exact "
-                 f"oracle")
-
-        # the parent's main stream in turns with this tree's
-        if parent:
-            root = os.path.join(d, "reads")
-            ab = []
-            for tree in (parent, HERE, HERE, parent):
-                r = _tree_stream(tree, root)
-                r["tree"] = "parent" if tree == parent else "this"
-                ab.append(r)
-                for path, x in (("main", r), ("alldev", r["alldev"])):
-                    say(f"guard {path} stream of {r['tree']} tree: "
-                        f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, "
-                        f"exact_guard {x['exact_guard_s']:.4f} s, "
-                        f"guard_flagged {x['guard_flagged']}")
-            shas = {x["sha256"] for r in ab for x in (r, r["alldev"])}
-            if shas != {hashlib.sha256("\n".join(
-                    c for res in ref for c in res).encode()).hexdigest()} \
-                    or len({r["guard_flagged"] for r in ab}) != 1 \
-                    or len({r["alldev"]["guard_flagged"] for r in ab}) != 1:
-                fail(f"guard: the parent's and this tree's streams differ: "
-                     f"{json.dumps(ab)}")
-            rec["parent_ab"] = ab
-        return rec
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    rec: dict = {"runs": [], "card": smi}
+    if not os.path.exists(os.path.join(d, "meta.json")):
+        soak.generate(d, gbp, seed=GUARD_SEED, kmer=GUARD_KMER,
+                      cov=GUARD_COV)
+        rec["gen_s"] = time.time() - t0
+    want = guard and {"main": guard["main"]["runs"][0]["guard_flagged"],
+                      "alldev": guard["alldev"]["guard_flagged"]}
+    for data, path in BENCH_RUNS:
+        r = _bench_child(os.path.join(FIX, "medium") if data == "medium"
+                         else d, path)
+        r["dataset"] = data
+        per = r["guard_flagged_per_pass"]
+        line = (f"bench {path} over {data}: {r['value'] / 1e6:.2f} M "
+                f"k-mers/s (windows {min(r['runs']) / 1e6:.2f}-"
+                f"{max(r['runs']) / 1e6:.2f}), e2e {r['e2e'] / 1e6:.2f} "
+                f"({min(r['e2e_runs']) / 1e6:.2f}-"
+                f"{max(r['e2e_runs']) / 1e6:.2f}); parity against the "
+                f"{'golden' if r['parity_ref'] == 'golden' else 'exact oracle'}"
+                f" ({r['parity_reads']} reads); "
+                f"guard_flagged {r['guard_flagged']} ({per} a pass); "
+                f"warm-up {r['warmup_s']:.2f} s at {r['warmup_shape']}; "
+                f"child {r['child_s']:.1f} s")
+        if data == "medium" and r["guard_flagged"] != 0:
+            fail(f"bench: guard_flagged {r['guard_flagged']} on medium")
+        if data == "guard":
+            line += (f"; the guard phase flagged "
+                     f"{want[path] if want else 'NOT RUN'} a pass")
+            if want and per != want[path]:
+                fail(f"bench: {per} reads flagged a pass on the {path} "
+                     f"path against the guard phase's {want[path]}")
+        say(line)
+        rec["runs"].append(r)
+    for data in ("medium", "guard"):
+        shas = {r["parity_sha256"] for r in rec["runs"]
+                if r["dataset"] == data}
+        if data == "guard" and guard:
+            shas.add(guard["main"]["sha256"])
+        if len(shas) != 1:
+            fail(f"bench: the runs over {data} wrote different bytes "
+                 f"(sha256 {sorted(shas)})")
+        say(f"bench: both paths over {data} wrote the same bytes"
+            + (", the guard phase's" if data == "guard" and guard else ""))
+    rec["seconds"] = time.time() - t0
+    say(f"bench: {rec['seconds']:.1f} s")
+    return rec
 
 
 # --------------------------------------------------------------------- 7
@@ -4249,7 +4359,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernel,e2e,setup,stream,alldev,guard,"
-                            "shard,serve,tools",
+                            "bench,shard,serve,tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile, k5profile and settleprofile, the kernels' "
                     "phase clocks, glue_ab, the streams with the plain glue "
@@ -4259,8 +4369,8 @@ def main(argv=None) -> int:
     ap.add_argument("--soak-gbp", type=float, default=0.05,
                     help="soak phase: dataset size in billions of bases")
     ap.add_argument("--guard-gbp", type=float, default=0.02,
-                    help="guard phase: dataset size in billions of bases "
-                    "(K = 28, 83x)")
+                    help="guard and bench phases: the guard dataset's size "
+                    "in billions of bases (K = 28, 83x)")
     ap.add_argument("--passes", type=int, default=40,
                     help="steady-stream passes over medium (per turn)")
     ap.add_argument("--alldev-passes", type=int, default=10,
@@ -4334,8 +4444,17 @@ def main(argv=None) -> int:
                  "alldev_stream": phase_alldev_stream(args.alldev_passes,
                                                       AB_TURNS),
                  "profiled": _profiled_process()}
-    gdrec = (phase_guard(args.guard_gbp, args.parent, smi)
-             if "guard" in phases else None)
+    # the guard dataset, written once for the guard and bench phases
+    gdir = (tempfile.mkdtemp(prefix="cpguard")
+            if phases & {"guard", "bench"} else None)
+    try:
+        gdrec = (phase_guard(args.guard_gbp, args.parent, smi, gdir)
+                 if "guard" in phases else None)
+        bnrec = (phase_bench(args.guard_gbp, gdir, gdrec, smi)
+                 if "bench" in phases else None)
+    finally:
+        if gdir:
+            shutil.rmtree(gdir, ignore_errors=True)
     shrec = phase_shard() if "shard" in phases else None
     keep = tempfile.mkdtemp(prefix="cpk")
     try:
@@ -4354,6 +4473,9 @@ def main(argv=None) -> int:
         say(json.dumps({"glue_ab": abrec, "card": smi}))
     if gdrec is not None:
         say(json.dumps({"guard": gdrec}))
+    if bnrec is not None:
+        say(json.dumps({"bench": bnrec["runs"], "card": smi,
+                        "seconds": bnrec["seconds"]}))
     kern = []
     if krec is not None and arec is not None:   # the alldev rescue tails
         krec["tail_err"]["rel_rescue"] = max(krec["tail_err"]["rel_rescue"],

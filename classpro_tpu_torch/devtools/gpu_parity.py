@@ -125,6 +125,12 @@ def oracle_classes(d: str, fname: str, gm, seqs, profs, ref: str,
         if r.returncode != 0:
             raise RuntimeError(f"reference binary failed: {r.stderr[-500:]}")
         return class_lines(os.path.join(d, "reads.class"))
+    return exact_classes(gm, seqs, profs)
+
+
+def exact_classes(gm, seqs, profs) -> list[str]:
+    """The port's exact oracle's class strings (``exact.pipeline``), in
+    this process on ``gm``; a read without a profile is all ``N``."""
     from classpro_tpu_torch.exact.pipeline import ReadClassifier
 
     clf = ReadClassifier(gm)

@@ -58,7 +58,7 @@ from classpro_tpu_torch.estimation import GlobalModel, build_global_model
 from classpro_tpu_torch.io.classfile import ClassRecord, class_header
 from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
 from classpro_tpu_torch.io.fastx import read_fastx_checked
-from classpro_tpu_torch.native import NativeWall
+from classpro_tpu_torch.native import NativeWall, chunk_dims
 from classpro_tpu_torch.pack import _bucket
 from classpro_tpu_torch.params import build_replicas
 from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
@@ -442,14 +442,35 @@ class TorchEngine:
             return self._batch_graphs.get(PP, *shape)
         return self._graphs.get(P, *shape)
 
+    @staticmethod
+    def _alldev_rows(st):
+        """The staged chunk's slab reads that the all-device stage packs
+        (those with records), or None when there are none."""
+        if "g" not in st:
+            return None
+        rows = np.flatnonzero(st["n_out"] > 0).astype(np.int32)
+        return rows if rows.size else None
+
+    def alldev_shape(self, seqs, profiles):
+        """The (Bn, max_n, R2, max_m) bucket the all-device stage runs a
+        chunk of these reads at (staged, not packed), or None when the
+        chunk has no device work."""
+        st = self._stage(seqs, profiles)
+        if "g" not in st:
+            return None
+        try:
+            rows = self._alldev_rows(st)
+            return None if rows is None else chunk_dims(
+                st["n_out"], st["n_rel"], rows)
+        finally:
+            self.wall.release_slab(st["slab"])
+
     def _submit_alldev(self, st):
         """Pack the staged chunk's reads that have intervals (one C++
         call on the -T workers) and enqueue the device stage on them (the
         JAX package's _dispatch)."""
-        if "g" not in st:
-            return st
-        rows = np.flatnonzero(st["n_out"] > 0).astype(np.int32)
-        if not rows.size:
+        rows = self._alldev_rows(st)
+        if rows is None:
             return st
         plens = np.array([len(st["profiles"][i]) for i in st["g"]],
                          np.int64)
@@ -643,6 +664,35 @@ def _warmup_shape(eng: TorchEngine, fastx_path: str, P, batch_size: int):
     return (_bucket(batch_size), nxt), sample_n, nrel_max
 
 
+def fastx_chunks(fastx_path: str, P, K: int, batch_size: int):
+    """The reads of a FASTX file in chunks of ``batch_size``, their
+    profiles decoded from ``P`` (``fetch_batch``): (records, seqs,
+    profiles) per chunk.  Raises ValueError for a read longer than the
+    maximum and for a profile whose length is not the read's."""
+
+    def flush(chunk, rid0):
+        plens = [max(len(r.seq) - K + 1, 0) for r in chunk]
+        profs = P.fetch_batch(list(range(rid0, rid0 + len(chunk))), plens)
+        for j, p in enumerate(profs):   # ClassPro.c:184-187 rlen check
+            if len(p) != plens[j]:
+                rlen = len(chunk[j].seq)
+                raise ValueError(
+                    f"Read {rid0 + j}: rlen ({rlen}) != plen+Km1 "
+                    f"({len(p) + K - 1}) — profile/read mismatch")
+        return chunk, [r.seq for r in chunk], profs
+
+    chunk: list = []
+    rid = 0
+    for rec in read_fastx_checked(fastx_path, DEFAULTS.max_read_len):
+        chunk.append(rec)
+        rid += 1
+        if len(chunk) >= batch_size:
+            yield flush(chunk, rid - len(chunk))
+            chunk = []
+    if chunk:
+        yield flush(chunk, rid - len(chunk))
+
+
 def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
                         read_len: int = 20000, model_path: str | None = None,
                         batch_size: int = 200, threads: int = 0,
@@ -677,31 +727,12 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
         eng.warmup((shape,))
         print("warmup done", file=sys.stderr)
     recs: list = []
-    K = gm.kmer
-
-    def flush(chunk, rid0):
-        recs.append(chunk)
-        plens = [max(len(r.seq) - K + 1, 0) for r in chunk]
-        profs = P.fetch_batch(list(range(rid0, rid0 + len(chunk))), plens)
-        for j, p in enumerate(profs):   # ClassPro.c:184-187 rlen check
-            if len(p) != plens[j]:
-                rlen = len(chunk[j].seq)
-                raise ValueError(
-                    f"Read {rid0 + j}: rlen ({rlen}) != plen+Km1 "
-                    f"({len(p) + K - 1}) — profile/read mismatch")
-        return [r.seq for r in chunk], profs
 
     def chunk_iter():
-        chunk: list = []
-        rid = 0
-        for rec in read_fastx_checked(fastx_path, DEFAULTS.max_read_len):
-            chunk.append(rec)
-            rid += 1
-            if len(chunk) >= batch_size:
-                yield flush(chunk, rid - len(chunk))
-                chunk = []
-        if chunk:
-            yield flush(chunk, rid - len(chunk))
+        for chunk, seqs, profs in fastx_chunks(fastx_path, P, gm.kmer,
+                                               batch_size):
+            recs.append(chunk)
+            yield seqs, profs
 
     def stream():
         import time as _time

@@ -264,6 +264,16 @@ class NativeSeedWorkspace:
         return out.raw.decode("ascii"), rints
 
 
+def chunk_dims(n_out, n_rel, rows) -> tuple:
+    """The (Bn, max_n, R2, max_m) bucket ``NativeWall.pack_chunk`` packs
+    the slab reads ``rows`` at, from their record and reliable-interval
+    counts (``pack.pack_chunk``'s dims)."""
+    rel = n_rel[rows]
+    return (_bucket(len(rows)), _bucket32(int(n_out[rows].max())),
+            2 * _bucket(max(int((rel > 0).sum()), 1)),
+            _bucket32(max(int(rel.max()), 1)))
+
+
 class NativeWall:
     """Wall stage (context + walls + reliable intervals), rel packing,
     exact rel oracle and relaxation + expansion, in C++."""
@@ -455,12 +465,8 @@ class NativeWall:
         plens = np.ascontiguousarray(plens, np.int64)
         if len(n_rel) != len(n_out) or len(plens) != len(n_out):
             raise ValueError("n_out, n_rel and plens differ in length")
-        rel = n_rel[rows]
-        Bn = _bucket(len(rows))
-        max_n = _bucket32(int(n_out[rows].max()))
-        R = _bucket(max(int((rel > 0).sum()), 1))
-        max_m = _bucket32(max(int(rel.max()), 1))
-        dims = (Bn, max_n, 2 * R, max_m)
+        dims = chunk_dims(n_out, n_rel, rows)
+        Bn, max_n, R, max_m = dims[0], dims[1], dims[2] // 2, dims[3]
         n_f, n_i = blob_sizes(*dims)
         fblob = np.empty(n_f, np.float64)
         iblob = np.empty(n_i, np.int32)
