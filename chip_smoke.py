@@ -96,12 +96,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              (the passes of one sort window, which capture the buckets'
              graphs), then three runs (turns) of --passes passes.  Per
              turn: k-mers/s, the main thread's seconds by stage (host_s,
-             enqueue_h2d_dp_d2h, demote_reconcile and exact_guard among
-             them), the rel stage's span on the
-             card per chunk (CUDA events around each graph replay),
+             enqueue_h2d_dp_d2h, unpack_out, demote_reconcile and
+             exact_guard among them), the rel stage's span on the card
+             per chunk (CUDA events around each graph replay),
              launches, replays and captures per chunk (two DP launches per
              replay and per capture's eager run, no rel_prep),
-             guard_flagged (must be 0) and max_memory_allocated.
+             guard_flagged (must be 0) and max_memory_allocated.  Then
+             the host check: every chunk of one sort window's passes as
+             the stream staged it, its host rel steps (the C++
+             NativeWall.demote_reconcile, the stream's own result and
+             again at T = 8 and T = 1) held to numpy rel.demote_host +
+             rel.reconcile_fwbw byte for byte, each timed per chunk in
+             HOST_REL_TURNS (numpy, C++ at T = 8, C++ at T = 1, numpy).
+             With --parent DIR, that checkout's main stream and this
+             tree's, each tree a process of its own, in turns (parent,
+             this, this, parent; TREE_RUNS runs of --passes passes each,
+             golden bytes on every chunk): k-mers/s, the host rel steps'
+             median ms a chunk, and the main thread's seconds by stage
+             (wall_stage_cpp, finish_batch_cpp, unpack_out,
+             demote_reconcile, exact_guard, enqueue, waiting).
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
              against its plain version (unrel_ref) on the card, asgn and
@@ -180,11 +193,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              bytes equal to the reference's, and a second plain run:
              k-mers/s, guard_flagged and its rate (equal in every run),
              the main thread's seconds by stage with exact_guard on its
-             own.  (b) The guard alone on the reference run's staged
-             chunks: the per-row loop and the batch (at the -T workers,
-             4, 2 and 1, and at 1 on a fresh thread) in turns
-             (GUARD_TURNS), seconds per chunk and ms
-             per flagged row, threads and os.cpu_count(), rel_out equal
+             own; the warm-up's chunks through the host check (as in
+             the stream phase: demote_reconcile at T = 8 and T = 1
+             against the numpy pair, byte for byte, and timed in
+             HOST_REL_TURNS).  (b) The guard alone on the reference
+             run's staged chunks: the per-row loop and the batch (at the
+             -T workers, 4, 2 and 1, and at 1 on a fresh thread) in
+             turns (GUARD_TURNS), seconds per chunk and ms per flagged
+             row, threads and os.cpu_count(), rel_out equal
              byte for byte to the reference's.  (c) The all-device stream
              (a warm-up, then four runs: the C++ feed, the numpy feed
              swapped in twice, the C++ feed): k-mers/s, guard_flagged
@@ -1994,9 +2010,9 @@ def _main_clocks(eng, acc: dict) -> list:
 
     undo = [_clock(eng, n, acc) for n in ("_stage", "_pack_st", "_submit",
                                           "_finish", "_exact_guard")]
-    undo += [_clock(eng.wall, "finish_batch", acc)]
-    undo += [_clock(engine_mod, n, acc)
-             for n in ("unpack_out", "demote_host", "reconcile_fwbw")]
+    undo += [_clock(eng.wall, n, acc)
+             for n in ("finish_batch", "demote_reconcile")]
+    undo += [_clock(engine_mod, "unpack_out", acc)]
     return undo
 
 
@@ -2007,17 +2023,198 @@ def _main_host_s(acc: dict, wall: float) -> dict:
     return {
         "wall_stage_cpp": a("_stage"), "pack_rel_cpp": a("_pack_st"),
         "enqueue_h2d_dp_d2h": a("_submit") - a("_stage") - a("_pack_st"),
-        "wait_device": a("_finish") - a("unpack_out") - a("demote_host")
-        - a("reconcile_fwbw") - a("_exact_guard") - a("finish_batch"),
-        "demote_reconcile": a("unpack_out") + a("demote_host")
-        + a("reconcile_fwbw"),
+        "wait_device": a("_finish") - a("unpack_out")
+        - a("demote_reconcile") - a("_exact_guard") - a("finish_batch"),
+        "unpack_out": a("unpack_out"),
+        "demote_reconcile": a("demote_reconcile"),
         "exact_guard": a("_exact_guard"),
         "finish_batch_cpp": a("finish_batch"),
         "other": wall - a("_submit") - a("_finish")}
 
 
+# the main path's host rel steps alone, per chunk, in turns: numpy
+# demote_host + reconcile_fwbw (the plain versions) and the C++ entry at
+# 8 and 1 workers
+HOST_REL_TURNS = ("numpy", "cpp_t8", "cpp_t1", "numpy")
+
+
+def _record_host_rel(wall, recs: list):
+    """Record every ``wall.demote_reconcile`` call (copies of its inputs
+    and its result) into ``recs``; returns the undo."""
+    import numpy as np
+
+    f = wall.demote_reconcile
+
+    def rec(v, rescue, b, e, ccb, cce, m, gH, gD, threads=0):
+        got = f(v, rescue, b, e, ccb, cce, m, gH, gD, threads=threads)
+        recs.append({"args": (np.array(v), np.array(rescue), np.array(b),
+                              np.array(e), np.array(ccb), np.array(cce),
+                              np.array(m), gH, gD), "got": got.copy()})
+        return got
+
+    wall.demote_reconcile = rec
+
+    def undo():
+        del wall.demote_reconcile
+    return undo
+
+
+def _time_host_rel(tag: str, wall, recs: list) -> dict:
+    """The host rel steps alone on every recorded chunk: the stream's C++
+    result and the C++ entry at T = 8 and T = 1 held to numpy
+    demote_host + reconcile_fwbw byte for byte (the run fails on any
+    difference), then each timed per chunk in HOST_REL_TURNS."""
+    import numpy as np
+
+    from classpro_tpu_torch.rel import demote_host, reconcile_fwbw
+
+    if not recs:
+        fail(f"{tag} host check: the stream recorded no chunk")
+
+    def numpy_pair(args):
+        return reconcile_fwbw(demote_host(*args), args[4], args[5], args[6])
+
+    def cpp(args, T):
+        return wall.demote_reconcile(*args, threads=T)
+
+    for k, c in enumerate(recs):
+        want = numpy_pair(c["args"])
+        for what, got in (("the stream's", c["got"]),
+                          ("T=8", cpp(c["args"], 8)),
+                          ("T=1", cpp(c["args"], 1))):
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                fail(f"{tag} host check chunk {k}: demote_reconcile "
+                     f"({what}) differs from numpy demote_host + "
+                     f"reconcile_fwbw")
+    rec = {"chunks": len(recs),
+           "shapes": sorted({c["args"][2].shape for c in recs}),
+           "turns": list(HOST_REL_TURNS), "ms": [],
+           "bytes_equal_to_numpy": True}
+    for kind in HOST_REL_TURNS:
+        ms = []
+        for c in recs:
+            t = time.perf_counter()
+            if kind == "numpy":
+                numpy_pair(c["args"])
+            else:
+                cpp(c["args"], int(kind[-1]))
+            ms.append((time.perf_counter() - t) * 1e3)
+        rec["ms"].append(ms)
+    rec["ms_median"] = {
+        kind: statistics.median(x for t, ms in zip(HOST_REL_TURNS, rec["ms"])
+                                if t == kind for x in ms)
+        for kind in dict.fromkeys(HOST_REL_TURNS)}
+    say(f"{tag} host check ({len(recs)} chunks, (R, max_m) "
+        f"{rec['shapes']}): demote_reconcile at T=8 and T=1 equal to numpy "
+        f"demote_host + reconcile_fwbw byte for byte; median ms per chunk "
+        f"in turns {' '.join(HOST_REL_TURNS)}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec["ms_median"].items()))
+    return rec
+
+
+# one checkout's main stream over medium, as a process of its own (that
+# tree's package first on its path): a warm-up of one sort window, then
+# TREE_RUNS timed runs of argv[2] passes, every chunk checked against the
+# golden; the main thread's seconds by stage (the host rel steps as the
+# C++ demote_reconcile, or in a tree before it numpy demote_host and
+# reconcile_fwbw in the engine module); prints one JSON line
+_TREE_MAIN = r"""
+import gzip, json, sys, time
+import torch
+from classpro_tpu_torch import engine as engine_mod
+from classpro_tpu_torch.estimation import build_global_model
+from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+from classpro_tpu_torch.io.fastx import read_fastx
+fx, passes, runs = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+gm = build_global_model(load_histogram(fx + "/reads"))
+P = open_profiles(fx + "/reads")
+seqs = [r.seq for r in read_fastx(fx + "/reads.fasta.gz")]
+profs = [P.fetch(i) for i in range(len(seqs))]
+with gzip.open(fx + "/golden.class.gz", "rt") as f:
+    gold = f.read().splitlines()[3::4]
+kmers = sum(len(c) - c.count("N") for c in gold)
+eng = engine_mod.TorchEngine(gm, batch_size=200, device="cuda")
+acc, calls = {}, []
+def clock(obj, name, key):
+    f = getattr(obj, name, None)
+    if f is None:
+        return 0
+    def g(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return f(*a, **kw)
+        finally:
+            dt = time.perf_counter() - t
+            acc[key] = acc.get(key, 0.0) + dt
+            if key == "demote_reconcile":
+                calls.append(dt)
+    setattr(obj, name, g)
+    return 1
+for n in ("_stage", "_pack_st", "_submit", "_finish", "_exact_guard"):
+    clock(eng, n, n)
+clock(eng.wall, "finish_batch", "finish_batch")
+clock(engine_mod, "unpack_out", "unpack_out")
+# the host rel steps: one call a chunk, or the numpy pair's two
+per_chunk = clock(eng.wall, "demote_reconcile", "demote_reconcile") + sum(
+    clock(engine_mod, n, "demote_reconcile")
+    for n in ("demote_host", "reconcile_fwbw"))
+spans = [(lo, min(lo + 200, len(seqs))) for lo in range(0, len(seqs), 200)]
+def run(n):
+    chunks = ((seqs[lo:hi], profs[lo:hi])
+              for _ in range(n) for lo, hi in spans)
+    t = time.perf_counter()
+    for k, res in enumerate(eng.classify_stream(chunks, sort_window=8)):
+        lo, hi = spans[k % len(spans)]
+        if res != gold[lo:hi]:
+            sys.exit(f"chunk {k} differs from the golden")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+run(max(1, -(-8 // len(spans))))
+out = []
+for _ in range(runs):
+    acc.clear()
+    del calls[:]
+    g0 = eng.guard_flagged
+    wall = run(passes)
+    a = lambda k: acc.get(k, 0.0)
+    chunk_ms = sorted(1e3 * sum(calls[i:i + per_chunk])
+                      for i in range(0, len(calls), per_chunk))
+    out.append({"wall_s": wall, "kmers_per_s": passes * kmers / wall,
+                "guard_flagged": eng.guard_flagged - g0,
+                "demote_reconcile_ms_per_chunk": {
+                    "median": chunk_ms[len(chunk_ms) // 2],
+                    "max": chunk_ms[-1], "chunks": len(chunk_ms)},
+                "host_s": {
+        "wall_stage_cpp": a("_stage"), "pack_rel_cpp": a("_pack_st"),
+        "enqueue": a("_submit") - a("_stage") - a("_pack_st"),
+        "waiting": a("_finish") - a("unpack_out") - a("demote_reconcile")
+        - a("_exact_guard") - a("finish_batch"),
+        "unpack_out": a("unpack_out"),
+        "demote_reconcile": a("demote_reconcile"),
+        "exact_guard": a("_exact_guard"),
+        "finish_batch_cpp": a("finish_batch"),
+        "other": wall - a("_submit") - a("_finish")}})
+print(json.dumps({"runs": out}))
+"""
+
+
+def _tree_main(tree: str, passes: int) -> dict:
+    """``_TREE_MAIN`` in checkout ``tree``."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    r = subprocess.run([sys.executable, "-c", _TREE_MAIN,
+                        os.path.join(FIX, "medium"), str(passes),
+                        str(TREE_RUNS)], cwd=tree, env=env,
+                       capture_output=True, text=True, timeout=900)
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith("{")]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"main stream of {tree} failed (rc {r.returncode}): "
+             f"{r.stderr[-2000:]}")
+    return recs[0]
+
+
 def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
-                 turns=TURNS):
+                 turns=TURNS, parent: str | None = None):
     """Steady stream over medium in the compositions of the main path's
     rel stage (``_medium_stream``) that ``turns`` names, in that order.
     After a warm-up of each (the passes of one sort window, which capture
@@ -2026,7 +2223,11 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
     launches and the chunk graphs' replays per chunk, the rel stage's
     span on the card per chunk (CUDA events on the stream around each
     graph replay, outside any capture; for the plain glue around its
-    rel_only call) and where the main thread's time goes."""
+    rel_only call) and where the main thread's time goes.  Then the host
+    check (``_time_host_rel``) on every chunk of one sort window's passes,
+    and with ``parent`` (a checkout) that tree's main stream and this
+    tree's, each a process of its own, in turns (parent, this, this,
+    parent; ``_TREE_MAIN``)."""
     from classpro_tpu_torch import engine as engine_mod
     from classpro_tpu_torch import kernels, rel
 
@@ -2100,6 +2301,34 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             f"{json.dumps(t['launches_per_chunk'])} per chunk, enqueue "
             f"{t['enqueue_ms_per_chunk']:.3f} ms/chunk; main thread s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in t["host_s"].items()))
+    if "kernels" in comps:
+        hrecs: list = []
+        undo = [S.install(S.comps["kernels"]),
+                _record_host_rel(eng.wall, hrecs)]
+        try:
+            S.run(S.warm_passes)
+        finally:
+            for u in reversed(undo):
+                u()
+        res["host_rel"] = _time_host_rel("stream", eng.wall, hrecs)
+    if parent:
+        ab = []
+        for tree in (parent, HERE, HERE, parent):
+            r = _tree_main(tree, passes)
+            r["tree"] = "parent" if tree == parent else "this"
+            ab.append(r)
+            for x in r["runs"]:
+                d = x["demote_reconcile_ms_per_chunk"]
+                say(f"stream of the {r['tree']} tree ({passes} passes of "
+                    f"medium, a process of its own, golden bytes): "
+                    f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s; host rel "
+                    f"steps {d['median']:.4f} ms a chunk (median; max "
+                    f"{d['max']:.4f}); main thread s: "
+                    + ", ".join(f"{k} {v:.4f}"
+                                for k, v in x["host_s"].items()))
+        if any(x["guard_flagged"] for r in ab for x in r["runs"]):
+            fail("stream: a tree flagged reads on medium")
+        res["parent_ab"] = ab
     return res
 
 
@@ -3391,7 +3620,12 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
                      "host_s": _main_host_s(acc, wall)}
 
     orig = cls._exact_guard
-    run(orig)                                          # warm-up
+    hrecs: list = []
+    undo = _record_host_rel(eng.wall, hrecs)
+    try:
+        run(orig)                          # warm-up, its host rel recorded
+    finally:
+        undo()
     ref, plain1 = run(reference)
     if not staged or plain1["guard_flagged"] == 0:
         fail("guard: the dataset flagged no read")
@@ -3412,6 +3646,9 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
             f"{r['guard_flagged']} ({100 * r['flag_rate']:.2f}% of "
             f"{meta['n_reads']} reads); main thread s: "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items()))
+
+    # the host rel steps alone, on every chunk as the stream staged it
+    rec["host_rel"] = _time_host_rel("guard", eng.wall, hrecs)
 
     # (b) the guard alone
     T = rec["threads"]
@@ -4385,9 +4622,9 @@ def main(argv=None) -> int:
                     "before the DP kernel's prologue, rel_prep's main "
                     "layout + the DP first pass with its tails) against "
                     "this tree's and times them in turns, the alldev "
-                    "phase its rel_prep and rel_settle, the alldev_stream "
-                    "phase its all-device stream, the guard phase its "
-                    "streams")
+                    "phase its rel_prep and rel_settle, the stream phase "
+                    "its main stream, the alldev_stream phase its "
+                    "all-device stream, the guard phase its streams")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4427,7 +4664,7 @@ def main(argv=None) -> int:
         say(json.dumps({"setup_cold": phase_setup_cold()}))
     serec = phase_setup(smi) if "setup" in phases else None
     srec = (phase_stream(args.passes, batch_size=args.batch_size,
-                         sort_window=args.sort_window)
+                         sort_window=args.sort_window, parent=args.parent)
             if "stream" in phases else None)
     arec = alaunch = asrec = None
     if "alldev" in phases:

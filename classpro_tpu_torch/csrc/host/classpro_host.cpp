@@ -13,8 +13,11 @@
 //
 // The port's own copy of the repository's csrc/classpro_host.cpp (the
 // JAX package builds that one), with cp_build_btg, cp_exact_rel_batch,
-// cp_pack_chunk and cp_expand_rows added.  Exposed via a C ABI for
-// ctypes (classpro_tpu_torch/native.py).
+// cp_pack_chunk, cp_expand_rows and cp_demote_reconcile added, every
+// threaded entry on one kept worker pool (pool::Pool), and the batched
+// entries that nothing here calls (cp_wall_stage_batch, cp_unrel_batch,
+// cp_expand_batch) left out.  Exposed via a C ABI for ctypes
+// (classpro_tpu_torch/native.py).
 // All floating point follows C double semantics (this is the same libm
 // the reference links, so values are bit-identical to the oracle).
 
@@ -40,6 +43,110 @@
 #include <pthread.h>
 #include <thread>
 #include <vector>
+
+// ---------------------------------------------------------------------
+// The host plane's worker pool: every threaded entry runs its rows here.
+// Worker threads are kept for the process: a job runs on the calling
+// thread and T - 1 of them, so a call pays a wake-up, not threads' start
+// and join (on the 8-core host of an H100 machine, eight workers started
+// per call took an expansion 1.5 ms against 0.58 ms on one), and a
+// worker's thread_local workspaces stay warm from one call to the next.
+// A job is closed once the caller's share returns (every row is taken
+// by then): the caller waits for the helpers inside it, not for helpers
+// that had not woken yet, which skip it, so a short job does not wait
+// for the slowest wake-up.  One job at a time; the threads are never
+// joined, and a forked child starts a pool of its own (the parent's
+// threads do not exist there).
+// ---------------------------------------------------------------------
+
+namespace pool {
+
+// min(threads, hardware, items / grain rounded up), at least 1
+static int worker_count(int threads, int items, int grain = 1) {
+  int T = threads;
+  int hw = (int)std::thread::hardware_concurrency();
+  if (hw > 0 && T > hw) T = hw;
+  const int most = (items + grain - 1) / grain;
+  if (T > most) T = most;
+  return T < 1 ? 1 : T;
+}
+
+class Pool {
+ public:
+  static Pool& get() {
+    static std::once_flag once;
+    std::call_once(once, [] {
+      g_pool = new Pool();
+      pthread_atfork(nullptr, nullptr, [] { g_pool = new Pool(); });
+    });
+    return *g_pool;
+  }
+
+  void run(int T, const std::function<void()>& job) {
+    std::lock_guard<std::mutex> one(run_mu_);
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      while ((int)n_threads_ < T - 1) {
+        const int idx = n_threads_++;
+        new std::thread([this, idx] { loop(idx); });   // lives on
+      }
+      job_ = &job;
+      helpers_ = T - 1;
+      gen_++;
+    }
+    wake_.notify_all();
+    job();
+    std::unique_lock<std::mutex> lk(mu_);
+    job_ = nullptr;
+    done_.wait(lk, [this] { return active_ == 0; });
+  }
+
+ private:
+  static Pool* g_pool;
+
+  void loop(int idx) {
+    uint64_t seen = 0;
+    std::unique_lock<std::mutex> lk(mu_);
+    for (;;) {
+      wake_.wait(lk, [&] { return gen_ != seen; });
+      seen = gen_;
+      if (idx >= helpers_ || job_ == nullptr) continue;
+      const std::function<void()>* job = job_;
+      active_++;
+      lk.unlock();
+      (*job)();
+      lk.lock();
+      if (--active_ == 0) done_.notify_one();
+    }
+  }
+
+  std::mutex run_mu_, mu_;
+  std::condition_variable wake_, done_;
+  const std::function<void()>* job_ = nullptr;
+  uint64_t gen_ = 0;
+  int n_threads_ = 0, helpers_ = 0, active_ = 0;
+};
+Pool* Pool::g_pool = nullptr;
+
+// run body(t) for t in [0, items) on T workers (the caller one of them),
+// rows off an atomic counter; each worker is worth at least `grain` rows
+// (a short row is not worth a helper's wake-up)
+template <class F>
+static void parallel_rows(int items, int threads, F body, int grain = 1) {
+  const int T = worker_count(threads, items, grain);
+  std::atomic<int> next(0);
+  const std::function<void()> worker = [&]() {
+    for (;;) {
+      int t = next.fetch_add(1);
+      if (t >= items) return;
+      body(t);
+    }
+  };
+  if (T == 1) worker();
+  else Pool::get().run(T, worker);
+}
+
+}  // namespace pool
 
 namespace {
 
@@ -1464,122 +1571,15 @@ int cp_wall_stage(
   return N;
 }
 
-// Batched multithreaded wall stage (replaces the reference's per-thread
-// read loop, ClassPro.c:146-304, for the host side of the pipeline).
-// Reads are concatenated: seqs with seq_off[n+1] byte offsets, profs with
-// prof_off[n+1] element offsets.  Each read writes to a fixed slot of
-// `slot` records at out + i*slot; n_out[i] = record count (-1 if the
-// slot overflowed; caller retries that read via cp_wall_stage), n_rel[i]
-// = reliable count.  Thread count = min(threads, hardware).
-void cp_wall_stage_batch(
-    int K, int cmax, int cov_h, int read_len, int max_n_hc,
-    int min_cnt_change, int max_cnt_change, const double* pe_thres4,
-    double thres_diff_eo, double thres_diff_rel, double hc_erate,
-    const int* lmax3, int lmaxp1, const double* pe, const int16_t* cthres,
-    const double* btg, const double* erates, const int32_t* pe_idx,
-    int hc_idx, int n_cap,
-    int n_reads, const char* seqs, const int64_t* seq_off,
-    const uint16_t* profs, const int64_t* prof_off,
-    OutIntvl* out, int slot, int* n_out, int* n_rel, int threads) {
-  init_logfact();
-  Model M;
-  M.K = K; M.cmax = cmax; M.cov_h = cov_h; M.read_len = read_len;
-  M.max_n_hc = max_n_hc; M.min_cnt_change = min_cnt_change;
-  M.max_cnt_change = max_cnt_change;
-  M.pe_thres[0][0] = pe_thres4[0]; M.pe_thres[0][1] = pe_thres4[1];
-  M.pe_thres[1][0] = pe_thres4[2]; M.pe_thres[1][1] = pe_thres4[3];
-  M.thres_diff_eo = thres_diff_eo; M.thres_diff_rel = thres_diff_rel;
-  M.hc_erate = hc_erate;
-  M.lmax[0] = lmax3[0]; M.lmax[1] = lmax3[1]; M.lmax[2] = lmax3[2];
-  M.lmaxp1 = lmaxp1; M.pe = pe; M.cthres = cthres;
-  M.logpthres_final_self = std::log(M.pe_thres[TFINAL][SELF]);
-  M.btg = btg; M.erates = erates; M.pe_idx = pe_idx;
-  M.hc_idx = hc_idx; M.n_cap = n_cap;
-
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T < 1) T = 1;
-  std::atomic<int> next(0);
-  const bool prof_on = std::getenv("CP_PROF") != nullptr;
-  std::atomic<long long> t_run(0), t_rel(0);
-
-  auto worker = [&]() {
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_reads) return;
-      const char* seq = seqs + seq_off[i];
-      int rlen = (int)(seq_off[i + 1] - seq_off[i]);
-      const uint16_t* prof = profs + prof_off[i];
-      int plen = (int)(prof_off[i + 1] - prof_off[i]);
-      CtxOnDemand cd{seq, rlen};
-      WallWalk W(M, prof, plen, cd, g_ws);
-      long long t0 = prof_on ? now_ns() : 0;
-      int N = W.run(out + (int64_t)i * slot, slot);
-      if (prof_on) t_run += now_ns() - t0;
-      if (N < 0) { n_out[i] = -1; n_rel[i] = 0; continue; }
-      if (prof_on) t0 = now_ns();
-      n_rel[i] = W.find_rel(out + (int64_t)i * slot, N);
-      if (prof_on) t_rel += now_ns() - t0;
-      n_out[i] = N;
-    }
-  };
-  if (T == 1) worker();
-  else {
-    std::vector<std::thread> ts;
-    for (int t = 0; t < T; t++) ts.emplace_back(worker);
-    for (auto& th : ts) th.join();
-  }
-  if (prof_on)
-    std::fprintf(stderr, "[cp_prof] wall run=%.2fms find_rel=%.2fms\n",
-                 t_run.load() / 1e6, t_rel.load() / 1e6);
-}
-
-// Batched unreliable-interval relaxation (class_unrel.c:248-300 semantics,
-// ported from the golden-verified oracle classpro_tpu/exact/unrel.py).
-// iv/asgn are slotted per read (read i at offset i*slot); asgn holds the
-// reliable-DP result for reliable intervals and U_NSTATE elsewhere, and is
-// relaxed in place.
-void cp_unrel_batch(int cov_e, int cov_r, int cov_h, int cov_d,
-                    double dr_ratio, int read_len, double r_logp,
-                    double e_po_base, double pe_mean,
-                    const double* sk_ta, const double* sk_tb,
-                    const double* btg_log, int n_cap, int n_reads,
-                    const OutIntvl* iv, int slot, const int* n_iv,
-                    int8_t* asgn, int threads) {
-  init_logfact();
-  UnrelGlob G;
-  G.cov[0] = cov_e; G.cov[1] = cov_r; G.cov[2] = cov_h; G.cov[3] = cov_d;
-  G.dr_ratio = dr_ratio; G.read_len = read_len;
-  G.r_logp = r_logp; G.e_po_base = e_po_base; G.pe_mean = pe_mean;
-  G.sk.ta = sk_ta; G.sk.tb = sk_tb;
-  G.btg = btg_log; G.n_cap = n_cap;
-
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T < 1) T = 1;
-  std::atomic<int> next(0);
-
-  auto worker = [&]() {
-    std::vector<int> ord(slot);
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_reads) return;
-      int N = n_iv[i];
-      if (N <= 0) continue;
-      u_classify_read(G, iv + (int64_t)i * slot,
-                      asgn + (int64_t)i * slot, N, ord.data());
-    }
-  };
-  if (T == 1) { worker(); return; }
-  std::vector<std::thread> ts;
-  for (int t = 0; t < T; t++) ts.emplace_back(worker);
-  for (auto& th : ts) th.join();
-}
-
-// Pointer-array variant of cp_wall_stage_batch: reads stay in their
-// caller-owned buffers (no concatenated copies).
+// Batched wall stage over the host plane's workers (replaces the
+// reference's per-thread read loop, ClassPro.c:146-304, for the host side
+// of the pipeline).  Reads stay in their caller-owned buffers: seqs[i]
+// (seq_len[i] bytes) and profs[i] (prof_len[i] counts).  Each read
+// writes to a fixed slot of `slot` records at out + i*slot; n_out[i] =
+// record count (-1 if the slot overflowed; the caller retries with a
+// larger slot), n_rel[i] = reliable count.  Reads go to the workers off
+// an atomic counter, each walked in its worker's kept workspace (g_ws);
+// a read's records do not depend on the worker count.
 void cp_wall_stage_batch_ptr(
     int K, int cmax, int cov_h, int read_len, int max_n_hc,
     int min_cnt_change, int max_cnt_change, const double* pe_thres4,
@@ -1605,37 +1605,21 @@ void cp_wall_stage_batch_ptr(
   M.btg = btg; M.erates = erates; M.pe_idx = pe_idx;
   M.hc_idx = hc_idx; M.n_cap = n_cap;
 
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T < 1) T = 1;
-  std::atomic<int> next(0);
-
   const bool prof_on = std::getenv("CP_PROF") != nullptr;
   std::atomic<long long> t_run(0), t_rel(0);
 
-  auto worker = [&]() {
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_reads) return;
-      CtxOnDemand cd{seqs[i], seq_len[i]};
-      WallWalk W(M, profs[i], prof_len[i], cd, g_ws);
-      long long t0 = prof_on ? now_ns() : 0;
-      int N = W.run(out + (int64_t)i * slot, slot);
-      if (prof_on) t_run += now_ns() - t0;
-      if (N < 0) { n_out[i] = -1; n_rel[i] = 0; continue; }
-      if (prof_on) t0 = now_ns();
-      n_rel[i] = W.find_rel(out + (int64_t)i * slot, N);
-      if (prof_on) t_rel += now_ns() - t0;
-      n_out[i] = N;
-    }
-  };
-  if (T == 1) worker();
-  else {
-    std::vector<std::thread> ts;
-    for (int t = 0; t < T; t++) ts.emplace_back(worker);
-    for (auto& th : ts) th.join();
-  }
+  pool::parallel_rows(n_reads, threads, [&](int i) {
+    CtxOnDemand cd{seqs[i], seq_len[i]};
+    WallWalk W(M, profs[i], prof_len[i], cd, g_ws);
+    long long t0 = prof_on ? now_ns() : 0;
+    int N = W.run(out + (int64_t)i * slot, slot);
+    if (prof_on) t_run += now_ns() - t0;
+    if (N < 0) { n_out[i] = -1; n_rel[i] = 0; return; }
+    if (prof_on) t0 = now_ns();
+    n_rel[i] = W.find_rel(out + (int64_t)i * slot, N);
+    if (prof_on) t_rel += now_ns() - t0;
+    n_out[i] = N;
+  });
   if (prof_on)
     std::fprintf(stderr, "[cp_prof] wall_ptr run=%.2fms find_rel=%.2fms\n",
                  t_run.load() / 1e6, t_rel.load() / 1e6);
@@ -1684,7 +1668,8 @@ void cp_pack_rel(int n_reads, const OutIntvl* iv, int slot,
 // Finish stage for one chunk: scatter the device's reliable assignments
 // back onto each read's interval list (row j = j-th read with
 // n_rel > 0, same enumeration as cp_pack_rel), run the relaxation
-// sweeps, and expand to class characters — one call, threaded.
+// sweeps, and expand to class characters -- one call, its reads on the
+// host plane's workers (each read's bytes written by one worker).
 void cp_finish_batch(int cov_e, int cov_r, int cov_h, int cov_d,
                      double dr_ratio, int read_len, double r_logp,
                      double e_po_base, double pe_mean,
@@ -1711,97 +1696,45 @@ void cp_finish_batch(int cov_e, int cov_r, int cov_h, int cov_d,
       if (n_rel[i] > 0) rel_row[i] = j++;
   }
 
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T < 1) T = 1;
-  std::atomic<int> next(0);
-
   const bool prof_on = std::getenv("CP_PROF") != nullptr;
   std::atomic<long long> t_relax(0);
 
-  auto worker = [&]() {
-    std::vector<int> ord(slot);
-    std::vector<int8_t> asgn(slot);
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_reads) return;
-      char* dst = out + out_off[i];
-      int64_t len = out_off[i + 1] - out_off[i];
-      memset(dst, 'N', (size_t)len);
-      int N = n_iv[i];
-      if (N <= 0) continue;
-      const OutIntvl* ivr = iv + (int64_t)i * slot;
-      for (int k = 0; k < N; k++) asgn[k] = U_NSTATE;
-      if (rel_row[i] >= 0 && rel_out) {
-        const int8_t* rr = rel_out + (size_t)rel_row[i] * max_m;
-        int w = 0;
-        for (int k = 0; k < N; k++)
-          if (ivr[k].is_rel) asgn[k] = rr[w++];
-      }
-      long long t0 = prof_on ? now_ns() : 0;
-      u_classify_read(G, ivr, asgn.data(), N, ord.data());
-      if (prof_on) t_relax += now_ns() - t0;
-      for (int k = 0; k < N; k++) {
-        int a = asgn[k];
-        if (a < 0) a = 0;
-        if (a > 3) a = 3;
-        int bb = ivr[k].b, ee = ivr[k].e;
-        if (bb < 0) bb = 0;
-        if (K - 1 + ee > len) ee = (int)len - (K - 1);
-        if (ee > bb) memset(dst + K - 1 + bb, stoc[a], (size_t)(ee - bb));
-      }
+  pool::parallel_rows(n_reads, threads, [&](int i) {
+    thread_local std::vector<int> ord;
+    thread_local std::vector<int8_t> asgn;
+    char* dst = out + out_off[i];
+    int64_t len = out_off[i + 1] - out_off[i];
+    memset(dst, 'N', (size_t)len);
+    int N = n_iv[i];
+    if (N <= 0) return;
+    if (ord.size() < (size_t)N) {
+      ord.resize(N);
+      asgn.resize(N);
     }
-  };
-  if (T == 1) worker();
-  else {
-    std::vector<std::thread> ts;
-    for (int t = 0; t < T; t++) ts.emplace_back(worker);
-    for (auto& th : ts) th.join();
-  }
+    const OutIntvl* ivr = iv + (int64_t)i * slot;
+    for (int k = 0; k < N; k++) asgn[k] = U_NSTATE;
+    if (rel_row[i] >= 0 && rel_out) {
+      const int8_t* rr = rel_out + (size_t)rel_row[i] * max_m;
+      int w = 0;
+      for (int k = 0; k < N; k++)
+        if (ivr[k].is_rel) asgn[k] = rr[w++];
+    }
+    long long t0 = prof_on ? now_ns() : 0;
+    u_classify_read(G, ivr, asgn.data(), N, ord.data());
+    if (prof_on) t_relax += now_ns() - t0;
+    for (int k = 0; k < N; k++) {
+      int a = asgn[k];
+      if (a < 0) a = 0;
+      if (a > 3) a = 3;
+      int bb = ivr[k].b, ee = ivr[k].e;
+      if (bb < 0) bb = 0;
+      if (K - 1 + ee > len) ee = (int)len - (K - 1);
+      if (ee > bb) memset(dst + K - 1 + bb, stoc[a], (size_t)(ee - bb));
+    }
+  });
   if (prof_on)
     std::fprintf(stderr, "[cp_prof] finish relax=%.2fms\n",
                  t_relax.load() / 1e6);
-}
-
-// Expand per-interval assignments to per-base class characters
-// (ClassPro.c:265-270,289).  out_off[i] is the byte offset of read i's
-// class line (length = K-1 + plen); the first K-1 bytes become 'N'.
-void cp_expand_batch(int n_reads, const OutIntvl* iv, int slot,
-                     const int* n_iv, const int8_t* asgn, int K,
-                     const int64_t* out_off, char* out, int threads) {
-  static const char stoc[4] = {'E', 'R', 'H', 'D'};
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T < 1) T = 1;
-  std::atomic<int> next(0);
-
-  auto worker = [&]() {
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n_reads) return;
-      char* dst = out + out_off[i];
-      int64_t len = out_off[i + 1] - out_off[i];
-      memset(dst, 'N', (size_t)len);
-      const OutIntvl* ivr = iv + (int64_t)i * slot;
-      const int8_t* ar = asgn + (int64_t)i * slot;
-      int N = n_iv[i];
-      for (int j = 0; j < N; j++) {
-        int a = ar[j];
-        if (a < 0) a = 0;
-        if (a > 3) a = 3;
-        int b = ivr[j].b, e = ivr[j].e;
-        if (b < 0) b = 0;
-        if (K - 1 + e > len) e = (int)len - (K - 1);
-        if (e > b) memset(dst + K - 1 + b, stoc[a], (size_t)(e - b));
-      }
-    }
-  };
-  if (T == 1) { worker(); return; }
-  std::vector<std::thread> ts;
-  for (int t = 0; t < T; t++) ts.emplace_back(worker);
-  for (auto& th : ts) th.join();
 }
 
 }  // extern "C"
@@ -3103,8 +3036,9 @@ int cp_exact_rel(int cov_e, int cov_r, int cov_h, int cov_d,
 // rc[k].  Rows are independent, so the bytes do not depend on threads:
 // workers take rows off an atomic counter, longest read first (the DP
 // grows faster than linearly in a read's intervals, so no worker is left
-// with a long row at the end), the calling thread one of them; all share
-// the process's Skellam memo (x_skellam_memo).
+// with a long row at the end) on the host plane's pool, the calling
+// thread one of them; all share the process's Skellam memo
+// (x_skellam_memo) and keep their record buffers between calls.
 void cp_exact_rel_batch(int cov_e, int cov_r, int cov_h, int cov_d,
                         double dr_ratio, int read_len, double r_logp,
                         double e_po_base, double pe_mean, int offset,
@@ -3115,33 +3049,18 @@ void cp_exact_rel_batch(int cov_e, int cov_r, int cov_h, int cov_d,
   init_logfact();   // not thread-safe: before any worker starts
   const xrel::Glob G{{cov_e, cov_r, cov_h, cov_d}, dr_ratio, read_len,
                      r_logp, e_po_base, pe_mean, offset};
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T > n_rows) T = n_rows;
-  if (T < 1) T = 1;
   std::vector<int> order(n_rows);
   for (int k = 0; k < n_rows; k++) order[k] = k;
   std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
     return n_out[reads[a]] > n_out[reads[b]];
   });
-  std::atomic<int> next(0);
-  auto worker = [&]() {
-    std::vector<OutIntvl> buf;
-    for (;;) {
-      int q = next.fetch_add(1);
-      if (q >= n_rows) return;
-      int k = order[q], i = reads[k];
-      rc[k] = xrel::exact_rel_read(G, iv + (int64_t)i * slot, n_out[i],
-                                   (int)plens[k], buf,
-                                   rel_out + (int64_t)dst[k] * max_m,
-                                   max_m);
-    }
-  };
-  std::vector<std::thread> ts;
-  for (int t = 1; t < T; t++) ts.emplace_back(worker);
-  worker();
-  for (auto& th : ts) th.join();
+  pool::parallel_rows(n_rows, threads, [&](int q) {
+    thread_local std::vector<OutIntvl> buf;
+    int k = order[q], i = reads[k];
+    rc[k] = xrel::exact_rel_read(G, iv + (int64_t)i * slot, n_out[i],
+                                 (int)plens[k], buf,
+                                 rel_out + (int64_t)dst[k] * max_m, max_m);
+  });
 }
 
 }  // extern "C"
@@ -3216,7 +3135,7 @@ void cp_build_btg(const double* erates, int n_rates, int n_cap,
 // caller's table (numpy's LOGFACT), indexed at min(count, 32767).  Rel
 // row j of the merged fw/bw planes is the j-th packed row with n_rel > 0
 // (a serial prefix), its bw twin R + j the same records reversed within
-// m.  Packed rows go to the workers (the feed's Pool) off an atomic
+// m.  Packed rows go to the workers (pool::Pool) off an atomic
 // counter; each writes only its own rows, so the blobs do not depend on
 // threads.  Returns 0, or for the lowest failing packed row (in
 // *err_row): -1 a count below 0 where a log-factorial is read, -2 an
@@ -3245,92 +3164,6 @@ static inline bool lf_at(const double* logfact, int n_logfact, int cnt,
 
 static inline int32_t minus1(int32_t v) {   // numpy's wrapping int32 - 1
   return (int32_t)((uint32_t)v - 1u);
-}
-
-static int worker_count(int threads, int items) {
-  int T = threads;
-  int hw = (int)std::thread::hardware_concurrency();
-  if (hw > 0 && T > hw) T = hw;
-  if (T > items) T = items;
-  return T < 1 ? 1 : T;
-}
-
-// Worker threads kept for the process: a job runs on the calling thread
-// and T - 1 of them, so a call pays a wake-up, not threads' start and
-// join (on the 8-core host of an H100 machine, eight workers started per
-// call took an expansion 1.5 ms against 0.58 ms on one).  One job at a
-// time; the threads are never joined, and a forked child starts a pool
-// of its own (the parent's threads do not exist there).
-class Pool {
- public:
-  static Pool& get() {
-    static std::once_flag once;
-    std::call_once(once, [] {
-      g_pool = new Pool();
-      pthread_atfork(nullptr, nullptr, [] { g_pool = new Pool(); });
-    });
-    return *g_pool;
-  }
-
-  void run(int T, const std::function<void()>& job) {
-    std::lock_guard<std::mutex> one(run_mu_);
-    {
-      std::lock_guard<std::mutex> lk(mu_);
-      while ((int)n_threads_ < T - 1) {
-        const int idx = n_threads_++;
-        new std::thread([this, idx] { loop(idx); });   // lives on
-      }
-      job_ = &job;
-      helpers_ = pending_ = T - 1;
-      gen_++;
-    }
-    wake_.notify_all();
-    job();
-    std::unique_lock<std::mutex> lk(mu_);
-    done_.wait(lk, [this] { return pending_ == 0; });
-  }
-
- private:
-  static Pool* g_pool;
-
-  void loop(int idx) {
-    uint64_t seen = 0;
-    std::unique_lock<std::mutex> lk(mu_);
-    for (;;) {
-      wake_.wait(lk, [&] { return gen_ != seen; });
-      seen = gen_;
-      if (idx >= helpers_) continue;
-      const std::function<void()>* job = job_;
-      lk.unlock();
-      (*job)();
-      lk.lock();
-      if (--pending_ == 0) done_.notify_one();
-    }
-  }
-
-  std::mutex run_mu_, mu_;
-  std::condition_variable wake_, done_;
-  const std::function<void()>* job_ = nullptr;
-  uint64_t gen_ = 0;
-  int n_threads_ = 0, helpers_ = 0, pending_ = 0;
-};
-Pool* Pool::g_pool = nullptr;
-
-// run body(t) for t in [0, items) on T workers (the caller one of them),
-// rows off an atomic counter
-template <class F>
-static void parallel_rows(int items, int threads, F body) {
-  const int T = worker_count(threads, items);
-  std::atomic<int> next(0);
-  const std::function<void()> worker = [&]() {
-    for (;;) {
-      int t = next.fetch_add(1);
-      if (t >= items) return;
-      body(t);
-    }
-  };
-  if (T == 1) worker();
-  else Pool::get().run(T, worker);
 }
 
 static int first_error(const std::vector<int>& rc, int* err_row) {
@@ -3418,7 +3251,7 @@ int cp_pack_chunk(const OutIntvl* iv, int slot, const int* n_out,
     prows[j] = row;
   };
 
-  feed::parallel_rows(items, threads, [&](int t) {
+  pool::parallel_rows(items, threads, [&](int t) {
     thread_local std::vector<int64_t> ord;
     thread_local std::vector<int> ks;
     if (ord.size() < (size_t)max_n) ord.resize(max_n);
@@ -3505,7 +3338,7 @@ int cp_expand_rows(const OutIntvl* iv, int slot, const int* n_out,
                    int* err_row, int threads) {
   static const char stoc[4] = {'E', 'R', 'H', 'D'};
   std::vector<int> rc(n_rows > 0 ? n_rows : 1, 0);
-  feed::parallel_rows(n_rows, threads, [&](int r) {
+  pool::parallel_rows(n_rows, threads, [&](int r) {
     const int i = rows[r];
     const OutIntvl* rec = iv + (int64_t)i * slot;
     const int N = n_out[i] > 0 ? n_out[i] : 0;
@@ -3534,6 +3367,214 @@ int cp_expand_rows(const OutIntvl* iv, int slot, const int* n_out,
     }
   });
   return feed::first_error(rc, err_row);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// The main path's host rel steps after the DP (classpro_tpu_torch/rel.py
+// holds the plain versions, demote_host and reconcile_fwbw; the
+// reference's class_rel.c:650-713 and 847-938).
+//
+// cp_demote_reconcile writes the (R, max_m) forward-order assignment
+// reconcile_fwbw(demote_host(v, ...)) returns, byte for byte, padding
+// columns included.  v holds the DP's 2R rows (fw rows, then bw rows in
+// scan order) at a row stride of v_stride bytes; rescue the 2R no-H
+// rescue flags; b/e/ccb/cce the (R, max_m) forward-order planes; m the R
+// live counts.  Read pair j (rows j and R + j) is one work item on the
+// pool (a worker per PAIRS_PER_WORKER pairs, at most `threads`): each
+// row demoted in stage order (the no-H rescue, all-H, >=70%
+// H; each stage reads the previous one's result), then the pair
+// reconciled into out row j.  The integer steps are numpy's int64
+// arithmetic, wrapping, with floor division; the hdrr ratios IEEE f64 in
+// the plain version's order.  Where a count in an hdrr ratio is 0 the
+// ratio is IEEE's inf or NaN (the reference's double division, and the
+// device's reconcile); the plain version raises ZeroDivisionError there.
+// Returns 0, or -1 for the lowest row whose m is below 0 or above max_m
+// (in *err_row; nothing is written).
+// ---------------------------------------------------------------------
+
+namespace hostrel {
+
+// a read pair is ~1.4 us of work on the 8-core host of an H100 machine,
+// and a chunk's 256 pairs ran faster on the caller alone than on eight
+// workers (0.36-0.39 ms against 0.42-0.57 at T = 8; chip_smoke's host
+// check): a helper joins only for each further 256 pairs
+constexpr int PAIRS_PER_WORKER = 256;
+
+constexpr int8_t REPEAT = 1, HAPLO = 2, DIPLO = 3;   // ERROR is 0
+
+// numpy's int64 arithmetic: two's complement, wrapping
+static inline int64_t wadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+static inline int64_t wsub(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+static inline int64_t wmul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+static inline int64_t wabs(int64_t a) {
+  return a < 0 ? (int64_t)(0 - (uint64_t)a) : a;
+}
+// numpy's // on int64: floor division (b > 0 here)
+static inline int64_t floordiv(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q--;
+  return q;
+}
+
+// a read pair's interval terms, filled at first use: l = |(e - 1) - b| +
+// 1 and (bc + ec) * l // 2 of each forward column below m.  A bw row's
+// column c reads forward column m - 1 - c with its two counts swapped,
+// so it has the same two terms there.
+struct PairTerms {
+  const int32_t *b, *e, *ccb, *cce;
+  int m;
+  int64_t *l, *t;
+  bool filled;
+  void fill() {
+    if (filled) return;
+    for (int f = 0; f < m; f++) {
+      l[f] = wabs(((int64_t)e[f] - 1) - (int64_t)b[f]) + 1;
+      t[f] = floordiv(wmul((int64_t)ccb[f] + cce[f], l[f]), 2);
+    }
+    filled = true;
+  }
+};
+
+// lsum and csum over the columns below m of a row (bw: in scan order)
+// whose state is `state` (any state when state < 0)
+static inline void sums(PairTerms& P, bool bw, const int8_t* a, int state,
+                        int64_t* lsum, int64_t* csum) {
+  P.fill();
+  int64_t ls = 0, cs = 0;
+  for (int c = 0; c < P.m; c++)
+    if (state < 0 || a[c] == state) {
+      const int f = bw ? P.m - 1 - c : c;
+      ls = wadd(ls, P.l[f]);
+      cs = wadd(cs, P.t[f]);
+    }
+  *lsum = ls;
+  *csum = cs;
+}
+
+// |csum - gH * lsum| against |csum - gD * lsum|
+static inline int64_t dist(int64_t csum, int64_t g, int64_t lsum) {
+  return wabs(wsub(csum, wmul(g, lsum)));
+}
+
+static inline int64_t count_h(const int8_t* a, int m) {
+  int64_t n = 0;
+  for (int c = 0; c < m; c++) n += a[c] == HAPLO;
+  return n;
+}
+
+static void demote_row(PairTerms& P, bool bw, bool rescue, int max_m,
+                       int64_t gH, int64_t gD, int8_t* a) {
+  const int m = P.m;
+  int64_t lsum, csum;
+  // no-H rescue rows: D -> H, in every column of the row
+  if (rescue && count_h(a, m) == 0) {
+    sums(P, bw, a, DIPLO, &lsum, &csum);
+    if (lsum > 0 && dist(csum, gH, lsum) <= dist(csum, gD, lsum))
+      for (int c = 0; c < max_m; c++)
+        if (a[c] == DIPLO) a[c] = HAPLO;
+  }
+  if (m <= 0) return;      // all-H and >=70% H: a row of none is exempt
+  int64_t n_h = count_h(a, m);
+  // all-H rows: H -> D when the row mean sits nearer (or tied) gD
+  if (n_h == m) {
+    sums(P, bw, a, -1, &lsum, &csum);
+    if (dist(csum, gH, lsum) >= dist(csum, gD, lsum)) {
+      for (int c = 0; c < m; c++) a[c] = DIPLO;
+      n_h = 0;
+    }
+  }
+  // >=70%-H rows: H -> D and D -> R together
+  if ((double)n_h >= (double)m * 0.7) {
+    sums(P, bw, a, HAPLO, &lsum, &csum);
+    if (lsum > 0 && dist(csum, gH, lsum) >= dist(csum, gD, lsum))
+      for (int c = 0; c < m; c++)
+        a[c] = a[c] == DIPLO ? REPEAT : (a[c] == HAPLO ? DIPLO : a[c]);
+  }
+}
+
+// is_eq_prefix (class_rel.c:847-869) of a[0, m) read forward, or with
+// rev backward; ERROR (0) is false, every other state true
+static bool pref(const int8_t* a, int m, bool rev) {
+  auto at = [&](int i) { return a[rev ? m - 1 - i : i]; };
+  if (at(0) != REPEAT) return false;
+  int i = 0;
+  while (i < m && at(i)) i++;
+  for (; i < m; i++)
+    if (at(i)) return false;
+  return true;
+}
+
+// hdrr of a forward-order row a[0, m); 1.0 without a D or an H
+static double hdrr(const int8_t* a, int m, const int32_t* ccb,
+                   const int32_t* cce) {
+  int d0 = -1, dl = -1, h0 = -1, hl = -1;
+  for (int i = 0; i < m; i++) {
+    if (a[i] == DIPLO) { if (d0 < 0) d0 = i; dl = i; }
+    else if (a[i] == HAPLO) { if (h0 < 0) h0 = i; hl = i; }
+  }
+  if (d0 < 0 || h0 < 0) return 1.0;
+  return ((double)ccb[d0] / (double)ccb[h0]) /
+         ((double)cce[dl] / (double)cce[hl]);
+}
+
+}  // namespace hostrel
+
+extern "C" {
+
+int cp_demote_reconcile(const int8_t* v, int64_t v_stride,
+                        const uint8_t* rescue, const int32_t* b,
+                        const int32_t* e, const int32_t* ccb,
+                        const int32_t* cce, const int32_t* m, int R,
+                        int max_m, int64_t gH, int64_t gD, int8_t* out,
+                        int* err_row, int threads) {
+  using namespace hostrel;
+  *err_row = -1;
+  for (int j = 0; j < R; j++)
+    if (m[j] < 0 || m[j] > max_m) {
+      *err_row = j;
+      return -1;
+    }
+  pool::parallel_rows(R, threads, [&](int j) {
+    thread_local std::vector<int8_t> bwrow, bwf;
+    thread_local std::vector<int64_t> l, t;
+    if (bwrow.size() < (size_t)max_m) {
+      bwrow.resize(max_m);
+      bwf.resize(max_m);
+      l.resize(max_m);
+      t.resize(max_m);
+    }
+    const size_t o = (size_t)j * max_m;
+    const int mj = m[j];
+    int8_t* fw = out + o;                   // the fw row, demoted in place
+    std::memcpy(fw, v + j * v_stride, (size_t)max_m);
+    std::memcpy(bwrow.data(), v + (R + j) * v_stride, (size_t)max_m);
+    PairTerms P{b + o, e + o, ccb + o, cce + o, mj, l.data(), t.data(),
+                false};
+    demote_row(P, false, rescue[j] != 0, max_m, gH, gD, fw);
+    demote_row(P, true, rescue[R + j] != 0, max_m, gH, gD, bwrow.data());
+    // reconciliation: rows whose fw and reversed bw agree below m keep fw
+    bool eq = true;
+    for (int c = 0; c < mj; c++) {
+      bwf[c] = bwrow[mj - 1 - c];           // bw in forward order
+      eq &= fw[c] == bwf[c];
+    }
+    if (eq || pref(fw, mj, false)) return;
+    if (!pref(fw, mj, true)) {
+      const double hf = hdrr(fw, mj, ccb + o, cce + o);
+      const double hb = hdrr(bwf.data(), mj, ccb + o, cce + o);
+      if (std::fabs(hf - 1.0) <= std::fabs(hb - 1.0)) return;
+    }
+    std::memcpy(fw, bwf.data(), (size_t)mj);
+  }, PAIRS_PER_WORKER);
+  return 0;
 }
 
 }  // extern "C"

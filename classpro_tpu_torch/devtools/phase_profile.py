@@ -54,8 +54,7 @@ def profile(gm, seqs, profs, batch: int = 200, passes: int = 5,
     import torch
 
     from classpro_tpu_torch.engine import TorchEngine
-    from classpro_tpu_torch.rel import (demote_host, reconcile_fwbw,
-                                       rel_only, unpack_out)
+    from classpro_tpu_torch.rel import rel_only, unpack_out
 
     eng = TorchEngine(gm, batch_size=batch, device=device)
     stream = eng._on[eng.device][2]
@@ -100,11 +99,10 @@ def profile(gm, seqs, profs, batch: int = 200, passes: int = 5,
             t = tick("device wait", t)
             v, st["risky"], resc, st["mm"] = unpack_out(st["out"].numpy(),
                                                         st["max_m"])
-            v = demote_host(v, resc, st["rel_b"], st["rel_e"],
-                            st["rel_ccb"], st["rel_cce"], st["rel_m"],
-                            int(gm.cov[2]), int(gm.cov[3]))
-            rel_out = reconcile_fwbw(v, st["rel_ccb"], st["rel_cce"],
-                                     st["rel_m"])
+            rel_out = eng.wall.demote_reconcile(
+                v, resc, st["rel_b"], st["rel_e"], st["rel_ccb"],
+                st["rel_cce"], st["rel_m"], int(gm.cov[2]), int(gm.cov[3]),
+                threads=eng.threads)
             eng._exact_guard(st, rel_out)
             t = tick("demote+reconcile+guard", t)
             g = st["g"]

@@ -61,8 +61,7 @@ from classpro_tpu_torch.io.fastx import read_fastx_checked
 from classpro_tpu_torch.native import NativeWall, chunk_dims
 from classpro_tpu_torch.pack import _bucket
 from classpro_tpu_torch.params import build_replicas
-from classpro_tpu_torch.rel import (DIPLO, HAPLO, demote_host,
-                                    reconcile_fwbw, rel_only, unpack_out)
+from classpro_tpu_torch.rel import DIPLO, HAPLO, rel_only, unpack_out
 
 # the buckets ``TorchEngine.warmup`` readies by default: (R, max_m) on the
 # main path, (Bn, max_n, R2, max_m) on the all-device path (medium's
@@ -594,9 +593,10 @@ class TorchEngine:
                                   rel_out, rows, threads=self.threads)
 
     def _finish(self, st) -> list[str]:
-        """Wait for the chunk's device result, run the host rel steps,
-        then ONE C++ call: scatter rel assignments, relaxation sweeps,
-        class expansion."""
+        """Wait for the chunk's device result, run the host rel steps (one
+        C++ call for the demotions and the reconciliation, one for the
+        guard), then ONE C++ call: scatter rel assignments, relaxation
+        sweeps, class expansion."""
         seqs = st["seqs"]
         res = [""] * len(seqs)
         if "g" in st and self.PP is not None:
@@ -613,13 +613,13 @@ class TorchEngine:
                 v, st["risky"], rescue, st["mm"] = unpack_out(
                     st["out"].numpy(), st["max_m"])
                 # the integer demotions (class_rel.c:650-713) and the
-                # hdrr-tie reconciliation run on the host, exact
-                v = demote_host(v, rescue, st["rel_b"], st["rel_e"],
-                                st["rel_ccb"], st["rel_cce"], st["rel_m"],
-                                int(self.gm.cov[HAPLO]),
-                                int(self.gm.cov[DIPLO]))
-                rel_out = reconcile_fwbw(v, st["rel_ccb"], st["rel_cce"],
-                                         st["rel_m"])
+                # hdrr-tie reconciliation run on the host, exact: one
+                # C++ call on the -T workers (plain versions:
+                # rel.demote_host, rel.reconcile_fwbw)
+                rel_out = self.wall.demote_reconcile(
+                    v, rescue, st["rel_b"], st["rel_e"], st["rel_ccb"],
+                    st["rel_cce"], st["rel_m"], int(self.gm.cov[HAPLO]),
+                    int(self.gm.cov[DIPLO]), threads=self.threads)
                 self._exact_guard(st, rel_out)
             out_off = np.zeros(len(g) + 1, np.int64)
             out_off[1:] = np.cumsum([len(seqs[i]) for i in g])

@@ -3,8 +3,9 @@
 The library is compiled on demand (g++ -O3 -shared) from the package's
 own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
 repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
-with ``cp_build_btg``, ``cp_exact_rel_batch``, ``cp_pack_chunk`` and
-``cp_expand_rows`` added) into
+with ``cp_build_btg``, ``cp_exact_rel_batch``, ``cp_pack_chunk``,
+``cp_expand_rows`` and ``cp_demote_reconcile`` added, and its threaded
+entries on one worker pool kept for the process) into
 ``classpro_tpu_torch/_build/``.  The engine has no pure-Python fallback:
 a failed build, or a library without one of these entries, raises.
 """
@@ -140,6 +141,13 @@ def get_lib(force: bool = False):
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib.cp_demote_reconcile.restype = ctypes.c_int
+        lib.cp_demote_reconcile.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int]
         lib.cp_build_btg.restype = None
         lib.cp_build_btg.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -513,6 +521,45 @@ class NativeWall:
         if rc:
             raise _feed_error(rc, err, rows)
         return buf
+
+    def demote_reconcile(self, v: np.ndarray, rescue, b, e, ccb, cce, m,
+                         gH: int, gD: int, threads: int = 0) -> np.ndarray:
+        """The main path's host rel steps after the DP in one threaded C++
+        call (``cp_demote_reconcile``): the (R, max_m) int8 forward-order
+        assignment that ``rel.reconcile_fwbw(rel.demote_host(v, rescue,
+        b, e, ccb, cce, m, gH, gD), ccb, cce, m)``, its plain version,
+        returns, byte for byte, padding columns included, whatever
+        ``threads`` (<= 0: min(cpus, 16); a worker per 256 read pairs, at
+        most that many).  ``v`` is the DP's (2R, max_m) 1-byte assignment
+        matrix with unit column stride (fw rows, then bw rows in scan
+        order; any row stride), ``rescue`` its (2R,) no-H rescue flags,
+        b/e/ccb/cce the (R, max_m) forward-order planes and ``m`` the
+        (R,) live counts.  Raises ValueError for an ``m`` below 0 or
+        above max_m."""
+        R, max_m = np.shape(b)
+        if v.itemsize != 1 or v.ndim != 2 or v.shape != (2 * R, max_m) \
+                or v.strides[1] != 1:
+            raise ValueError("v must be a (2R, max_m) 1-byte matrix with "
+                             "unit column stride")
+        planes = [np.ascontiguousarray(x, np.int32) for x in (b, e, ccb, cce)]
+        if any(x.shape != (R, max_m) for x in planes):
+            raise ValueError("b, e, ccb and cce must be (R, max_m)")
+        m = np.ascontiguousarray(m, np.int32)
+        rescue = np.ascontiguousarray(rescue, np.bool_)
+        if m.shape != (R,) or rescue.shape != (2 * R,):
+            raise ValueError("m must hold R counts and rescue 2R flags")
+        out = np.empty((R, max_m), np.int8)
+        err = np.zeros(1, np.int32)
+        rc = self.lib.cp_demote_reconcile(
+            v.ctypes.data, v.strides[0], rescue.ctypes.data,
+            *[x.ctypes.data for x in planes], m.ctypes.data, R, max_m,
+            int(gH), int(gD), out.ctypes.data, err.ctypes.data,
+            _threads(threads))
+        if rc:
+            j = int(err[0])
+            raise ValueError(f"rel row {j}: m {int(m[j])} is outside "
+                             f"[0, max_m {max_m}]")
+        return out
 
     def finish_batch(self, slab: np.ndarray, slot: int, n_out: np.ndarray,
                      n_rel: np.ndarray, rel_out, max_m: int,
