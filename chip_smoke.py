@@ -93,17 +93,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. stream  - steady stream over medium through
              TorchEngine.classify_stream(sort_window=8) (the depth-3
              pipeline), every chunk checked against the golden: a warm-up
-             (the passes of one sort window, which capture the buckets'
-             graphs), then three runs (turns) of --passes passes.  Per
+             (whole sort windows, which capture the buckets' graphs, and
+             at least the stream's depth + 1 device chunks), then three runs (turns) of --passes passes.  Per
              turn: k-mers/s, the main thread's seconds by stage (host_s,
              enqueue_h2d_dp_d2h, unpack_out, demote_reconcile and
              exact_guard among them), the rel stage's span on the card
              per chunk (CUDA events around each graph replay),
              launches, replays and captures per chunk (two DP launches per
              replay and per capture's eager run, no rel_prep),
-             guard_flagged (must be 0) and max_memory_allocated.  Then
-             the host check: every chunk of one sort window's passes as
-             the stream staged it, its host rel steps (the C++
+             guard_flagged (must be 0) and max_memory_allocated, and the
+             enqueue by part, ms a chunk (_FEED_CLOCK: the C++ pack into
+             the chunk's staging slot, the blobs into the graph's static
+             inputs with the replay, the result's copy back with the
+             event, host pinning, the rest), with every Tensor.pin_memory
+             call and pinned torch.empty counted: a run after the warm-up
+             fails unless both counts are 0.  Then
+             the host check: every chunk of the warm-up's passes as
+             the stream staged it, each chunk's staging slot held against
+             a fresh pack_rel of the chunk bit for bit (fblob as uint64)
+             as the enqueue sends it, its host rel steps (the C++
              NativeWall.demote_reconcile, the stream's own result and
              again at T = 8 and T = 1) held to numpy rel.demote_host +
              rel.reconcile_fwbw byte for byte, each timed per chunk in
@@ -112,9 +120,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              tree's, each tree a process of its own, in turns (parent,
              this, this, parent; TREE_RUNS runs of --passes passes each,
              golden bytes on every chunk): k-mers/s, the host rel steps'
-             median ms a chunk, and the main thread's seconds by stage
+             median ms a chunk, the main thread's seconds by stage
              (wall_stage_cpp, finish_batch_cpp, unpack_out,
-             demote_reconcile, exact_guard, enqueue, waiting).
+             demote_reconcile, exact_guard, enqueue, waiting) and the
+             enqueue by part with the pinning counts (0 and 0 for this
+             tree).  --batch-size sets both streams' device chunk.
 6. alldev  - the all-device path (alldev.classify_batch): on every chunk
              pack of medium at batch 200 the sweep kernel (csrc/unrel.cu)
              against its plain version (unrel_ref) on the card, asgn and
@@ -152,7 +162,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              rescue and gate tails run, the pack tail not, batch graphs
              replayed, main chunk graphs not).
    alldev_stream (in alldev, or alone) - the alldev stream over medium (a
-             warm-up of one sort window, which captures the buckets'
+             warm-up (as in stream), which captures the buckets'
              graphs: its captures, the graphs held and memory_reserved
              before and after; then three turns of --alldev-passes
              passes): k-mers/s, the replay's span on the card per chunk
@@ -160,8 +170,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              replays and captures per chunk (five launches per replay and
              per capture's eager run), the enqueue ms per chunk and where
              the main thread's time goes (host_s: pack_chunk_cpp and
-             expand_cpp, the feed's C++ entries).  Then the feed alone:
-             every chunk of one sort window as the stream fed it, its C++
+             expand_cpp, the feed's C++ entries), the enqueue by part and
+             the pinning counts (as in stream; 0 and 0 after the
+             warm-up).  Then the feed alone:
+             every chunk of the warm-up's passes as the stream fed it (its
+             staging slot held against a fresh pack_chunk bit for bit as
+             the enqueue sends it), its C++
              blobs (NativeWall.pack_chunk, the stream's own and again at
              T = 8 and T = 1) held against numpy pack.pack_chunk bit for
              bit (fblob as uint64), its C++ class lines (expand_rows)
@@ -170,8 +184,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              back).  With --parent DIR, that checkout's all-device stream
              and this tree's, each tree a process of its own, in turns
              (parent, this, this, parent; TREE_RUNS runs of
-             --alldev-passes passes each, golden bytes): k-mers/s and the
-             feed's seconds.
+             --alldev-passes passes each, golden bytes): k-mers/s, the
+             wall stage's and the feed's seconds, the enqueue by part and
+             the pinning counts.
    glue_ab (only when named) - both streams with the two compositions of
              the per-chunk glue taken in turns (plain glue, kernels,
              kernels, plain glue): the plain torch glue around the DP and
@@ -193,7 +208,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              bytes equal to the reference's, and a second plain run:
              k-mers/s, guard_flagged and its rate (equal in every run),
              the main thread's seconds by stage with exact_guard on its
-             own; the warm-up's chunks through the host check (as in
+             own, the enqueue by part and the pinning counts (0 and 0 in
+             every run after the warm-up, both paths); the warm-up's
+             chunks through the host check (as in
              the stream phase: demote_reconcile at T = 8 and T = 1
              against the numpy pair, byte for byte, and timed in
              HOST_REL_TURNS).  (b) The guard alone on the reference
@@ -211,9 +228,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              reads against the port's exact oracle: 0 mismatches.  With
              --parent DIR, that checkout's main and all-device streams and
              this tree's, each tree a process of its own, in turns
-             (parent, this, this, parent): every stream's bytes equal to
-             the reference's, the same guard_flagged, k-mers/s and the
-             guard's seconds.
+             (parent, this, this, parent; TREE_RUNS runs a path after a
+             warm-up): every stream's bytes equal to the reference's, the
+             same guard_flagged, k-mers/s, the guard's seconds, the
+             enqueue by part and the pinning counts.
    bench   - the port's benchmark runner (python -m
              classpro_tpu_torch.devtools.bench) as four child processes:
              medium and the guard dataset (the guard phase's directory
@@ -1779,6 +1797,167 @@ def _clock(obj, name: str, acc: dict):
             else (lambda: delattr(obj, name)))
 
 
+# the depth-3 stream's feed to the card by part, as source: this process
+# runs it (``_feed_fns``) and the tree scripts below start with it, so
+# that both trees are clocked alike.  ``feed_clock(eng, acc, alldev)``
+# wraps, for one engine, the enqueue of every chunk (TorchEngine._submit
+# without its wall stage; acc keys "feed.*", seconds): the C++ pack
+# (``_pack_st`` / ``wall.pack_chunk``), the blobs into the bucket graph's
+# static inputs and its replay (rel.BlobGraph.run), the result's copy back
+# and the event (Tensor.copy_ and cuda.Event.record inside _enqueue,
+# outside that run) and the host pinning inside _enqueue
+# (Tensor.pin_memory, torch.empty(pin_memory=True)); it counts enqueues,
+# and every pin_memory() call and pinned allocation anywhere in the
+# process; returns the undo.  ``feed_parts(acc)`` gives ms per enqueued
+# chunk by part (the slot's take, ``_take``, where the tree has one;
+# "other_in_enqueue": the rest of _enqueue, the device pick, the stream
+# and device contexts, the event's creation; "rest": the rest of the
+# enqueue outside _enqueue, the blob sizes and dims) and the two counts
+# per chunk.
+_FEED_CLOCK = r'''
+import time as _ft
+import torch as _fto
+
+
+def feed_clock(eng, acc, alldev):
+    from classpro_tpu_torch import rel as _rel
+
+    depth = {"enq": 0, "run": 0}
+    undo = []
+
+    def patch(owner, name, wrap):
+        own = name in vars(owner)
+        f = vars(owner)[name] if own else getattr(owner, name)
+        setattr(owner, name, wrap(f))
+        undo.append((lambda: setattr(owner, name, f)) if own
+                    else (lambda: delattr(owner, name)))
+
+    def timed(key, inner=None, when=None, count=None):
+        """wrap(f): f's seconds into acc[key] when ``when(a, kw)`` (always
+        when None), acc[count[0]] += 1 when ``count[1](a, kw)``; ``inner``
+        names the depth counter raised during the call."""
+        def wrap(f):
+            def g(*a, **kw):
+                if count is not None and count[1](a, kw):
+                    acc[count[0]] = acc.get(count[0], 0) + 1
+                if when is not None and not when(a, kw):
+                    return f(*a, **kw)
+                if inner:
+                    depth[inner] += 1
+                t = _ft.perf_counter()
+                try:
+                    return f(*a, **kw)
+                finally:
+                    acc[key] = acc.get(key, 0.0) + _ft.perf_counter() - t
+                    if inner:
+                        depth[inner] -= 1
+            return g
+        return wrap
+
+    every = lambda a, kw: True                             # noqa: E731
+    in_enq = lambda a, kw: depth["enq"] > 0                # noqa: E731
+    pinned = lambda a, kw: bool(kw.get("pin_memory"))      # noqa: E731
+    patch(eng, "_submit", timed("feed.submit"))
+    patch(eng, "_stage", timed("feed.stage"))
+    if alldev:
+        patch(eng.wall, "pack_chunk", timed("feed.pack"))
+    else:
+        patch(eng, "_pack_st", timed("feed.pack"))
+    patch(eng, "_enqueue", timed("feed.enqueue_call", "enq",
+                                 count=("feed.enqueues", every)))
+    if hasattr(eng, "_take"):                    # the staging slot's take
+        patch(eng, "_take", timed("feed.take"))
+    patch(_rel.BlobGraph, "run", timed("feed.h2d_replay", "run",
+                                       when=in_enq))
+    outside_run = (lambda a, kw: depth["enq"] > 0          # noqa: E731
+                   and not depth["run"])
+    patch(_fto.Tensor, "copy_", timed("feed.d2h_event", when=outside_run))
+    patch(_fto.cuda.Event, "record", timed("feed.d2h_event",
+                                           when=outside_run))
+    patch(_fto.Tensor, "pin_memory", timed(
+        "feed.pin", when=in_enq, count=("pin_memory_calls", every)))
+    patch(_fto, "empty", timed(
+        "feed.pin", when=lambda a, kw: in_enq(a, kw) and pinned(a, kw),
+        count=("pinned_allocs", pinned)))
+
+    def undo_all():
+        for u in reversed(undo):
+            u()
+    return undo_all
+
+
+def feed_parts(acc):
+    a = lambda k: acc.get("feed." + k, 0.0)                # noqa: E731
+    n = max(acc.get("feed.enqueues", 0), 1)
+    enq = a("submit") - a("stage") - a("pack")
+    ms = {k: 1e3 * a(k) / n for k in ("pack", "take", "h2d_replay",
+                                      "d2h_event", "pin")}
+    inside = a("h2d_replay") + a("d2h_event") + a("pin")
+    ms["other_in_enqueue"] = 1e3 * (a("enqueue_call") - inside) / n
+    ms["rest"] = 1e3 * (enq - a("take") - a("enqueue_call")) / n
+    ms["enqueue"] = 1e3 * enq / n
+    return {"chunks": acc.get("feed.enqueues", 0), "ms_per_chunk": ms,
+            "pin_memory_calls": acc.get("pin_memory_calls", 0),
+            "pinned_allocs": acc.get("pinned_allocs", 0)}
+'''
+
+
+def _feed_fns():
+    """(feed_clock, feed_parts) of ``_FEED_CLOCK``, in this process."""
+    ns: dict = {}
+    exec(_FEED_CLOCK, ns)
+    return ns["feed_clock"], ns["feed_parts"]
+
+
+def _feed_line(f: dict) -> str:
+    """One line of ``feed_parts``' record."""
+    return (f"enqueue by part, ms a chunk ({f['chunks']} chunks): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in f["ms_per_chunk"].items())
+            + f"; pin_memory() calls {f['pin_memory_calls']}, pinned "
+            f"allocations {f['pinned_allocs']}")
+
+
+def _no_pinning(tag: str, f: dict) -> None:
+    """Fail unless a run after the warm-up pinned and allocated no host
+    memory (``feed_parts``' counts)."""
+    if f["pin_memory_calls"] or f["pinned_allocs"]:
+        fail(f"{tag}: {f['pin_memory_calls']} pin_memory() call(s) and "
+             f"{f['pinned_allocs']} pinned allocation(s) after the "
+             f"warm-up over {f['chunks']} chunks (want 0 and 0)")
+
+
+def _hold_slots(eng, alldev: bool, tag: str, held: list):
+    """Hold each chunk's staging slot, as ``eng._enqueue`` sends it to the
+    card, against a fresh pack of the same chunk (no destination), fblob
+    as uint64 bit patterns; append each slot's buffer address to
+    ``held``.  Returns the undo."""
+    import numpy as np
+
+    f = eng._enqueue
+
+    def enqueue(st, key, run):
+        host, w = st["host"], eng.wall
+        args = (w, st["slab"], st["slot"], st["n_out"], st["n_rel"],
+                st["_plens"])
+        # the C++ entries themselves, past any wrapper on the instance
+        if alldev:
+            fb, ib, _ = type(w).pack_chunk(*args, st["rows"],
+                                           threads=eng.threads)
+        else:
+            fb, ib = type(w).pack_rel(*args, st["_R"], st["_mm"])
+        if host.iblob.shape != ib.shape or host.fblob.shape != fb.shape \
+                or not np.array_equal(host.iblob, ib) \
+                or not np.array_equal(host.fblob.view(np.uint64),
+                                      fb.view(np.uint64)):
+            fail(f"{tag}: chunk {len(held)}'s staging slot differs from a "
+                 f"fresh pack of the chunk")
+        held.append(host.buf.data_ptr())
+        return f(st, key, run)
+
+    eng._enqueue = enqueue
+    return lambda: delattr(eng, "_enqueue")
+
+
 def _launch_events(sink):
     """Record CUDA events on the launch stream just before and just after
     each kernel launch (inside kernels._launch, so they hold the launch
@@ -1913,17 +2092,21 @@ def _medium_stream(alldev: bool, batch_size: int = 200,
         setattr(mod, attr, fn)
         return lambda: setattr(mod, attr, orig)
 
-    # a warm-up covers one sort window of input chunks, so that it meets
-    # every batch (and so every bucket) of the steady passes
+    # a warm-up covers whole sort windows of input chunks, so that it
+    # meets every batch (and so every bucket) of the steady passes, and at
+    # least depth + 1 device chunks, so that the staging pool has held as
+    # many chunks at once as the steady stream will
+    win = max(1, -(-sort_window // len(spans)))
+    fill = -(-(eng.depth + 1) * batch_size // len(seqs))
     return types.SimpleNamespace(
         eng=eng, run=run, install=install, reads=len(seqs),
-        warm_passes=max(1, -(-sort_window // len(spans))),
+        warm_passes=win * -(-max(win, fill) // win),
         kmers_pass=sum(len(c) - c.count("N") for c in gold[:len(seqs)]),
         comps={"plain_glue": plain, "kernels": orig})
 
 
 def _warm(S, comps) -> None:
-    """A warm-up of each of ``comps``: the passes of one sort window."""
+    """A warm-up of each of ``comps``: ``S.warm_passes`` passes."""
     for comp in comps:
         undo = S.install(S.comps[comp])
         try:
@@ -2118,7 +2301,7 @@ def _time_host_rel(tag: str, wall, recs: list) -> dict:
 # golden; the main thread's seconds by stage (the host rel steps as the
 # C++ demote_reconcile, or in a tree before it numpy demote_host and
 # reconcile_fwbw in the engine module); prints one JSON line
-_TREE_MAIN = r"""
+_TREE_MAIN = _FEED_CLOCK + r"""
 import gzip, json, sys, time
 import torch
 from classpro_tpu_torch import engine as engine_mod
@@ -2170,9 +2353,12 @@ def run(n):
     torch.cuda.synchronize()
     return time.perf_counter() - t
 run(max(1, -(-8 // len(spans))))
+feed = {}
+feed_clock(eng, feed, False)
 out = []
 for _ in range(runs):
     acc.clear()
+    feed.clear()
     del calls[:]
     g0 = eng.guard_flagged
     wall = run(passes)
@@ -2184,6 +2370,7 @@ for _ in range(runs):
                 "demote_reconcile_ms_per_chunk": {
                     "median": chunk_ms[len(chunk_ms) // 2],
                     "max": chunk_ms[-1], "chunks": len(chunk_ms)},
+                "feed": feed_parts(feed),
                 "host_s": {
         "wall_stage_cpp": a("_stage"), "pack_rel_cpp": a("_pack_st"),
         "enqueue": a("_submit") - a("_stage") - a("_pack_st"),
@@ -2217,14 +2404,14 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
                  turns=TURNS, parent: str | None = None):
     """Steady stream over medium in the compositions of the main path's
     rel stage (``_medium_stream``) that ``turns`` names, in that order.
-    After a warm-up of each (the passes of one sort window, which capture
-    the buckets' graphs),
+    After a warm-up of each (``_medium_stream``'s warm passes, which
+    capture the buckets' graphs),
     each turn is a run of ``passes`` passes that records every kernel's
     launches and the chunk graphs' replays per chunk, the rel stage's
     span on the card per chunk (CUDA events on the stream around each
     graph replay, outside any capture; for the plain glue around its
     rel_only call) and where the main thread's time goes.  Then the host
-    check (``_time_host_rel``) on every chunk of one sort window's passes,
+    check (``_time_host_rel``) on every chunk of the warm-up's passes,
     and with ``parent`` (a checkout) that tree's main stream and this
     tree's, each a process of its own, in turns (parent, this, this,
     parent; ``_TREE_MAIN``)."""
@@ -2233,6 +2420,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
 
     S = _medium_stream(False, batch_size, sort_window)
     eng = S.eng
+    feed_clock, feed_parts = _feed_fns()
 
     def turn(comp):
         spans: list = []
@@ -2241,6 +2429,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
                 _span_attr(rel.ChunkGraph, "replay", spans),
                 _span_attr(engine_mod, "rel_only", spans)]
         undo += _main_clocks(eng, acc)
+        undo.append(feed_clock(eng, acc, False))
         torch.cuda.reset_peak_memory_stats()
         g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
@@ -2263,7 +2452,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             "rel_only_ms_per_chunk": sum(ms) / chunks,
             "rel_only_busy_share": sum(ms) / 1e3 / wall,
             "enqueue_ms_per_chunk": host["enqueue_h2d_dp_d2h"] * 1e3
-            / chunks,
+            / chunks, "feed": feed_parts(acc),
             "host_s": host, "guard_flagged": eng.guard_flagged - g0,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
@@ -2284,6 +2473,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
         if t["guard_flagged"]:
             fail(f"stream ({t['composition']}): guard_flagged "
                  f"{t['guard_flagged']} on medium")
+        _no_pinning(f"stream ({t['composition']})", t["feed"])
         if t["composition"] == "kernels" and (
                 t["launches_per_chunk"]["rel_prep"]
                 or t["replays_per_chunk"] <= 0
@@ -2300,17 +2490,25 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             f"{t['replays_per_chunk']:.2f} replays and launches "
             f"{json.dumps(t['launches_per_chunk'])} per chunk, enqueue "
             f"{t['enqueue_ms_per_chunk']:.3f} ms/chunk; main thread s: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in t["host_s"].items()))
+            + ", ".join(f"{k} {v:.3f}" for k, v in t["host_s"].items())
+            + "; " + _feed_line(t["feed"]))
     if "kernels" in comps:
         hrecs: list = []
+        held: list = []
         undo = [S.install(S.comps["kernels"]),
-                _record_host_rel(eng.wall, hrecs)]
+                _record_host_rel(eng.wall, hrecs),
+                _hold_slots(eng, False, "stream", held)]
         try:
             S.run(S.warm_passes)
         finally:
             for u in reversed(undo):
                 u()
         res["host_rel"] = _time_host_rel("stream", eng.wall, hrecs)
+        res["slots_held"] = {"chunks": len(held), "slots": len(set(held)),
+                             "pool_allocs": eng.staging.allocs}
+        say(f"stream staging: {len(held)} chunks' slots equal to a fresh "
+            f"pack_rel bit for bit, {len(set(held))} distinct slots, "
+            f"{eng.staging.allocs} allocated by the pool in this engine")
     if parent:
         ab = []
         for tree in (parent, HERE, HERE, parent):
@@ -2325,7 +2523,10 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
                     f"steps {d['median']:.4f} ms a chunk (median; max "
                     f"{d['max']:.4f}); main thread s: "
                     + ", ".join(f"{k} {v:.4f}"
-                                for k, v in x["host_s"].items()))
+                                for k, v in x["host_s"].items())
+                    + "; " + _feed_line(x["feed"]))
+                if r["tree"] == "this":
+                    _no_pinning("stream of this tree", x["feed"])
         if any(x["guard_flagged"] for r in ab for x in r["runs"]):
             fail("stream: a tree flagged reads on medium")
         res["parent_ab"] = ab
@@ -2387,10 +2588,13 @@ def _numpy_feed(eng):
 
     metas: dict = {}
 
-    def pack_chunk(slab, slot, n_out, n_rel, plens, rows, threads=0):
+    def pack_chunk(slab, slot, n_out, n_rel, plens, rows, threads=0,
+                   fblob=None, iblob=None):
         fb, ib, dims, meta = pack.pack_chunk(
             [int(r) for r in rows], _ivs(slab, slot, n_out), plens)
         metas[slab.ctypes.data, rows.tobytes()] = meta
+        if fblob is not None:           # the engine's staging slot
+            fblob[:], iblob[:] = fb, ib
         return fb, ib, dims
 
     def expand_rows(slab, slot, n_out, rows, asgn, out_off, threads=0):
@@ -3056,22 +3260,25 @@ def _alldev_host_s(acc: dict, wall: float, feed: str = "cpp") -> dict:
 FEED_TURNS = ("numpy", "cpp_t8", "cpp_t1", "cpp_t1", "cpp_t8", "numpy")
 
 
-def _feed_chunks(S) -> list:
-    """The all-device stream's chunks over one sort window's passes (so
+def _feed_chunks(S, held: list) -> list:
+    """The all-device stream's chunks over the warm-up's passes (so
     every batch it composes), as its feed saw them: copies of the slab
     rows, n_out, n_rel, plens, rows, the C++ pack, and the device result's
-    assignment columns with the class lines' offsets."""
+    assignment columns with the class lines' offsets; each chunk's
+    staging slot held against a fresh pack (``_hold_slots``, into
+    ``held``)."""
     import numpy as np
 
     wall, recs = S.eng.wall, []
     pack, expand = wall.pack_chunk, wall.expand_rows
 
-    def rec_pack(slab, slot, n_out, n_rel, plens, rows, threads=0):
-        got = pack(slab, slot, n_out, n_rel, plens, rows, threads=threads)
+    def rec_pack(slab, slot, n_out, n_rel, plens, rows, threads=0, **dest):
+        got = pack(slab, slot, n_out, n_rel, plens, rows, threads=threads,
+                   **dest)
         recs.append({"slab": slab[: len(n_out) * slot].copy(), "slot": slot,
                      "n_out": n_out.copy(), "n_rel": n_rel.copy(),
                      "plens": plens.copy(), "rows": rows.copy(),
-                     "pack": got})
+                     "pack": (got[0].copy(), got[1].copy(), got[2])})
         return got
 
     def rec_expand(slab, slot, n_out, rows, asgn, out_off, threads=0):
@@ -3083,9 +3290,11 @@ def _feed_chunks(S) -> list:
                       threads=threads)
 
     wall.pack_chunk, wall.expand_rows = rec_pack, rec_expand
+    undo = _hold_slots(S.eng, True, "alldev stream", held)
     try:
         S.run(S.warm_passes)
     finally:
+        undo()
         del wall.pack_chunk, wall.expand_rows
     return recs
 
@@ -3100,7 +3309,8 @@ def _time_feed(S) -> dict:
     from classpro_tpu_torch.pack import expand_asgn
 
     wall, K = S.eng.wall, S.eng.gm.kmer
-    chunks = _feed_chunks(S)
+    held: list = []
+    chunks = _feed_chunks(S, held)
     if not chunks or any("asgn" not in c for c in chunks):
         fail("alldev feed: a chunk was packed but not expanded")
     for k, c in enumerate(chunks):
@@ -3138,6 +3348,8 @@ def _time_feed(S) -> dict:
 
     rec = {"chunks": len(chunks), "dims": [list(c["pack"][2])
                                            for c in chunks],
+           "slots_held": {"chunks": len(held), "slots": len(set(held)),
+                          "pool_allocs": S.eng.staging.allocs},
            "turns": list(FEED_TURNS), "pack_ms": [], "expand_ms": []}
     for kind in FEED_TURNS:
         for stage, fn in (("pack_ms", pack), ("expand_ms", expand)):
@@ -3163,7 +3375,7 @@ def _time_feed(S) -> dict:
 # tree before them numpy pack_chunk / expand_asgn in the engine module);
 # prints one JSON line
 TREE_RUNS = 3
-_TREE_ALLDEV = r"""
+_TREE_ALLDEV = _FEED_CLOCK + r"""
 import gzip, json, sys, time
 import torch
 from classpro_tpu_torch import engine as engine_mod
@@ -3195,6 +3407,7 @@ clock(engine_mod, "pack_chunk", "pack_s")
 clock(engine_mod, "expand_asgn", "expand_s")
 clock(eng.wall, "pack_chunk", "pack_s")
 clock(eng.wall, "expand_rows", "expand_s")
+clock(eng, "_stage", "stage_s")
 spans = [(lo, min(lo + 200, len(seqs))) for lo in range(0, len(seqs), 200)]
 def run(n):
     chunks = ((seqs[lo:hi], profs[lo:hi])
@@ -3207,14 +3420,19 @@ def run(n):
     torch.cuda.synchronize()
     return time.perf_counter() - t
 run(max(1, -(-8 // len(spans))))
+feed = {}
+feed_clock(eng, feed, True)
 out = []
 for _ in range(runs):
     acc.clear()
+    feed.clear()
     g0 = eng.guard_flagged
     wall = run(passes)
     out.append({"wall_s": wall, "kmers_per_s": passes * kmers / wall,
                 "pack_s": acc.get("pack_s", 0.0),
                 "expand_s": acc.get("expand_s", 0.0),
+                "stage_s": acc.get("stage_s", 0.0),
+                "feed": feed_parts(feed),
                 "guard_flagged": eng.guard_flagged - g0})
 print(json.dumps({"runs": out}))
 """
@@ -3236,11 +3454,11 @@ def _tree_alldev(tree: str, passes: int) -> dict:
 
 
 def phase_alldev_stream(passes: int, turns=TURNS,
-                        parent: str | None = None):
+                        parent: str | None = None, batch_size: int = 200):
     """The alldev stream over medium in the compositions of the device
     stage (``_medium_stream``) that ``turns`` names, in that order.  After
-    a warm-up of each (the passes of one sort window, which capture the
-    buckets' graphs; the graphs held and the memory the card's allocator
+    a warm-up of each (``_medium_stream``'s warm passes, which capture
+    the buckets' graphs; the graphs held and the memory the card's allocator
     reserved before and after it), each turn is a run of ``passes``
     passes that records every kernel's launches, the graphs' replays and
     captures per chunk, the device stage's span on the card per chunk
@@ -3250,8 +3468,9 @@ def phase_alldev_stream(passes: int, turns=TURNS,
     from classpro_tpu_torch import alldev as alldev_mod
     from classpro_tpu_torch import kernels
 
-    S = _medium_stream(True)
+    S = _medium_stream(True, batch_size)
     eng = S.eng
+    feed_clock, feed_parts = _feed_fns()
 
     def turn(comp):
         spans: list = []
@@ -3260,6 +3479,7 @@ def phase_alldev_stream(passes: int, turns=TURNS,
                 _span_attr(alldev_mod.BatchGraph, "replay", spans),
                 _span_attr(alldev_mod, "classify_batch", spans)]
         undo += _alldev_clocks(eng, acc)
+        undo.append(feed_clock(eng, acc, True))
         torch.cuda.reset_peak_memory_stats()
         g0, c0, n0 = eng.guard_flagged, eng.chunks_done, _counts()
         try:
@@ -3287,6 +3507,7 @@ def phase_alldev_stream(passes: int, turns=TURNS,
                 "span_ms_min_max": [min(ms), max(ms)] if ms else None,
                 "device_busy_share": sum(ms) / 1e3 / wall,
                 "enqueue_ms_per_chunk": enqueue * 1e3 / chunks,
+                "feed": feed_parts(acc),
                 "guard_flagged": eng.guard_flagged - g0,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "host_s": host}
@@ -3309,6 +3530,7 @@ def phase_alldev_stream(passes: int, turns=TURNS,
         if r["guard_flagged"]:
             fail(f"alldev stream ({r['composition']}): guard_flagged "
                  f"{r['guard_flagged']} on medium")
+        _no_pinning(f"alldev stream ({r['composition']})", r["feed"])
         n = r["device_chunks"] * r["replays_per_chunk"] + r["captures"]
         per = r["launches_per_chunk"]
         if r["composition"] == "kernels" and (
@@ -3327,8 +3549,10 @@ def phase_alldev_stream(passes: int, turns=TURNS,
             f"{json.dumps(r['launches_per_chunk'])} per chunk, enqueue "
             f"{r['enqueue_ms_per_chunk']:.3f} ms/chunk, "
             f"max_memory_allocated {r['max_memory_allocated']}; main thread "
-            f"s: " + ", ".join(f"{k} {v:.3f}" for k, v in r["host_s"].items()))
-    res = {"passes": passes, "warmup": warm, "runs": runs}
+            f"s: " + ", ".join(f"{k} {v:.3f}" for k, v in r["host_s"].items())
+            + "; " + _feed_line(r["feed"]))
+    res = {"passes": passes, "batch_size": batch_size, "warmup": warm,
+           "runs": runs}
     for comp in comps:
         mine = [r for r in runs if r["composition"] == comp]
         res[comp] = {k: [r[k] for r in mine] for k in (
@@ -3343,17 +3567,25 @@ def phase_alldev_stream(passes: int, turns=TURNS,
                     feed["pack_ms_median"].items())
         + "; expand " + ", ".join(f"{k} {v:.3f}" for k, v in
                                   feed["expand_ms_median"].items()))
+    h = feed["slots_held"]
+    say(f"alldev stream staging: {h['chunks']} chunks' slots equal to a "
+        f"fresh pack_chunk bit for bit, {h['slots']} distinct slots, "
+        f"{h['pool_allocs']} allocated by the pool in this engine")
     if parent:
         ab = []
         for tree in (parent, HERE, HERE, parent):
             r = _tree_alldev(tree, passes)
             r["tree"] = "parent" if tree == parent else "this"
             ab.append(r)
-            say(f"alldev stream of the {r['tree']} tree ({passes} passes of "
-                f"medium, a process of its own): "
-                + "; ".join(f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, feed "
-                            f"pack {x['pack_s']:.4f} s, expand "
-                            f"{x['expand_s']:.4f} s" for x in r["runs"]))
+            for x in r["runs"]:
+                say(f"alldev stream of the {r['tree']} tree ({passes} "
+                    f"passes of medium, a process of its own): "
+                    f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, wall stage "
+                    f"{x['stage_s']:.4f} s, feed pack {x['pack_s']:.4f} s, "
+                    f"expand {x['expand_s']:.4f} s; "
+                    + _feed_line(x["feed"]))
+                if r["tree"] == "this":
+                    _no_pinning("alldev stream of this tree", x["feed"])
         if any(x["guard_flagged"] for r in ab for x in r["runs"]):
             fail("alldev stream: a tree flagged reads on medium")
         res["parent_ab"] = ab
@@ -3433,14 +3665,14 @@ def _guard_data(gbp: float, d: str):
 # one timed run, the guard's seconds (the all-device guard is
 # _exact_alldev, or _exact_full per read in a tree before the batch);
 # prints one JSON line
-_TREE_STREAM = r"""
+_TREE_STREAM = _FEED_CLOCK + r"""
 import hashlib, json, sys, time
 import torch
 from classpro_tpu_torch.engine import TorchEngine
 from classpro_tpu_torch.estimation import build_global_model
 from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
 from classpro_tpu_torch.io.fastx import read_fastx
-root = sys.argv[1]
+root, runs = sys.argv[1], int(sys.argv[2])
 gm = build_global_model(load_histogram(root))
 P = open_profiles(root)
 seqs = [r.seq for r in read_fastx(root + ".fasta")]
@@ -3469,12 +3701,21 @@ def stream(alldev):
         torch.cuda.synchronize()
         return time.perf_counter() - t, out
     run()
-    acc[0], g0 = 0.0, eng.guard_flagged
-    wall, out = run()
-    return {"wall_s": wall, "kmers_per_s": kmers / wall,
-            "exact_guard_s": acc[0],
-            "guard_flagged": eng.guard_flagged - g0,
-            "sha256": hashlib.sha256("\n".join(out).encode()).hexdigest()}
+    feed = {}
+    feed_clock(eng, feed, alldev)
+    recs = []
+    for _ in range(runs):
+        acc[0], g0 = 0.0, eng.guard_flagged
+        feed.clear()
+        wall, out = run()
+        recs.append({"wall_s": wall, "kmers_per_s": kmers / wall,
+                     "exact_guard_s": acc[0],
+                     "guard_flagged": eng.guard_flagged - g0,
+                     "feed": feed_parts(feed)})
+        sha = hashlib.sha256("\n".join(out).encode()).hexdigest()
+        if recs[0].setdefault("sha256", sha) != sha:
+            sys.exit("two runs wrote different bytes")
+    return {"runs": recs, "sha256": recs[0]["sha256"]}
 rec = stream(False)
 rec["alldev"] = stream(True)
 print(json.dumps(rec))
@@ -3484,7 +3725,8 @@ print(json.dumps(rec))
 def _tree_stream(tree: str, root: str) -> dict:
     """``_TREE_STREAM`` in checkout ``tree`` over the dataset ``root``."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    r = subprocess.run([sys.executable, "-c", _TREE_STREAM, root],
+    r = subprocess.run([sys.executable, "-c", _TREE_STREAM, root,
+                        str(TREE_RUNS)],
                        cwd=tree, env=env, capture_output=True, text=True,
                        timeout=900)
     recs = [json.loads(x) for x in r.stdout.splitlines()
@@ -3593,11 +3835,14 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
         flagged_reads.extend(st["seqs"][st["g"][live[j]]]
                              for j in rows if j < len(live))
 
+    feed_clock, feed_parts = _feed_fns()
+
     def run(guard, check=None):
         acc: dict = {}
         undo = [lambda: setattr(cls, "_exact_guard", orig)]
         setattr(cls, "_exact_guard", guard)
         undo += _main_clocks(eng, acc)
+        undo.append(feed_clock(eng, acc, False))
         g0 = eng.guard_flagged
         out = []
         t = time.perf_counter()
@@ -3617,7 +3862,8 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
                      "guard_flagged": eng.guard_flagged - g0,
                      "flag_rate": (eng.guard_flagged - g0)
                      / meta["n_reads"],
-                     "host_s": _main_host_s(acc, wall)}
+                     "host_s": _main_host_s(acc, wall),
+                     "feed": feed_parts(acc)}
 
     orig = cls._exact_guard
     hrecs: list = []
@@ -3645,7 +3891,9 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
             f"{r['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
             f"{r['guard_flagged']} ({100 * r['flag_rate']:.2f}% of "
             f"{meta['n_reads']} reads); main thread s: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["host_s"].items())
+            + "; " + _feed_line(r["feed"]))
+        _no_pinning("guard main stream", r["feed"])
 
     # the host rel steps alone, on every chunk as the stream staged it
     rec["host_rel"] = _time_host_rel("guard", eng.wall, hrecs)
@@ -3675,6 +3923,7 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
         g0 = aeng.guard_flagged
         undo = [_numpy_feed(aeng)] if feed == "numpy" else []
         undo += _alldev_clocks(aeng, acc)
+        undo.append(feed_clock(aeng, acc, True))
         t = time.perf_counter()
         try:
             aout = list(aeng.classify_stream(chunks(), sort_window=8))
@@ -3689,6 +3938,7 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
         return {"feed": feed, "wall_s": wall, "kmers_per_s": kmers / wall,
                 "guard_flagged": aeng.guard_flagged - g0,
                 "host_s": _alldev_host_s(acc, wall, feed),
+                "feed_parts": feed_parts(acc),
                 "bytes_equal_to_main": True}
 
     aruns = [arun(f) for f in ("cpp", "numpy", "numpy", "cpp")]
@@ -3701,7 +3951,9 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
             f"{a['kmers_per_s'] / 1e6:.2f} M k-mers/s, guard_flagged "
             f"{a['guard_flagged']}; bytes equal to the main path's; main "
             f"thread s: " + ", ".join(f"{k} {v:.4f}"
-                                      for k, v in a["host_s"].items()))
+                                      for k, v in a["host_s"].items())
+            + "; " + _feed_line(a["feed_parts"]))
+        _no_pinning("guard alldev stream", a["feed_parts"])
 
     # (d) spot parity
     flat = [c for res in ref for c in res]
@@ -3732,14 +3984,19 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
             r["tree"] = "parent" if tree == parent else "this"
             ab.append(r)
             for path, x in (("main", r), ("alldev", r["alldev"])):
-                say(f"guard {path} stream of {r['tree']} tree: "
-                    f"{x['kmers_per_s'] / 1e6:.2f} M k-mers/s, "
-                    f"exact_guard {x['exact_guard_s']:.4f} s, "
-                    f"guard_flagged {x['guard_flagged']}")
+                for y in x["runs"]:
+                    say(f"guard {path} stream of {r['tree']} tree: "
+                        f"{y['kmers_per_s'] / 1e6:.2f} M k-mers/s, "
+                        f"exact_guard {y['exact_guard_s']:.4f} s, "
+                        f"guard_flagged {y['guard_flagged']}; "
+                        + _feed_line(y["feed"]))
+                    if r["tree"] == "this":
+                        _no_pinning(f"guard {path} stream of this tree",
+                                    y["feed"])
         shas = {x["sha256"] for r in ab for x in (r, r["alldev"])}
-        if shas != {rec["main"]["sha256"]} \
-                or len({r["guard_flagged"] for r in ab}) != 1 \
-                or len({r["alldev"]["guard_flagged"] for r in ab}) != 1:
+        if shas != {rec["main"]["sha256"]} or len(
+                {y["guard_flagged"] for r in ab
+                 for x in (r, r["alldev"]) for y in x["runs"]}) != 1:
             fail(f"guard: the parent's and this tree's streams differ: "
                  f"{json.dumps(ab)}")
         rec["parent_ab"] = ab
@@ -4613,7 +4870,7 @@ def main(argv=None) -> int:
     ap.add_argument("--alldev-passes", type=int, default=10,
                     help="alldev-stream passes over medium (per turn)")
     ap.add_argument("--batch-size", type=int, default=200,
-                    help="steady stream: reads per device chunk")
+                    help="stream and alldev_stream: reads per device chunk")
     ap.add_argument("--sort-window", type=int, default=8,
                     help="steady stream: classify_stream's sort_window")
     ap.add_argument("--parent", metavar="DIR",
@@ -4671,7 +4928,8 @@ def main(argv=None) -> int:
         arec = phase_alldev(parent)
         alaunch = phase_alldev_e2e()
     if phases & {"alldev", "alldev_stream"}:
-        asrec = phase_alldev_stream(args.alldev_passes, parent=args.parent)
+        asrec = phase_alldev_stream(args.alldev_passes, parent=args.parent,
+                                    batch_size=args.batch_size)
     if "profiled" in phases:                 # the child of _profiled_process
         say(json.dumps({"profiled": phase_profiled()}))
     abrec = None

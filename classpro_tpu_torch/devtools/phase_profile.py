@@ -54,7 +54,7 @@ def profile(gm, seqs, profs, batch: int = 200, passes: int = 5,
     import torch
 
     from classpro_tpu_torch.engine import TorchEngine
-    from classpro_tpu_torch.rel import rel_only, unpack_out
+    from classpro_tpu_torch.rel import blob_sizes, rel_only, unpack_out
 
     eng = TorchEngine(gm, batch_size=batch, device=device)
     stream = eng._on[eng.device][2]
@@ -79,16 +79,17 @@ def profile(gm, seqs, profs, batch: int = 200, passes: int = 5,
             t = time.perf_counter()
             st = eng._stage(sq, pf)
             t = tick("wall_stage(C++)", t)
-            if "_plens" not in st:
+            if "_R" not in st:
                 continue
             R, mm = st["_R"], st["_mm"]
-            fb, ib = eng._pack_st(st, R, mm)
+            eng._pack_st(st, R, mm, eng._take(st, *blob_sizes(R, mm),
+                                              (2 * R, mm + 5)))
             t = tick("pack_rel(C++)", t)
             if stream is not None:
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record(stream)
-            eng._enqueue(st, fb, ib, "out", lambda f, i, P, PP:
+            eng._enqueue(st, "out", lambda f, i, P, PP:
                          rel_only(f, i, P, R, mm))
             if stream is not None:
                 e1.record(stream)
@@ -104,6 +105,7 @@ def profile(gm, seqs, profs, batch: int = 200, passes: int = 5,
                 st["rel_cce"], st["rel_m"], int(gm.cov[2]), int(gm.cov[3]),
                 threads=eng.threads)
             eng._exact_guard(st, rel_out)
+            eng._release(st)
             t = tick("demote+reconcile+guard", t)
             g = st["g"]
             out_off = np.zeros(len(g) + 1, np.int64)

@@ -28,13 +28,17 @@ whole, exactly, by the C++ host plane (one batched exact rel call and one
 relaxation call per chunk, over the -T workers).
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
-in which chunk k+1's host stages overlap chunk k's device work.  On a
-card each chunk's blobs go from pinned host memory straight into the
-bucket graph's static inputs on the engine's CUDA stream (either path),
-the graph replays on that stream, the packed result comes back from its
-static output into a pinned buffer, and an event recorded after the copy is
-what ``_finish`` waits on; the one stream orders each chunk's use of
-the static buffers before the next chunk's.  ``classify_chunk`` is the
+in which chunk k+1's host stages overlap chunk k's device work.  Each
+chunk takes a slot of the engine's kept host staging
+(``staging.StagingPool``; pinned on a card) and the C++ packer writes its
+blobs straight into it; on a card they go from there into the bucket
+graph's static inputs on the engine's CUDA stream (either path), the
+graph replays on that stream, the packed result comes back from its
+static output into the same slot, and an event recorded after the copy is
+what ``_finish`` waits on before it reads the slot and releases it; the
+one stream orders each chunk's use of the static buffers before the next
+chunk's.  No chunk pins or allocates host memory once the pool has met
+the stream's largest chunk.  ``classify_chunk`` is the
 synchronous single-chunk form.  Interval arrays are padded to bucketed
 shapes (``_bucket``, ``_bucket_m``).  ``TorchEngine(devices=[...])``
 deals whole chunks round robin over several devices, each with its own
@@ -62,6 +66,7 @@ from classpro_tpu_torch.native import NativeWall, chunk_dims
 from classpro_tpu_torch.pack import _bucket
 from classpro_tpu_torch.params import build_replicas
 from classpro_tpu_torch.rel import DIPLO, HAPLO, rel_only, unpack_out
+from classpro_tpu_torch.staging import StagingPool
 
 # the buckets ``TorchEngine.warmup`` readies by default: (R, max_m) on the
 # main path, (Bn, max_n, R2, max_m) on the all-device path (medium's
@@ -215,6 +220,15 @@ class TorchEngine:
         self._graphs = rel_mod.RelGraphs()
         self._batch_graphs = alldev_mod.BatchGraphs()
         self._rr = 0
+        # chunks in flight: depth 3 covers one device (host k+1 ||
+        # device k || finish k-1); with N round-robin devices ~2 chunks
+        # stay in flight per device, as in the JAX engine
+        self.depth = (max(3, 2 * len(self.devices) + 1) if self.devices
+                      else 3)
+        # each chunk's blobs and result, kept across chunks (pinned when
+        # a device is a card)
+        self.staging = StagingPool(
+            any(d.type == "cuda" for d in self._on), self.depth + 1)
         # the (R, max_m) buckets the device ran, in first-use order
         self.shapes: dict = {}
         # exactness-guard telemetry: reads recomputed by the exact
@@ -298,15 +312,11 @@ class TorchEngine:
         if sort_window > 1:
             yield from self._sorted_stream(chunks, prefetch, sort_window)
             return
-        # depth 3 covers one device (host k+1 || device k || finish
-        # k-1); with N round-robin devices ~2 chunks stay in flight per
-        # device, as in the JAX engine
-        depth = max(3, 2 * len(self.devices) + 1) if self.devices else 3
         pending: collections.deque = collections.deque()
         with _prefetched(chunks, prefetch) as src:
             for seqs, profiles in src:
                 pending.append(self._submit(seqs, profiles))
-                if len(pending) >= depth:
+                if len(pending) >= self.depth:
                     yield self._finish(pending.popleft())
         while pending:
             yield self._finish(pending.popleft())
@@ -361,7 +371,8 @@ class TorchEngine:
 
     # ------------------------------------------------------------------
     def _stage(self, seqs, profiles):
-        """Wall stage (C++) for one chunk, with the natural (R, max_m)
+        """Wall stage (C++) for one chunk, with each staged read's profile
+        length (``_plens``, by slab read) and the natural (R, max_m)
         bucket of its reliable intervals (no device work yet)."""
         todo = [i for i in range(len(seqs)) if len(profiles[i]) > 0]
         st = {"seqs": seqs, "profiles": profiles, "todo": todo}
@@ -372,20 +383,21 @@ class TorchEngine:
             [seqs[i].encode("ascii") for i in g],
             [profiles[i] for i in g], threads=self.threads)
         st.update(g=g, slab=slab, n_out=n_out, n_rel=n_rel, slot=slot,
-                  max_m=0)
+                  max_m=0,
+                  _plens=np.array([len(profiles[i]) for i in g], np.int64))
         sel_n = int((n_rel > 0).sum())
         if sel_n:
-            st["_plens"] = np.array([len(profiles[i]) for i in g],
-                                    np.int64)
             st["_R"] = _bucket(sel_n)
             st["_mm"] = _bucket_m(int(n_rel.max()))
         return st
 
-    def _pack_st(self, st, R: int, max_m: int):
-        """C++ rel pack for a staged chunk at the given bucket; records
-        the views the host-side fw/bw reconciliation needs."""
-        fb, ib = self.wall.pack_rel(st["slab"], st["slot"], st["n_out"],
-                                    st["n_rel"], st["_plens"], R, max_m)
+    def _pack_st(self, st, R: int, max_m: int, host=None):
+        """C++ rel pack for a staged chunk at the given bucket, into fresh
+        blobs or into the staging slot ``host``; records the views the
+        host-side fw/bw reconciliation needs."""
+        fb, ib = self.wall.pack_rel(
+            st["slab"], st["slot"], st["n_out"], st["n_rel"], st["_plens"],
+            R, max_m, *((host.fblob, host.iblob) if host else ()))
         st["max_m"] = max_m
         sz = R * max_m
         st["rel_b"] = ib[0:sz].reshape(R, max_m)
@@ -399,25 +411,41 @@ class TorchEngine:
         """The rel blobs one chunk sends to the device: (fblob, iblob, R,
         max_m), or None when no read has a reliable interval."""
         st = self._stage(seqs, profiles)
-        if "_plens" not in st:
+        if "_R" not in st:
             return None
         fb, ib = self._pack_st(st, st["_R"], st["_mm"])
         return fb, ib, st["_R"], st["_mm"]
 
     def _submit(self, seqs, profiles):
-        """Wall stage + rel pack (both C++) + the chunk's device work,
-        enqueued without waiting for it."""
+        """Wall stage + rel pack (both C++, the pack into the chunk's
+        staging slot) + the chunk's device work, enqueued without waiting
+        for it."""
         st = self._stage(seqs, profiles)
         self.chunks_done += 1
         if self.PP is not None:
             return self._submit_alldev(st)
-        if "_plens" not in st:
+        if "_R" not in st:
             return st
-        shape = (st["_R"], st["_mm"])
-        fb, ib = self._pack_st(st, *shape)
+        R, max_m = shape = (st["_R"], st["_mm"])
+        self._pack_st(st, *shape, self._take(
+            st, *rel_mod.blob_sizes(*shape), (2 * R, max_m + 5)))
         self._ran(*shape)
-        return self._enqueue(st, fb, ib, "out", lambda f, i, P, PP:
+        return self._enqueue(st, "out", lambda f, i, P, PP:
                              self._device_stage(f, i, P, PP, shape))
+
+    def _take(self, st, n_f: int, n_i: int, out_shape):
+        """The chunk's staging slot (``st["host"]``): blobs of ``n_f``
+        float64 and ``n_i`` int32 elements, a uint8 result of
+        ``out_shape``; ``_finish`` releases it."""
+        host = st["host"] = self.staging.take(n_f, n_i, out_shape)
+        return host
+
+    def _release(self, st) -> None:
+        """Return the chunk's staging slot to the pool (``_finish``, after
+        the device event and the last read of the slot's views)."""
+        host = st.pop("host", None)
+        if host is not None:
+            self.staging.release(host)
 
     def _device_stage(self, fblob, iblob, P, PP, shape) -> torch.Tensor:
         """One chunk's device stage, the packed uint8 result: on a card
@@ -466,49 +494,55 @@ class TorchEngine:
 
     def _submit_alldev(self, st):
         """Pack the staged chunk's reads that have intervals (one C++
-        call on the -T workers) and enqueue the device stage on them (the
-        JAX package's _dispatch)."""
+        call on the -T workers, into the chunk's staging slot) and enqueue
+        the device stage on them (the JAX package's _dispatch)."""
         rows = self._alldev_rows(st)
         if rows is None:
             return st
-        plens = np.array([len(st["profiles"][i]) for i in st["g"]],
-                         np.int64)
-        fb, ib, dims = self.wall.pack_chunk(
-            st["slab"], st["slot"], st["n_out"], st["n_rel"], plens, rows,
-            threads=self.threads)
+        dims = chunk_dims(st["n_out"], st["n_rel"], rows)
+        host = self._take(st, *alldev_mod.blob_sizes(*dims),
+                          (dims[0], dims[1] + 1))
+        self.wall.pack_chunk(
+            st["slab"], st["slot"], st["n_out"], st["n_rel"], st["_plens"],
+            rows, threads=self.threads, fblob=host.fblob, iblob=host.iblob)
         st["rows"] = rows
         self._ran(dims[2] // 2, dims[3])
-        return self._enqueue(st, fb, ib, "un", lambda f, i, P, PP:
+        return self._enqueue(st, "un", lambda f, i, P, PP:
                              self._device_stage(f, i, P, PP, dims))
 
-    def _enqueue(self, st, fb, ib, key: str, run):
+    def _enqueue(self, st, key: str, run):
         """Deal the chunk to the next device and run ``run(fblob, iblob,
         P, PP)`` (-> uint8 tensor) there with that device's tables, the
-        blobs given as host tensors; the result lands in ``st[key]``.  On
-        a card the blobs are pinned and ``run`` copies them up on the
-        device's own stream, the result comes back into a pinned buffer,
-        and the event recorded after that copy (``st["done"]``) is what
-        _finish waits on."""
+        blobs the torch views of the chunk's staging slot ``st["host"]``;
+        the result lands in the slot's ``out`` view, which is
+        ``st[key]``.  The engine owns the slot: on a card it is pinned,
+        ``run`` copies the blobs from it on the device's own stream, the
+        result comes back into it on that stream, and the event recorded
+        after that copy (``st["done"]``) is what _finish waits on before
+        it reads the slot and releases it.  Nothing here pins or
+        allocates host memory."""
+        host = st["host"]
         dev = st["dev"] = self._next_device()
         P, PP, stream = self._on[dev]
         if stream is None:
-            st[key] = run(torch.from_numpy(fb), torch.from_numpy(ib), P, PP)
+            res = run(host.fblob_t, host.iblob_t, P, PP)
+            _check_out(res, host.out)
+            st[key] = host.out.copy_(res)
             return st
-        fb_h = torch.from_numpy(fb).pin_memory()
-        ib_h = torch.from_numpy(ib).pin_memory()
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            res = run(fb_h, ib_h, P, PP)
-            host = torch.empty(res.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(res, non_blocking=True)
+            res = run(host.fblob_t, host.iblob_t, P, PP)
+            _check_out(res, host.out)
+            host.out.copy_(res, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-        st.update({key: host, "done": done})
+        st.update({key: host.out, "done": done})
         return st
 
     def _finish_alldev(self, st) -> list[str]:
-        """Class strings of an all-device chunk, in g order: expand the
-        interval assignments (one C++ call on the -T workers), re-decide
+        """Class strings of an all-device chunk, in g order: wait for the
+        device event, expand the interval assignments from the staging
+        slot's result (one C++ call on the -T workers), read the guard
+        flags from it, release the slot (its last read), then re-decide
         the flagged reads exactly."""
         g = st["g"]
         res_g = [""] * len(g)
@@ -526,6 +560,7 @@ class TorchEngine:
             for k, r in enumerate(rows):
                 res_g[r] = str(mv[out_off[k]: out_off[k + 1]], "ascii")
             rs = rows[buf[:len(rows), -1] != 0]
+            self._release(st)
             if rs.size:
                 self.guard_flagged += int(rs.size)
                 for r, c in zip(rs, self._exact_alldev(st, rs)):
@@ -547,9 +582,8 @@ class TorchEngine:
         live = rs[n_rel > 0]              # rel row j = the j-th such read
         if live.size:
             rel_out = np.zeros((live.size, int(n_rel.max())), np.int8)
-            plens = [len(st["profiles"][st["g"][r]]) for r in live]
             self.wall.exact_rel_batch(st["slab"], slot, st["n_out"], live,
-                                      plens, rel_out,
+                                      st["_plens"][live], rel_out,
                                       np.arange(live.size),
                                       threads=self.threads)
         out_off = np.zeros(len(rs) + 1, np.int64)
@@ -595,8 +629,9 @@ class TorchEngine:
     def _finish(self, st) -> list[str]:
         """Wait for the chunk's device result, run the host rel steps (one
         C++ call for the demotions and the reconciliation, one for the
-        guard), then ONE C++ call: scatter rel assignments, relaxation
-        sweeps, class expansion."""
+        guard), release the chunk's staging slot (the rel planes and the
+        result read by those two calls are its views), then ONE C++ call:
+        scatter rel assignments, relaxation sweeps, class expansion."""
         seqs = st["seqs"]
         res = [""] * len(seqs)
         if "g" in st and self.PP is not None:
@@ -621,6 +656,7 @@ class TorchEngine:
                     st["rel_cce"], st["rel_m"], int(self.gm.cov[HAPLO]),
                     int(self.gm.cov[DIPLO]), threads=self.threads)
                 self._exact_guard(st, rel_out)
+                self._release(st)
             out_off = np.zeros(len(g) + 1, np.int64)
             out_off[1:] = np.cumsum([len(seqs[i]) for i in g])
             buf = self.wall.finish_batch(slab, slot, n_out, n_rel,
@@ -634,6 +670,15 @@ class TorchEngine:
             if not res[i]:
                 res[i] = "N" * len(seqs[i])
         return res
+
+
+def _check_out(res: torch.Tensor, out: torch.Tensor) -> None:
+    """Raise unless the device stage's result fits the slot's result view
+    exactly (``copy_`` would broadcast)."""
+    if res.dtype != out.dtype or res.shape != out.shape:
+        raise ValueError(f"device stage result {res.dtype} "
+                         f"{tuple(res.shape)}, the slot holds {out.dtype} "
+                         f"{tuple(out.shape)}")
 
 
 def _warmup_shape(eng: TorchEngine, fastx_path: str, P, batch_size: int):

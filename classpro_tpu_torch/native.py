@@ -218,6 +218,22 @@ def _feed_args(slab, slot: int, n_out, rows):
     return n_out, rows
 
 
+def _blob(dest, dtype, n: int, name: str) -> np.ndarray:
+    """A packer's blob of ``n`` ``dtype`` elements: fresh (``dest`` None)
+    or the first n of ``dest``, which must be a writeable C-contiguous
+    numpy array of that dtype with at least n elements (else
+    ValueError)."""
+    if dest is None:
+        return np.empty(n, dtype)
+    if not isinstance(dest, np.ndarray) or dest.dtype != dtype \
+            or not dest.flags.c_contiguous or not dest.flags.writeable \
+            or dest.size < n:
+        raise ValueError(f"{name}: want a writeable C-contiguous "
+                         f"{np.dtype(dtype).name} array of at least {n} "
+                         f"elements")
+    return dest.reshape(-1)[:n]
+
+
 def build_btg(erates, n_cap: int, logfact: np.ndarray) -> np.ndarray:
     """The (len(erates), n_cap, n_cap) binomial-tail table of
     ``tables.build_tables`` in one C++ call (``cp_build_btg``): entry
@@ -380,11 +396,14 @@ class NativeWall:
 
     def pack_rel(self, slab: np.ndarray, slot: int, n_out: np.ndarray,
                  n_rel: np.ndarray, plens: np.ndarray, R: int,
-                 max_m: int) -> tuple[np.ndarray, np.ndarray]:
+                 max_m: int, fblob=None,
+                 iblob=None) -> tuple[np.ndarray, np.ndarray]:
         """Fill the rel-only transfer blobs from a wall slab (layout:
-        rel_only_dev docstring) in one native call."""
-        iblob = np.empty(4 * R * max_m + 2 * R, np.int32)
-        fblob = np.empty(R * max_m, np.float64)
+        rel_only_dev docstring) in one native call: fresh arrays, or the
+        given destinations (``_blob``; the entry writes every element, so
+        what they held does not matter)."""
+        fblob = _blob(fblob, np.float64, R * max_m, "fblob")
+        iblob = _blob(iblob, np.int32, 4 * R * max_m + 2 * R, "iblob")
         self.lib.cp_pack_rel(
             len(n_out), slab.ctypes.data_as(ctypes.c_void_p), slot,
             n_out.ctypes.data, n_rel.ctypes.data,
@@ -459,12 +478,14 @@ class NativeWall:
                                            f"row {k}): ")
 
     def pack_chunk(self, slab: np.ndarray, slot: int, n_out, n_rel, plens,
-                   rows, threads: int = 0):
+                   rows, threads: int = 0, fblob=None, iblob=None):
         """The all-device transfer blobs of the slab reads ``rows`` (in
         the order they are packed; the engine packs those with records)
         in one threaded C++ call (``cp_pack_chunk``); ``plens`` is indexed
         by slab read.  The layout, bytes and dims of ``pack.pack_chunk``, its
-        plain version, whatever ``threads`` (<= 0: min(cpus, 16)).
+        plain version, whatever ``threads`` (<= 0: min(cpus, 16)), into
+        fresh arrays or the given destinations (``_blob``; every element
+        is written, padding included).
         Returns (fblob, iblob, (Bn, max_n, R2, max_m)); raises ValueError
         for a negative count where a log-factorial is read and for an
         ``n_rel`` that differs from the read's is_rel records."""
@@ -476,8 +497,8 @@ class NativeWall:
         dims = chunk_dims(n_out, n_rel, rows)
         Bn, max_n, R, max_m = dims[0], dims[1], dims[2] // 2, dims[3]
         n_f, n_i = blob_sizes(*dims)
-        fblob = np.empty(n_f, np.float64)
-        iblob = np.empty(n_i, np.int32)
+        fblob = _blob(fblob, np.float64, n_f, "fblob")
+        iblob = _blob(iblob, np.int32, n_i, "iblob")
         err = np.zeros(1, np.int32)
         rc = self.lib.cp_pack_chunk(
             slab.ctypes.data_as(ctypes.c_void_p), slot, n_out.ctypes.data,

@@ -451,9 +451,13 @@ def _numpy_feed(eng, monkeypatch):
     before the C++ entries), with the C++ entries' signatures."""
     from classpro_tpu_torch import pack
 
-    def pack_chunk(slab, slot, n_out, n_rel, plens, rows, threads=0):
+    def pack_chunk(slab, slot, n_out, n_rel, plens, rows, threads=0,
+                   fblob=None, iblob=None):
         fb, ib, dims, _ = pack.pack_chunk([int(r) for r in rows],
                                           _ivs(slab, slot, n_out), plens)
+        if fblob is not None:       # the engine's staging slot
+            fblob[:] = fb
+            iblob[:] = ib
         return fb, ib, dims
 
     def expand_rows(slab, slot, n_out, rows, asgn, out_off, threads=0):
