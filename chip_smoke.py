@@ -118,7 +118,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              HOST_REL_TURNS (numpy, C++ at T = 8, C++ at T = 1, numpy).
              With --parent DIR, that checkout's main stream and this
              tree's, each tree a process of its own, in turns (parent,
-             this, this, parent; TREE_RUNS runs of --passes passes each,
+             this, this, parent, twice; TREE_RUNS runs of --passes
+             passes each,
              golden bytes on every chunk): k-mers/s, the host rel steps'
              median ms a chunk, the main thread's seconds by stage
              (wall_stage_cpp, finish_batch_cpp, unpack_out,
@@ -183,7 +184,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              per chunk in FEED_TURNS (numpy, C++ at T = 8 and T = 1, and
              back).  With --parent DIR, that checkout's all-device stream
              and this tree's, each tree a process of its own, in turns
-             (parent, this, this, parent; TREE_RUNS runs of
+             (parent, this, this, parent, twice; TREE_RUNS runs of
              --alldev-passes passes each, golden bytes): k-mers/s, the
              wall stage's and the feed's seconds, the enqueue by part and
              the pinning counts.
@@ -247,7 +248,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              when the guard phase ran, the guard dataset's must also be
              that phase's reference stream's, and its reads flagged per
              pass that phase's count on the same path.  Prints each run's
-             medians, its windows' spread and the phase's seconds.
+             medians, its windows' spread and the phase's seconds.  With
+             --parent DIR, every run in turns with that checkout's
+             runner (parent, this, this, parent), held to the same bytes
+             and flags, and both trees' steady and end-to-end medians.
+   input   - the input plane, on medium (gzip) and the guard dataset
+             (plain FASTA, two profile parts): every chunk of the C++
+             reader (engine.fastx_chunks) through the wall stage with
+             each read's profile decoded in its worker
+             (NativeWall.wall_stage_fastk) held against the old feed
+             (the chunk's sequences, ProfileIndex.fetch_batch,
+             wall_stage_slab), n_out, n_rel and every record bit for
+             bit; then the input part by part, ms a pass, in a process
+             of its own (devtools/input_parts.py: file read, inflate,
+             newline count, parse,
+             record objects, length check, the Python around the reader
+             call, the profile ranges, decode), alone and on the
+             prefetch thread while the main stream runs (a pass's ms
+             and k-mers/s), and the main thread's parts alone (the
+             per-read encode, the sort window's list work, the wall
+             stage with the decode in it beside it on decoded profiles,
+             the output's records and write); which inflate the host
+             library was built with; the reader's capacity; then
+             `classify` on the card as a child process: its wall and
+             the classify process's own peak RSS (sampled every
+             millisecond inside it),
+             medium's bytes golden, the runs' bytes equal.  With --parent DIR, that checkout's input
+             (its whole-file reader, step by step as its fastx_chunks
+             runs it) and classify in turns with this tree's (parent,
+             this, this, parent).
 7. shard   - the parallel layer (K8) and the rest of classify's surface:
              (a) psum_histogram in a NCCL world of one rank equals its
              input (medium's partial instance histogram), the all-reduce
@@ -322,7 +351,9 @@ cold set-up's seconds by stage, the numpy and C++ tail tables' seconds),
 {"stream": {...}},
 {"alldev_stream": {...}}, {"glue_ab": {...}} (when named), {"guard":
 {...}} (the guard phase's runs, turns and spot parity), {"bench": [...],
-"card": ..., "seconds": ...} (the runner's four records), {"shard":
+"card": ..., "seconds": ...} (the runner's four records), {"input":
+{...}} (each dataset's slab check, input by part per tree, classify's
+wall and RSS), {"shard":
 {...}} and {"serve": {...}} lines (ready_s, each job's wall_s and
 k-mers/s, table_uploads, launches and graph replays, the trace's busy
 share), {"tools": {...}} and {"soak": {...}} lines, the card's name and
@@ -2175,6 +2206,17 @@ def _spanned(fn, sink: list):
 # per-chunk glue in turns, the plain torch glue around the DP (and sweep)
 # kernels, as before the glue kernels, and the glue kernels
 TURNS = ("kernels",) * 3
+# a phase's runs in turns with a parent checkout; the steady streams take
+# the order twice (their rates drift with the host more than the gaps
+# they are asked to show)
+AB_ORDER = ("parent", "this", "this", "parent")
+STREAM_AB_REPEATS = 2
+
+
+def _ab(parent: str, repeats: int = 1) -> list:
+    """(who, checkout) of each run in turns with ``parent``."""
+    return [(w, parent if w == "parent" else HERE)
+            for w in AB_ORDER * repeats]
 AB_TURNS = ("plain_glue", "kernels", "kernels", "plain_glue")
 
 
@@ -2414,7 +2456,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
     check (``_time_host_rel``) on every chunk of the warm-up's passes,
     and with ``parent`` (a checkout) that tree's main stream and this
     tree's, each a process of its own, in turns (parent, this, this,
-    parent; ``_TREE_MAIN``)."""
+    parent, twice; ``_TREE_MAIN``)."""
     from classpro_tpu_torch import engine as engine_mod
     from classpro_tpu_torch import kernels, rel
 
@@ -2511,7 +2553,7 @@ def phase_stream(passes: int, batch_size: int = 200, sort_window: int = 8,
             f"{eng.staging.allocs} allocated by the pool in this engine")
     if parent:
         ab = []
-        for tree in (parent, HERE, HERE, parent):
+        for _, tree in _ab(parent, STREAM_AB_REPEATS):
             r = _tree_main(tree, passes)
             r["tree"] = "parent" if tree == parent else "this"
             ab.append(r)
@@ -3573,7 +3615,7 @@ def phase_alldev_stream(passes: int, turns=TURNS,
         f"{h['pool_allocs']} allocated by the pool in this engine")
     if parent:
         ab = []
-        for tree in (parent, HERE, HERE, parent):
+        for _, tree in _ab(parent, STREAM_AB_REPEATS):
             r = _tree_alldev(tree, passes)
             r["tree"] = "parent" if tree == parent else "this"
             ab.append(r)
@@ -3979,7 +4021,7 @@ def phase_guard(gbp: float, parent: str | None, smi: str, d: str) -> dict:
     if parent:
         root = os.path.join(d, "reads")
         ab = []
-        for tree in (parent, HERE, HERE, parent):
+        for _, tree in _ab(parent):
             r = _tree_stream(tree, root)
             r["tree"] = "parent" if tree == parent else "this"
             ab.append(r)
@@ -4009,17 +4051,18 @@ BENCH_RUNS = (("medium", "main"), ("medium", "alldev"), ("guard", "main"),
 BENCH_TIMEOUT = 600
 
 
-def _bench_child(fixture: str, path: str) -> dict:
-    """``python -m classpro_tpu_torch.devtools.bench`` over ``fixture`` on
-    ``path`` on the card, as a child process: its record (the last line
-    of its stdout) with the child's wall seconds (``child_s``); fails
-    unless it exits 0 with phase done, parity and both rates above 0."""
+def _bench_child(fixture: str, path: str, tree: str = HERE) -> dict:
+    """``python -m classpro_tpu_torch.devtools.bench`` of checkout
+    ``tree`` over ``fixture`` on ``path`` on the card, as a child
+    process: its record (the last line of its stdout) with the child's
+    wall seconds (``child_s``); fails unless it exits 0 with phase done,
+    parity and both rates above 0."""
     cmd = [sys.executable, "-m", "classpro_tpu_torch.devtools.bench",
            "--fixture", fixture, "--path", path, "--device", "cuda"]
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t = time.time()
-    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+    r = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
                        text=True, timeout=BENCH_TIMEOUT)
     lines = r.stdout.strip().splitlines()
     try:
@@ -4037,7 +4080,8 @@ def _bench_child(fixture: str, path: str) -> dict:
     return rec
 
 
-def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
+def phase_bench(gbp: float, d: str, guard: dict | None, smi: str,
+                parent: str | None = None) -> dict:
     """The port's benchmark runner (devtools.bench) as four child
     processes (BENCH_RUNS): medium against its golden and the guard
     dataset in ``d`` (generated here unless the guard phase wrote it;
@@ -4047,7 +4091,10 @@ def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
     bytes in their untimed pass (parity_sha256), on the guard dataset
     also the guard phase's reference stream's when that phase ran, and
     there the reads flagged per pass must equal the guard phase's count
-    on the same path."""
+    on the same path.  With ``parent`` (a checkout), each run is taken
+    in turns with that tree's runner (parent, this, this, parent), the
+    parent's runs held to the same bytes and flags, and each tree's
+    steady and end-to-end medians printed side by side."""
     from classpro_tpu_torch.devtools import soak
 
     t0 = time.time()
@@ -4058,12 +4105,17 @@ def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
         rec["gen_s"] = time.time() - t0
     want = guard and {"main": guard["main"]["runs"][0]["guard_flagged"],
                       "alldev": guard["alldev"]["guard_flagged"]}
-    for data, path in BENCH_RUNS:
+    turns = _ab(parent) if parent else [("this", HERE)]
+    runs = [(data, path, who, tree) for data, path in BENCH_RUNS
+            for who, tree in turns]
+    for data, path, who, tree in runs:
         r = _bench_child(os.path.join(FIX, "medium") if data == "medium"
-                         else d, path)
-        r["dataset"] = data
+                         else d, path, tree)
+        r["dataset"], r["tree"] = data, who
         per = r["guard_flagged_per_pass"]
-        line = (f"bench {path} over {data}: {r['value'] / 1e6:.2f} M "
+        line = (f"bench {path} over {data}"
+                f"{f' ({who})' if parent else ''}: "
+                f"{r['value'] / 1e6:.2f} M "
                 f"k-mers/s (windows {min(r['runs']) / 1e6:.2f}-"
                 f"{max(r['runs']) / 1e6:.2f}), e2e {r['e2e'] / 1e6:.2f} "
                 f"({min(r['e2e_runs']) / 1e6:.2f}-"
@@ -4083,6 +4135,17 @@ def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
                      f"path against the guard phase's {want[path]}")
         say(line)
         rec["runs"].append(r)
+    if parent:
+        for data, path in BENCH_RUNS:
+            for key in ("value", "e2e"):
+                got = {who: [x[key] / 1e6 for x in rec["runs"]
+                             if (x["dataset"], x["path"], x["tree"])
+                             == (data, path, who)] for who, _ in turns[:2]}
+                say(f"bench {path} over {data}, "
+                    f"{'steady' if key == 'value' else 'end to end'} "
+                    f"medians in turns, M k-mers/s: parent "
+                    + ", ".join(f"{v:.2f}" for v in got["parent"])
+                    + "; this " + ", ".join(f"{v:.2f}" for v in got["this"]))
     for data in ("medium", "guard"):
         shas = {r["parity_sha256"] for r in rec["runs"]
                 if r["dataset"] == data}
@@ -4095,6 +4158,199 @@ def phase_bench(gbp: float, d: str, guard: dict | None, smi: str) -> dict:
             + (", the guard phase's" if data == "guard" and guard else ""))
     rec["seconds"] = time.time() - t0
     say(f"bench: {rec['seconds']:.1f} s")
+    return rec
+
+
+# the input phase: passes of the input alone and under the stream, per
+# tree and dataset
+INPUT_PASSES = 5
+INPUT_STREAM_PASSES = {"medium": 20, "guard": 4}
+# the input's parts (devtools/input_parts.py, run in each checkout)
+INPUT_PARTS = os.path.join(HERE, "classpro_tpu_torch", "devtools",
+                           "input_parts.py")
+
+
+def _tree_input(tree: str, fasta: str, root: str, spasses: int) -> dict:
+    """The input of checkout ``tree``'s classify over ``fasta`` / ``root``
+    part by part (``devtools/input_parts.py`` of this tree, run with that
+    checkout's package)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    r = subprocess.run([sys.executable, INPUT_PARTS, fasta, root,
+                        str(INPUT_PASSES), str(spasses)], cwd=tree, env=env,
+                       capture_output=True, text=True, timeout=900)
+    recs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith("{")]
+    if r.returncode != 0 or len(recs) != 1:
+        fail(f"input: {tree} over {fasta} failed (rc {r.returncode}): "
+             f"{r.stderr[-3000:]}")
+    return recs[0]
+
+
+# the classify CLI, run as python -m would run it, that prints its own
+# peak resident set on stderr as it exits: /proc/self/statm's resident
+# pages sampled every millisecond on a thread of the classify process
+# (a child's ru_maxrss starts from its parent's peak at exec, and the
+# card's host has no VmHWM in /proc/self/status)
+_HWM_CLI = r"""
+import atexit, os, runpy, sys, threading
+page, peak = os.sysconf("SC_PAGE_SIZE"), [0]
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * page
+def sample():
+    while True:
+        peak[0] = max(peak[0], rss())
+        threading.Event().wait(0.001)
+threading.Thread(target=sample, daemon=True).start()
+def report():
+    peak[0] = max(peak[0], rss())
+    print(f"peak_rss_B {peak[0]}", file=sys.stderr, flush=True)
+atexit.register(report)
+sys.argv[0] = "classpro_tpu_torch.cli"
+runpy.run_module("classpro_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _classify_rss(tree: str, fasta: str, out: str) -> dict:
+    """``classify`` of checkout ``tree`` on the card over ``fasta`` as a
+    child process: its wall seconds and the peak resident set of the
+    classify process itself (``_HWM_CLI``, MB)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _HWM_CLI, "classify", fasta,
+                        "-o", out, "--device", "cuda"], cwd=tree, env=env,
+                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t
+    hwm = [ln.split()[1] for ln in r.stderr.splitlines()
+           if ln.startswith("peak_rss_B ")]
+    if r.returncode != 0 or len(hwm) != 1:
+        fail(f"input: classify of {tree} over {fasta} (rc {r.returncode}): "
+             f"{r.stderr[-2000:]}")
+    return {"wall_s": wall, "rss_mb": int(hwm[0]) / 2**20}
+
+
+def _input_slabs(fasta: str, root: str) -> int:
+    """Every chunk of the new feed (the reader's chunks, the wall stage
+    with the decode in it, as the engine stages them) against the old
+    feed's (the chunk's sequences, fetch_batch's profiles,
+    wall_stage_slab): n_out, n_rel and every record bit for bit; fails
+    on a difference.  Returns the reads compared."""
+    import numpy as np
+
+    from classpro_tpu_torch.engine import fastx_chunks
+    from classpro_tpu_torch.estimation import build_global_model
+    from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
+    from classpro_tpu_torch.native import NativeWall
+
+    gm = build_global_model(load_histogram(root))
+    P = open_profiles(root)
+    wall = NativeWall(gm)
+    n = 0
+    for c in fastx_chunks(fasta, P, gm.kmer, 200):
+        g = np.flatnonzero(c.plen[:c.n] > 0)
+        g = g[np.argsort(c.plen[g], kind="stable")]
+        new = wall.wall_stage_fastk(c.seq_addr()[g], c.seq_len[g],
+                                    c.prof_addr[g], c.prof_nb[g],
+                                    c.plen[g])
+        seqs = c.seqs()
+        old = wall.wall_stage_slab([seqs[i].encode() for i in g],
+                                   P.fetch_batch(c.rid0 + g, c.plen[g]))
+        same = (np.array_equal(new[1], old[1])
+                and np.array_equal(new[2], old[2]))
+        for i, k in enumerate(new[1] if same else ()):
+            a = new[0][i * new[3]: i * new[3] + k]
+            b = old[0][i * old[3]: i * old[3] + k]
+            for f in ("b", "e", "cb", "ce", "ccb", "cce", "is_rel"):
+                same &= bool(np.array_equal(a[f], b[f]))
+            for f in ("pe", "pe_o_b", "pe_o_e"):
+                same &= bool(np.array_equal(a[f].view(np.uint64),
+                                            b[f].view(np.uint64)))
+        if not same:
+            fail(f"input: the chunk at read {c.rid0} of {fasta}: the new "
+                 f"feed's slab differs from the old feed's")
+        wall.release_slab(new[0])
+        wall.release_slab(old[0])
+        n += len(g)
+    return n
+
+
+def _parts_line(r: dict, where: str) -> str:
+    from classpro_tpu_torch.devtools.input_parts import PARTS
+
+    p = r[where]
+    return ", ".join(f"{k} {p[k]:.3f}" for k in PARTS if p.get(k)) \
+        + f"; total {p['total']:.3f} ms a pass"
+
+
+def phase_input(parent: str | None, gbp: float, d: str, smi: str) -> dict:
+    """The input plane: on medium and the guard dataset (``d``, made here
+    unless the guard phase made it), every chunk's slab from the reader
+    and the fused decode held against the old feed's (``_input_slabs``);
+    each tree's input part by part (``devtools/input_parts.py``; this
+    tree alone, or with ``parent`` in turns: parent, this, this, parent),
+    and each tree's ``classify`` wall and peak RSS (in the same turns),
+    the bytes golden on medium and equal across the runs at 83x."""
+    from classpro_tpu_torch.devtools import soak
+    from classpro_tpu_torch.devtools.input_parts import MAIN_PARTS
+
+    t0 = time.time()
+    if not os.path.exists(os.path.join(d, "meta.json")):
+        soak.generate(d, gbp, seed=GUARD_SEED, kmer=GUARD_KMER,
+                      cov=GUARD_COV)
+    sets = {"medium": (os.path.join(FIX, "medium", "reads.fasta.gz"),
+                       os.path.join(FIX, "medium", "reads")),
+            "guard": (os.path.join(d, "reads.fasta"),
+                      os.path.join(d, "reads"))}
+    rec: dict = {"card": smi, "cpus": os.cpu_count(), "datasets": {}}
+    turns = _ab(parent) if parent else [("this", HERE)]
+    tmp = tempfile.mkdtemp(prefix="cpinput")
+    try:
+        for name, (fasta, root) in sets.items():
+            n = _input_slabs(fasta, root)
+            say(f"input {name}: {n} reads' slabs from the reader and the "
+                f"fused decode equal the old feed's, bit for bit")
+            runs = []
+            for who, tree in turns:
+                r = _tree_input(tree, fasta, root, INPUT_STREAM_PASSES[name])
+                r["who"] = who
+                runs.append(r)
+                say(f"input {name} {who} ({r['tree']}, inflate: "
+                    f"{r['inflate']}): alone {_parts_line(r, 'alone')} "
+                    f"(wall {r['alone']['wall']:.3f}; resident peak "
+                    f"+{r['alone']['rss_growth_mb']:.1f} MB); under the "
+                    f"stream {_parts_line(r, 'stream')}, a pass "
+                    f"{r['stream']['pass_ms']:.3f} ms "
+                    f"({r['stream']['kmers_per_s'] / 1e6:.2f} M k-mers/s; "
+                    f"resident peak +{r['stream']['rss_growth_mb']:.1f} "
+                    f"MB); "
+                    f"main thread alone: " + ", ".join(
+                        f"{k} {r['main_thread'][k]:.3f}" for k in MAIN_PARTS)
+                    + " ms a pass"
+                    + (f"; reader capacity {r['reader_capacity']} B"
+                       if "reader_capacity" in r else ""))
+            rss, outs = [], set()
+            for k, (who, tree) in enumerate(turns):
+                out = os.path.join(tmp, f"{name}_{k}.class")
+                r = _classify_rss(tree, fasta, out)
+                r["who"] = who
+                rss.append(r)
+                outs.add(_read(out))
+                os.remove(out)
+                say(f"input {name} {who}: classify wall {r['wall_s']:.2f} s,"
+                    f" peak RSS {r['rss_mb']:.1f} MB")
+            if name == "medium" and outs != {_gold_bytes("medium")}:
+                fail("input: classify over medium did not write the golden")
+            if len(outs) != 1:
+                fail(f"input: the classify runs over {name} wrote different "
+                     f"bytes")
+            rec["datasets"][name] = {"slab_reads": n, "runs": runs,
+                                     "classify": rss}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.time() - t0
+    say(f"input: {rec['seconds']:.1f} s")
     return rec
 
 
@@ -4853,7 +5109,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernel,e2e,setup,stream,alldev,guard,"
-                            "bench,shard,serve,tools",
+                            "bench,input,shard,serve,tools",
                     help="comma-separated subset (the probe always runs; "
                     "k1profile, k5profile and settleprofile, the kernels' "
                     "phase clocks, glue_ab, the streams with the plain glue "
@@ -4881,7 +5137,9 @@ def main(argv=None) -> int:
                     "this tree's and times them in turns, the alldev "
                     "phase its rel_prep and rel_settle, the stream phase "
                     "its main stream, the alldev_stream phase its "
-                    "all-device stream, the guard phase its streams")
+                    "all-device stream, the guard phase its streams, the "
+                    "bench phase its runner, the input phase its input "
+                    "by part and its classify's wall and RSS")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4941,12 +5199,14 @@ def main(argv=None) -> int:
                  "profiled": _profiled_process()}
     # the guard dataset, written once for the guard and bench phases
     gdir = (tempfile.mkdtemp(prefix="cpguard")
-            if phases & {"guard", "bench"} else None)
+            if phases & {"guard", "bench", "input"} else None)
     try:
         gdrec = (phase_guard(args.guard_gbp, args.parent, smi, gdir)
                  if "guard" in phases else None)
-        bnrec = (phase_bench(args.guard_gbp, gdir, gdrec, smi)
+        bnrec = (phase_bench(args.guard_gbp, gdir, gdrec, smi, args.parent)
                  if "bench" in phases else None)
+        inrec = (phase_input(args.parent, args.guard_gbp, gdir, smi)
+                 if "input" in phases else None)
     finally:
         if gdir:
             shutil.rmtree(gdir, ignore_errors=True)
@@ -4971,6 +5231,8 @@ def main(argv=None) -> int:
     if bnrec is not None:
         say(json.dumps({"bench": bnrec["runs"], "card": smi,
                         "seconds": bnrec["seconds"]}))
+    if inrec is not None:
+        say(json.dumps({"input": inrec}))
     kern = []
     if krec is not None and arec is not None:   # the alldev rescue tails
         krec["tail_err"]["rel_rescue"] = max(krec["tail_err"]["rel_rescue"],

@@ -13,20 +13,19 @@
 //
 // The port's own copy of the repository's csrc/classpro_host.cpp (the
 // JAX package builds that one), with cp_build_btg, cp_exact_rel_batch,
-// cp_pack_chunk, cp_expand_rows and cp_demote_reconcile added, every
-// threaded entry on one kept worker pool (pool::Pool), and the batched
-// entries that nothing here calls (cp_wall_stage_batch, cp_unrel_batch,
-// cp_expand_batch) left out.  Exposed via a C ABI for ctypes
-// (classpro_tpu_torch/native.py).
+// cp_pack_chunk, cp_expand_rows, cp_demote_reconcile, the wall stage
+// that decodes each read's profile in its worker (cp_wall_stage_fastk)
+// and the streaming FASTX reader (cp_fx_*) added, every threaded entry
+// on one kept worker pool (pool::Pool), and the entries that nothing
+// here calls (cp_wall_stage_batch, cp_unrel_batch, cp_expand_batch, the
+// whole-file cp_gzip_inflate and cp_fastx_parse) left out.  Exposed via
+// a C ABI for ctypes (classpro_tpu_torch/native.py).
 // All floating point follows C double semantics (this is the same libm
 // the reference links, so values are bit-identical to the oracle).
 
 #include <algorithm>
 #include <atomic>
 #include <zlib.h>
-#ifdef CP_HAVE_LIBDEFLATE
-#include <libdeflate.h>
-#endif
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -34,6 +33,9 @@
 #include <cstring>
 #include <ctime>
 #include <deque>
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
 #if defined(__AVX2__)
 #include <immintrin.h>
 #endif
@@ -1571,27 +1573,15 @@ int cp_wall_stage(
   return N;
 }
 
-// Batched wall stage over the host plane's workers (replaces the
-// reference's per-thread read loop, ClassPro.c:146-304, for the host side
-// of the pipeline).  Reads stay in their caller-owned buffers: seqs[i]
-// (seq_len[i] bytes) and profs[i] (prof_len[i] counts).  Each read
-// writes to a fixed slot of `slot` records at out + i*slot; n_out[i] =
-// record count (-1 if the slot overflowed; the caller retries with a
-// larger slot), n_rel[i] = reliable count.  Reads go to the workers off
-// an atomic counter, each walked in its worker's kept workspace (g_ws);
-// a read's records do not depend on the worker count.
-void cp_wall_stage_batch_ptr(
-    int K, int cmax, int cov_h, int read_len, int max_n_hc,
+// The model of a wall stage call (mirror of estimation.GlobalModel +
+// Defaults, with the tail tables of tables.py).
+static void wall_model(
+    Model& M, int K, int cmax, int cov_h, int read_len, int max_n_hc,
     int min_cnt_change, int max_cnt_change, const double* pe_thres4,
     double thres_diff_eo, double thres_diff_rel, double hc_erate,
     const int* lmax3, int lmaxp1, const double* pe, const int16_t* cthres,
     const double* btg, const double* erates, const int32_t* pe_idx,
-    int hc_idx, int n_cap,
-    int n_reads, const char* const* seqs, const int32_t* seq_len,
-    const uint16_t* const* profs, const int32_t* prof_len,
-    OutIntvl* out, int slot, int* n_out, int* n_rel, int threads) {
-  init_logfact();
-  Model M;
+    int hc_idx, int n_cap) {
   M.K = K; M.cmax = cmax; M.cov_h = cov_h; M.read_len = read_len;
   M.max_n_hc = max_n_hc; M.min_cnt_change = min_cnt_change;
   M.max_cnt_change = max_cnt_change;
@@ -1604,25 +1594,105 @@ void cp_wall_stage_batch_ptr(
   M.logpthres_final_self = std::log(M.pe_thres[TFINAL][SELF]);
   M.btg = btg; M.erates = erates; M.pe_idx = pe_idx;
   M.hc_idx = hc_idx; M.n_cap = n_cap;
+}
+
+// One read of a batched wall stage: its records at out (a slot of
+// `slot`), n_out = record count (-1 if the slot overflowed; the caller
+// retries with a larger slot), n_rel = reliable count; walked in the
+// worker's kept workspace (g_ws), so a read's records do not depend on
+// the worker that walks it.
+static void wall_read(const Model& M, const char* seq, int rlen,
+                      const uint16_t* prof, int plen, OutIntvl* out,
+                      int slot, int* n_out, int* n_rel,
+                      long long* t_run = nullptr,
+                      long long* t_rel = nullptr) {
+  CtxOnDemand cd{seq, rlen};
+  WallWalk W(M, prof, plen, cd, g_ws);
+  long long t0 = t_run ? now_ns() : 0;
+  int N = W.run(out, slot);
+  if (t_run) *t_run += now_ns() - t0;
+  if (N < 0) { *n_out = -1; *n_rel = 0; return; }
+  if (t_rel) t0 = now_ns();
+  *n_rel = W.find_rel(out, N);
+  if (t_rel) *t_rel += now_ns() - t0;
+  *n_out = N;
+}
+
+// Batched wall stage over the host plane's workers (replaces the
+// reference's per-thread read loop, ClassPro.c:146-304, for the host side
+// of the pipeline).  Reads stay in their caller-owned buffers: seqs[i]
+// (seq_len[i] bytes) and profs[i] (prof_len[i] counts).  Each read
+// writes to a fixed slot of `slot` records at out + i*slot (wall_read).
+// Reads go to the workers off an atomic counter.
+void cp_wall_stage_batch_ptr(
+    int K, int cmax, int cov_h, int read_len, int max_n_hc,
+    int min_cnt_change, int max_cnt_change, const double* pe_thres4,
+    double thres_diff_eo, double thres_diff_rel, double hc_erate,
+    const int* lmax3, int lmaxp1, const double* pe, const int16_t* cthres,
+    const double* btg, const double* erates, const int32_t* pe_idx,
+    int hc_idx, int n_cap,
+    int n_reads, const char* const* seqs, const int32_t* seq_len,
+    const uint16_t* const* profs, const int32_t* prof_len,
+    OutIntvl* out, int slot, int* n_out, int* n_rel, int threads) {
+  init_logfact();
+  Model M;
+  wall_model(M, K, cmax, cov_h, read_len, max_n_hc, min_cnt_change,
+             max_cnt_change, pe_thres4, thres_diff_eo, thres_diff_rel,
+             hc_erate, lmax3, lmaxp1, pe, cthres, btg, erates, pe_idx,
+             hc_idx, n_cap);
 
   const bool prof_on = std::getenv("CP_PROF") != nullptr;
   std::atomic<long long> t_run(0), t_rel(0);
 
   pool::parallel_rows(n_reads, threads, [&](int i) {
-    CtxOnDemand cd{seqs[i], seq_len[i]};
-    WallWalk W(M, profs[i], prof_len[i], cd, g_ws);
-    long long t0 = prof_on ? now_ns() : 0;
-    int N = W.run(out + (int64_t)i * slot, slot);
-    if (prof_on) t_run += now_ns() - t0;
-    if (N < 0) { n_out[i] = -1; n_rel[i] = 0; return; }
-    if (prof_on) t0 = now_ns();
-    n_rel[i] = W.find_rel(out + (int64_t)i * slot, N);
-    if (prof_on) t_rel += now_ns() - t0;
-    n_out[i] = N;
+    long long tr = 0, tl = 0;
+    wall_read(M, seqs[i], seq_len[i], profs[i], prof_len[i],
+              out + (int64_t)i * slot, slot, n_out + i, n_rel + i,
+              prof_on ? &tr : nullptr, prof_on ? &tl : nullptr);
+    if (prof_on) { t_run += tr; t_rel += tl; }
   });
   if (prof_on)
     std::fprintf(stderr, "[cp_prof] wall_ptr run=%.2fms find_rel=%.2fms\n",
                  t_run.load() / 1e6, t_rel.load() / 1e6);
+}
+
+// The wall stage with each read's FASTK profile decoded in the worker
+// that walks it: read i's sequence is seq_len[i] bytes at address
+// seq_addr[i] (the FASTX reader's chunk buffer), its compressed profile
+// prof_nb[i] bytes at prof_addr[i] (its part, mapped read-only), and
+// its profile length is plen[i].  The worker decodes into a buffer of
+// its own (cp_decode_profile) and runs wall_read on it at once; dec_n[i]
+// is the decoded length.  A read whose decoded length is not plen[i] is
+// not walked (n_out 0, n_rel 0); the caller raises for it.
+void cp_wall_stage_fastk(
+    int K, int cmax, int cov_h, int read_len, int max_n_hc,
+    int min_cnt_change, int max_cnt_change, const double* pe_thres4,
+    double thres_diff_eo, double thres_diff_rel, double hc_erate,
+    const int* lmax3, int lmaxp1, const double* pe, const int16_t* cthres,
+    const double* btg, const double* erates, const int32_t* pe_idx,
+    int hc_idx, int n_cap,
+    int n_reads, const int64_t* seq_addr, const int32_t* seq_len,
+    const int64_t* prof_addr, const int64_t* prof_nb, const int32_t* plen,
+    OutIntvl* out, int slot, int* n_out, int* n_rel, int32_t* dec_n,
+    int threads) {
+  init_logfact();
+  Model M;
+  wall_model(M, K, cmax, cov_h, read_len, max_n_hc, min_cnt_change,
+             max_cnt_change, pe_thres4, thres_diff_eo, thres_diff_rel,
+             hc_erate, lmax3, lmaxp1, pe, cthres, btg, erates, pe_idx,
+             hc_idx, n_cap);
+  pool::parallel_rows(n_reads, threads, [&](int i) {
+    thread_local std::vector<uint16_t> prof;
+    if ((int64_t)prof.size() < plen[i]) prof.resize(plen[i]);
+    const int n = cp_decode_profile(
+        reinterpret_cast<const uint8_t*>(prof_addr[i]), prof_nb[i],
+        prof.data(), plen[i]);
+    dec_n[i] = n;
+    if (n != plen[i]) { n_out[i] = 0; n_rel[i] = 0; return; }
+    wall_read(M, reinterpret_cast<const char*>(seq_addr[i]), seq_len[i],
+              prof.data(), plen[i], out + (int64_t)i * slot, slot,
+              n_out + i, n_rel + i);
+  });
 }
 
 // Pack the reliable intervals of a wall-stage slab into the rel-only
@@ -2164,159 +2234,356 @@ void cp_decode_profile_batch(const uint8_t* data, const int64_t* lo,
   }
 }
 
+}  // extern "C"
+
 // ---------------------------------------------------------------------
-// Native FASTA/FASTQ ingest (role of kseq.h in the reference,
-// ClassPro.c:181-188) — but whole-blob + GIL-free instead of a
-// line-buffered pull parser: on a 1-core host the Python reader's GIL
-// time competed with the engine's glue and halved e2e throughput.
+// Streaming FASTA/FASTQ reader (the role of kseq.h in the reference,
+// ClassPro.c:181-188): an opaque handle on a path reads the file in
+// blocks, inflates a gzip file block by block with zlib's streaming
+// inflate, and hands out records chunk by chunk into the caller's
+// buffers.  Its own memory is one input block and a text window that
+// holds the unread part of the current record and one block more, so it
+// grows with the largest record and block, never with the file.  The
+// calls take no lock and start no thread: a handle is used by one
+// thread at a time (the engine's prefetch thread, with the GIL released).
+//
+// Semantics (the port's plain reader, io/fastx._read_fastx_plain, is the
+// spec): universal newlines ('\n', '\r\n' and a lone '\r' end a line
+// and are not part of it); a header is its line after the mark byte,
+// the name its first whitespace-delimited token, the comment the rest
+// after the whitespace run that follows it (trailing bytes kept); FASTA
+// sequence lines run until a line that starts with '>' and are stripped
+// of all leading and trailing whitespace; a FASTQ record is exactly four
+// lines (header, sequence, '+', quality), the first byte of each header
+// line after the first record skipped whatever it is.  A gzip file is
+// any number of members; bytes after a member that are not one fail the
+// read (-2), a stream that ends early ends the text there, and a .gz
+// file of fewer than 4 bytes holds no records.
 // ---------------------------------------------------------------------
 
-// Inflate a (possibly multi-member) gzip blob.  Returns the total
-// decompressed size; if it exceeds out_cap, inflation continues in
-// counting mode so the caller can retry with the returned size.
-// Returns -1 on corrupt input.
-int64_t cp_gzip_inflate(const uint8_t* in, int64_t in_len,
-                        uint8_t* out, int64_t out_cap) {
-#ifdef CP_HAVE_LIBDEFLATE
-  // Fast path: libdeflate's gzip decode is ~2-3x zlib's.  Any outcome
-  // other than a clean full decode (capacity short, trailing garbage,
-  // corrupt member) falls through to the zlib path below, which is the
-  // semantic contract (counting-mode retry sizes, garbage tolerance).
-  if (struct libdeflate_decompressor* d = libdeflate_alloc_decompressor()) {
-    int64_t total = 0, in_pos = 0;
-    bool clean = true;
-    while (in_pos < in_len) {
-      size_t a_in = 0, a_out = 0;
-      enum libdeflate_result r = libdeflate_gzip_decompress_ex(
-          d, in + in_pos, (size_t)(in_len - in_pos), out + total,
-          (size_t)(out_cap > total ? out_cap - total : 0), &a_in, &a_out);
-      if (r != LIBDEFLATE_SUCCESS || a_in == 0) { clean = false; break; }
-      total += (int64_t)a_out;
-      in_pos += (int64_t)a_in;
-    }
-    libdeflate_free_decompressor(d);
-    if (clean) return total;
-  }
-#endif
-  int64_t total = 0;
-  uint8_t scratch[1 << 16];
+namespace fx {
+
+enum Status : int64_t {
+  OK = 0, FULL_SEQ = 1, FULL_NAME = 2, FULL_QUAL = 3, MORE = 4,
+  NOT_FASTX = -1, BAD_GZIP = -2, TOO_LONG = -3, IO_ERROR = -4,
+};
+
+struct Reader {
+  int fd = -1;
+  bool gz = false;
+  bool in_eof = false;       // the file is read to its end
+  bool text_eof = false;     // no more text will come
+  bool member_done = false;  // a gzip member ended with no input left
+  bool z_live = false;
   z_stream zs;
-  std::memset(&zs, 0, sizeof(zs));
-  if (inflateInit2(&zs, 16 + MAX_WBITS) != Z_OK) return -1;
-  zs.next_in = const_cast<uint8_t*>(in);
-  zs.avail_in = (uInt)in_len;
-  for (;;) {
-    if (total < out_cap) {
-      zs.next_out = out + total;
-      zs.avail_out = (uInt)std::min<int64_t>(out_cap - total, 1u << 30);
-    } else {
-      zs.next_out = scratch;
-      zs.avail_out = sizeof(scratch);
-    }
-    uInt before = zs.avail_out;
-    int rc = inflate(&zs, Z_NO_FLUSH);
-    total += before - zs.avail_out;
-    if (rc == Z_STREAM_END) {
-      if (zs.avail_in == 0) break;          // done
-      inflateReset2(&zs, 16 + MAX_WBITS);   // next gzip member
-    } else if (rc != Z_OK && rc != Z_BUF_ERROR) {
-      inflateEnd(&zs);
-      return -1;
-    } else if (rc == Z_BUF_ERROR && zs.avail_in == 0) {
-      break;                                // truncated trailing garbage
-    }
-  }
-  inflateEnd(&zs);
-  return total;
+  int64_t block = 1 << 20;
+  std::vector<uint8_t> in;   // one block of the file (gzip only)
+  std::vector<char> txt;     // the text window: [t0, t1) unread
+  int64_t t0 = 0, t1 = 0;
+  char mark = 0;             // '>' or '@' once the first byte is seen
+  int64_t err = 0;           // a sticky error status
+  int64_t ns_read = 0, ns_inflate = 0, ns_scan = 0;
+};
+
+static inline bool is_ws(char c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == '\v' ||
+         c == '\f';
 }
 
-// Parse FASTA or FASTQ text in one pass.  Per record i, meta[8*i..8*i+7]
-// holds {name_off, name_len, comment_off, comment_len, seq_off, seq_len,
-// qual_off, qual_len}; name/comment offsets index into buf, seq AND qual
-// bytes are compacted into seq_out (qual_off = -1 for FASTA).  seq_out
-// needs at most `len` bytes.  Whitespace semantics match the Python
-// reader in io/fastx.py: header = first line minus trailing '\n', name =
-// first whitespace-run-delimited token, comment = remainder after the
-// run (trailing bytes incl. '\r' kept); sequence/quality lines are
-// stripped of ALL leading/trailing whitespace.  Returns the record
-// count, or -1 if buf starts with neither '>' nor '@'.
-int64_t cp_fastx_parse(const char* buf, int64_t len, int64_t max_rec,
-                       int64_t* meta, char* seq_out) {
-  const auto is_ws = [](char c) {
-    return c == ' ' || c == '\t' || c == '\n' || c == '\r' ||
-           c == '\v' || c == '\f';
-  };
-  // Line model matches Python's universal newlines (io/fastx.py opens
-  // through TextIOWrapper): '\n', '\r\n' and lone '\r' all terminate a
-  // line and are not part of it.
-  // no-CR fast path: one whole-buffer memchr, then every line scan is a
-  // single SIMD memchr('\n') instead of a byte loop
-  const bool has_cr = len > 0 && std::memchr(buf, '\r', (size_t)len);
-  const auto line_end = [&](int64_t from, int64_t* next) {
-    if (!has_cr) {
-      const void* q = std::memchr(buf + from, '\n', (size_t)(len - from));
-      int64_t e = q ? (int64_t)((const char*)q - buf) : len;
-      *next = e < len ? e + 1 : len;
-      return e;
-    }
-    int64_t e = from;
-    while (e < len && buf[e] != '\n' && buf[e] != '\r') e++;
-    *next = (e < len && buf[e] == '\r' && e + 1 < len && buf[e + 1] == '\n')
-                ? e + 2
-                : (e < len ? e + 1 : len);
-    return e;
-  };
-  int64_t pos = 0, nrec = 0, sp = 0;
-  if (len == 0) return 0;
-  const char mark = buf[0];
-  if (mark != '>' && mark != '@') return -1;
-  const bool fastq = (mark == '@');
-  while (pos < len && nrec < max_rec) {
-    // header line (pos at the mark byte)
-    int64_t h0 = pos + 1, hn;
-    int64_t he = line_end(h0, &hn);
-    int64_t n0 = h0;
-    while (n0 < he && is_ws(buf[n0])) n0++;
-    int64_t n1 = n0;
-    while (n1 < he && !is_ws(buf[n1])) n1++;
-    int64_t c0 = n1;
-    while (c0 < he && is_ws(buf[c0])) c0++;
-    int64_t* m = meta + 8 * nrec;
-    m[0] = n0; m[1] = n1 - n0;
-    m[2] = c0; m[3] = (c0 < he) ? he - c0 : 0;
-    pos = hn;
-    const int64_t s0 = sp;
-    if (!fastq) {
-      // sequence lines until next '>' or EOF
-      while (pos < len && buf[pos] != '>') {
-        int64_t a = pos;
-        int64_t b = line_end(pos, &pos);
-        while (a < b && is_ws(buf[a])) a++;
-        while (b > a && is_ws(buf[b - 1])) b--;
-        std::memcpy(seq_out + sp, buf + a, (size_t)(b - a));
-        sp += b - a;
-      }
-      m[4] = s0; m[5] = sp - s0;
-      m[6] = -1; m[7] = 0;
-    } else {
-      // exactly one sequence line, '+' line, one quality line
-      for (int part = 0; part < 3; part++) {
-        int64_t a = pos;
-        int64_t le = line_end(pos, &pos);
-        if (part != 1) {
-          int64_t b = le;
-          while (a < b && is_ws(buf[a])) a++;
-          while (b > a && is_ws(buf[b - 1])) b--;
-          std::memcpy(seq_out + sp, buf + a, (size_t)(b - a));
-          if (part == 0) { m[4] = s0; m[5] = (b - a); }
-          else           { m[6] = sp; m[7] = (b - a); }
-          sp += b - a;
-        }
-      }
-    }
-    nrec++;
+// the end of the line that starts at `from` in buf[0, end): its content
+// end, with *next at the line after it; -1 when the window does not show
+// where the line ends (no terminator yet, or a '\r' last that a '\n'
+// may follow) and more text may come
+static inline int64_t line_end(const char* buf, int64_t from, int64_t end,
+                               bool final, int64_t* next) {
+  int64_t e = from;
+  while (e < end && buf[e] != '\n' && buf[e] != '\r') {
+    const void* q = std::memchr(buf + e, '\n', (size_t)(end - e));
+    const int64_t lf = q ? (int64_t)((const char*)q - buf) : end;
+    const void* r = std::memchr(buf + e, '\r', (size_t)(lf - e));
+    e = r ? (int64_t)((const char*)r - buf) : lf;
   }
-  return nrec;
+  if (e == end) {
+    if (!final) return -1;
+    *next = end;
+    return e;
+  }
+  if (buf[e] == '\r') {
+    if (e + 1 == end && !final) return -1;
+    *next = (e + 1 < end && buf[e + 1] == '\n') ? e + 2 : e + 1;
+    return e;
+  }
+  *next = e + 1;
+  return e;
+}
+
+// append up to `block` bytes of text to the window (moving its unread
+// part to the front first); false once no more text comes or on error
+static bool fill(Reader& R, int64_t want) {
+  if (R.text_eof || R.err) return false;
+  if (R.t0 > 0) {
+    std::memmove(R.txt.data(), R.txt.data() + R.t0, (size_t)(R.t1 - R.t0));
+    R.t1 -= R.t0;
+    R.t0 = 0;
+  }
+  if ((int64_t)R.txt.size() < R.t1 + want) R.txt.resize(R.t1 + want);
+  char* dst = R.txt.data() + R.t1;
+  const int64_t room = (int64_t)R.txt.size() - R.t1;
+  if (!R.gz) {
+    const long long t = now_ns();
+    int64_t got = 0;
+    while (got < room) {
+      const ssize_t n = ::read(R.fd, dst + got, (size_t)(room - got));
+      if (n < 0) { R.err = IO_ERROR; break; }
+      if (n == 0) { R.in_eof = R.text_eof = true; break; }
+      got += n;
+    }
+    R.ns_read += now_ns() - t;
+    R.t1 += got;
+    return got > 0;
+  }
+  z_stream& zs = R.zs;
+  zs.next_out = reinterpret_cast<Bytef*>(dst);
+  zs.avail_out = (uInt)std::min<int64_t>(room, 1 << 30);
+  while (zs.avail_out > 0 && !R.text_eof) {
+    if (zs.avail_in == 0 && !R.in_eof) {
+      const long long t = now_ns();
+      const ssize_t n = ::read(R.fd, R.in.data(), R.in.size());
+      R.ns_read += now_ns() - t;
+      if (n < 0) { R.err = IO_ERROR; break; }
+      if (n == 0) R.in_eof = true;
+      zs.next_in = R.in.data();
+      zs.avail_in = (uInt)n;
+    }
+    if (R.member_done) {               // the next member, if bytes follow
+      if (zs.avail_in == 0) { R.text_eof = true; break; }
+      inflateReset2(&zs, 16 + MAX_WBITS);
+      R.member_done = false;
+    }
+    const long long t = now_ns();
+    const int rc = inflate(&zs, Z_NO_FLUSH);
+    R.ns_inflate += now_ns() - t;
+    if (rc == Z_STREAM_END) {
+      if (zs.avail_in == 0) R.member_done = true;
+      else inflateReset2(&zs, 16 + MAX_WBITS);
+    } else if (rc != Z_OK && rc != Z_BUF_ERROR) {
+      R.err = BAD_GZIP;
+      break;
+    } else if (rc == Z_BUF_ERROR && zs.avail_in == 0 && R.in_eof) {
+      R.text_eof = true;               // a stream cut short ends here
+    }
+  }
+  const int64_t got = (int64_t)(reinterpret_cast<char*>(zs.next_out) - dst);
+  R.t1 += got;
+  return got > 0 || (!R.text_eof && !R.err);
+}
+
+// caller-owned chunk buffers (numpy arrays of io/fastx.ReadChunk)
+struct Chunk {
+  char* seq; int64_t seq_cap; int64_t* seq_off;     // [B + 1]
+  char* name; int64_t name_cap; int64_t* name_off;  // [2B + 1]
+  char* qual; int64_t qual_cap; int64_t* qual_off;  // [B + 1]
+  int64_t* plen;                                    // [B]
+};
+
+// Scan one record at R.t0 into the chunk's record n (its offsets are
+// set from the entries of record n - 1's).  Returns OK with *used the
+// text it took, MORE when the window does not hold the whole record yet,
+// FULL_* when a buffer lacks room (*need: the bytes it needs).
+static int64_t scan(Reader& R, Chunk& C, int64_t n, int64_t* used,
+                    int64_t* need) {
+  const char* buf = R.txt.data();
+  const int64_t end = R.t1;
+  const bool final = R.text_eof;
+  const int64_t pos0 = R.t0;
+  int64_t nx;
+  // the header: its line after the first byte (a FASTQ header line that
+  // is empty has none: its terminator is not skipped)
+  const bool bare = buf[pos0] == '\n' || buf[pos0] == '\r';
+  const int64_t h0 = bare ? pos0 : pos0 + 1;
+  const int64_t he = line_end(buf, h0, end, final, &nx);
+  if (he < 0) return MORE;
+  int64_t n0 = h0;
+  while (n0 < he && is_ws(buf[n0])) n0++;
+  int64_t n1 = n0;
+  while (n1 < he && !is_ws(buf[n1])) n1++;
+  int64_t c0 = n1;
+  while (c0 < he && is_ws(buf[c0])) c0++;
+  const int64_t c1 = c0 < he ? he : c0;
+  const int64_t nm = C.name_off[2 * n];
+  if (nm + (n1 - n0) + (c1 - c0) > C.name_cap) {
+    *need = nm + (n1 - n0) + (c1 - c0);
+    return FULL_NAME;
+  }
+  int64_t pos = nx;
+  const int64_t s0 = C.seq_off[n];
+  int64_t sp = s0;
+  const auto put = [&](char* dst, int64_t cap, int64_t at, int64_t a,
+                       int64_t b, int64_t* need_out) {
+    if (at + (b - a) > cap) { *need_out = at + (b - a); return false; }
+    std::memcpy(dst + at, buf + a, (size_t)(b - a));
+    return true;
+  };
+  if (R.mark == '>') {
+    for (;;) {
+      if (pos == end) {
+        if (!final) return MORE;
+        break;
+      }
+      if (buf[pos] == '>') break;
+      int64_t a = pos;
+      int64_t b = line_end(buf, pos, end, final, &pos);
+      if (b < 0) return MORE;
+      while (a < b && is_ws(buf[a])) a++;
+      while (b > a && is_ws(buf[b - 1])) b--;
+      if (!put(C.seq, C.seq_cap, sp, a, b, need)) return FULL_SEQ;
+      sp += b - a;
+    }
+  } else {
+    int64_t la[3], lb[3];
+    for (int part = 0; part < 3; part++) {
+      int64_t a = pos;
+      int64_t b = line_end(buf, pos, end, final, &pos);
+      if (b < 0) return MORE;
+      while (a < b && is_ws(buf[a])) a++;
+      while (b > a && is_ws(buf[b - 1])) b--;
+      la[part] = a;
+      lb[part] = b;
+    }
+    if (!put(C.seq, C.seq_cap, sp, la[0], lb[0], need)) return FULL_SEQ;
+    sp += lb[0] - la[0];
+    const int64_t q0 = C.qual_off[n];
+    if (!put(C.qual, C.qual_cap, q0, la[2], lb[2], need)) return FULL_QUAL;
+    C.qual_off[n + 1] = q0 + (lb[2] - la[2]);
+  }
+  std::memcpy(C.name + nm, buf + n0, (size_t)(n1 - n0));
+  std::memcpy(C.name + nm + (n1 - n0), buf + c0, (size_t)(c1 - c0));
+  C.name_off[2 * n + 1] = nm + (n1 - n0);
+  C.name_off[2 * n + 2] = nm + (n1 - n0) + (c1 - c0);
+  C.seq_off[n + 1] = sp;
+  *used = pos - pos0;
+  return OK;
+}
+
+}  // namespace fx
+
+extern "C" {
+
+// Open the reader on `path` (gzip when `gz`), reading `block` bytes at a
+// time; null when the file cannot be opened.
+void* cp_fx_open(const char* path, int gz, int64_t block) {
+  const int fd = ::open(path, O_RDONLY);
+  if (fd < 0) return nullptr;
+  fx::Reader* R = new fx::Reader();
+  R->fd = fd;
+  R->gz = gz != 0;
+  R->block = block > 0 ? block : (1 << 20);
+  if (R->gz) {
+    struct stat st;
+    if (fstat(fd, &st) == 0 && st.st_size < 4) R->text_eof = true;
+    std::memset(&R->zs, 0, sizeof(R->zs));
+    if (inflateInit2(&R->zs, 16 + MAX_WBITS) != Z_OK) {
+      R->err = fx::BAD_GZIP;
+    } else {
+      R->z_live = true;
+      R->in.resize(R->block);
+    }
+  }
+  return R;
+}
+
+void cp_fx_close(void* h) {
+  fx::Reader* R = static_cast<fx::Reader*>(h);
+  if (!R) return;
+  if (R->z_live) inflateEnd(&R->zs);
+  if (R->fd >= 0) ::close(R->fd);
+  delete R;
+}
+
+// The bytes the reader holds (its input block and text window), and its
+// seconds so far in read(2), in inflate and in the record scan.
+void cp_fx_stats(void* h, int64_t* out) {
+  const fx::Reader* R = static_cast<const fx::Reader*>(h);
+  out[0] = (int64_t)(R->in.capacity() + R->txt.capacity());
+  out[1] = R->ns_read;
+  out[2] = R->ns_inflate;
+  out[3] = R->ns_scan;
+}
+
+// Read records into the chunk buffers until it holds `B`, starting at
+// record `n` (records [0, n) are there from an earlier call whose buffer
+// ran out).  Record i: its sequence at seq[seq_off[i], seq_off[i+1]),
+// name at name[name_off[2i], name_off[2i+1]), comment up to
+// name_off[2i+2], FASTQ quality at qual[qual_off[i], qual_off[i+1])
+// (qual_off untouched for FASTA), its profile length
+// max(rlen - K + 1, 0).  Returns the record count; status[0] is OK (the
+// chunk is full, or the file ended: then status[1] = 1), FULL_* (a
+// buffer needs status[1] bytes: grow it and call again with the count),
+// NOT_FASTX (status[1] the first byte), BAD_GZIP, IO_ERROR, or TOO_LONG
+// for a record longer than max_len (status[1] its index in the chunk,
+// status[3] its length; the records before it are in the chunk).
+// status[2] is 1 for FASTQ once the first byte is seen.
+int64_t cp_fx_next(void* h, int64_t B, int64_t n, int K, int64_t max_len,
+                   char* seq, int64_t seq_cap, int64_t* seq_off,
+                   char* name, int64_t name_cap, int64_t* name_off,
+                   char* qual, int64_t qual_cap, int64_t* qual_off,
+                   int64_t* plen, int64_t* status) {
+  fx::Reader& R = *static_cast<fx::Reader*>(h);
+  fx::Chunk C{seq, seq_cap, seq_off, name, name_cap, name_off,
+              qual, qual_cap, qual_off, plen};
+  status[0] = status[1] = status[2] = status[3] = 0;
+  if (n == 0) {
+    seq_off[0] = 0;
+    name_off[0] = 0;
+    qual_off[0] = 0;
+  }
+  int64_t want = R.block;
+  while (n < B) {
+    if (R.err) { status[0] = R.err; return n; }
+    if (R.t0 == R.t1) {
+      if (R.text_eof) { status[1] = 1; break; }
+      fill(R, R.block);
+      continue;
+    }
+    if (!R.mark) {
+      const char c = R.txt[R.t0];
+      if (c != '>' && c != '@') {
+        R.err = fx::NOT_FASTX;
+        status[0] = fx::NOT_FASTX;
+        status[1] = (uint8_t)c;
+        return n;
+      }
+      R.mark = c;
+    }
+    status[2] = R.mark == '@';
+    int64_t used = 0, need = 0;
+    const long long t = now_ns();
+    const int64_t rc = fx::scan(R, C, n, &used, &need);
+    R.ns_scan += now_ns() - t;
+    if (rc == fx::MORE) {              // a record longer than the window
+      if (!fill(R, want) && R.err) continue;
+      want *= 2;                       // rescans stay O(log record)
+      continue;
+    }
+    if (rc != fx::OK) {
+      status[0] = rc;
+      status[1] = need;
+      return n;
+    }
+    want = R.block;
+    const int64_t rlen = seq_off[n + 1] - seq_off[n];
+    if (rlen > max_len) {
+      R.err = fx::TOO_LONG;
+      status[0] = fx::TOO_LONG;
+      status[1] = n;
+      status[3] = rlen;
+      return n;
+    }
+    plen[n] = rlen - K + 1 > 0 ? rlen - K + 1 : 0;
+    R.t0 += used;
+    n++;
+  }
+  return n;
 }
 
 }  // extern "C"

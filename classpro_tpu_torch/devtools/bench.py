@@ -40,10 +40,10 @@ The measurement (``measure``), in the order ``bench.py`` takes it:
    decoded beforehand, the service framing); up to 5 windows, each
    window's rate in ``runs``, their median in ``value`` after every
    window;
-5. end to end: the same windows, every pass reading the FASTA as
-   ``classify_file_torch`` reads it (``engine.fastx_chunks``: parse,
-   length checks, ``ProfileIndex.fetch_batch``) inside the timed window;
-   ``e2e_runs`` and their median ``e2e``;
+5. end to end: the same windows, every pass streaming the FASTA as
+   ``classify_file_torch`` streams it (``engine.fastx_chunks``: the C++
+   reader's chunks, each read's profile decoded and its length checked
+   in the wall stage) inside the timed window; ``e2e_runs`` and their median ``e2e``;
 6. the exactness guard's telemetry from ``TorchEngine.stats()`` over the
    whole run (``guard_flagged``, ``min_margin``), and the reads the
    guard re-decided in one pass (``guard_flagged_per_pass``: every pass
@@ -145,13 +145,15 @@ def passes(fx: dict, B: int, reps: int):
 
 
 def e2e_passes(fx: dict, P, B: int, reps: int):
-    """``reps`` passes in chunks of B, each reading the FASTA and its
-    profiles through ``P`` as ``classify_file_torch`` reads them."""
+    """``reps`` passes in chunks of B, each streaming the FASTA as
+    ``classify_file_torch`` streams it: the C++ reader's ``ReadChunk``s
+    with their compressed profiles in ``P`` (``engine.fastx_chunks``),
+    decoded in the wall stage."""
     from classpro_tpu_torch.engine import fastx_chunks
 
     K = fx["gm"].kmer
-    return ((seqs, profs) for _ in range(reps)
-            for _recs, seqs, profs in fastx_chunks(fx["fasta"], P, K, B))
+    return (c for _ in range(reps)
+            for c in fastx_chunks(fx["fasta"], P, K, B))
 
 
 def stream(eng, chunks) -> list[str]:

@@ -4,10 +4,16 @@ Runs ``TorchEngine.classify_stream`` (sort_window 8) over a committed
 fixture (default medium; ``--nreads`` keeps its first reads) with its
 input produced on a metered prefetch thread, for four input variants:
 
-* ``steady``: everything pre-staged (the steady-stream framing);
-* ``decode``: pre-parsed reads, only the profile decode in the window;
-* ``nogz``: a pre-inflated FASTA parsed in the window;
-* ``full``: gzip + parse + decode in the window (what ``classify`` does).
+* ``steady``: everything pre-staged (the steady-stream framing:
+  decoded profiles);
+* ``decode``: the C++ reader's chunks read beforehand and fed again
+  every pass, so only the profile decode (in the wall stage's workers)
+  is in the window;
+* ``nogz``: a pre-inflated FASTA streamed by the C++ reader in the
+  window (``engine.fastx_chunks``);
+* ``full``: the gzip FASTA streamed, inflated and scanned by the C++
+  reader in the window, each profile decoded in the wall stage (what
+  ``classify`` does).
 
 For each, two trials print the rate, ms per chunk, the producer's work
 per pass, and who waited on whom (producer blocked on a full queue,
@@ -74,7 +80,7 @@ def probe(reps: int = 8, batch: int = 200, device: str = "cuda",
           fixture: str = "medium", nreads: int = 0) -> dict:
     import torch
 
-    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.engine import TorchEngine, fastx_chunks
     from classpro_tpu_torch.estimation import build_global_model
     from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
     from classpro_tpu_torch.io.fastx import read_fastx
@@ -95,28 +101,13 @@ def probe(reps: int = 8, batch: int = 200, device: str = "cuda",
 
     def from_file(path):
         def gen():
-            buf, rid = [], 0
-            for rec in read_fastx(path):
-                if rid == n:
-                    break
-                buf.append(rec.seq)
-                rid += 1
-                if len(buf) >= B:
-                    plens = [max(len(s) - K + 1, 0) for s in buf]
-                    yield buf, P.fetch_batch(
-                        list(range(rid - len(buf), rid)), plens)
-                    buf = []
-            if buf:
-                plens = [max(len(s) - K + 1, 0) for s in buf]
-                yield buf, P.fetch_batch(list(range(rid - len(buf), rid)),
-                                         plens)
+            yield from fastx_chunks(path, P, K, B, count=n)
         return gen
 
+    read = list(fastx_chunks(gz, P, K, B, count=n))
+
     def gen_decode():
-        for i in range(0, len(seqs), B):
-            sub = seqs[i:i + B]
-            plens = [max(len(s) - K + 1, 0) for s in sub]
-            yield sub, P.fetch_batch(list(range(i, i + len(sub))), plens)
+        yield from read
 
     def gen_steady():
         for i in range(0, len(seqs), B):

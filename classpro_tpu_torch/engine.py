@@ -28,7 +28,12 @@ whole, exactly, by the C++ host plane (one batched exact rel call and one
 relaxation call per chunk, over the -T workers).
 
 The production entry is ``classify_stream``: a depth-3 software pipeline
-in which chunk k+1's host stages overlap chunk k's device work.  Each
+in which chunk k+1's host stages overlap chunk k's device work.  Its
+input (``fastx_chunks``) is the C++ reader's chunks of the FASTX file,
+read on a prefetch thread, each read's profile decoded inside the wall
+stage's worker that walks it (``NativeWall.wall_stage_fastk``); the sort
+window re-composes device chunks as index arrays into the reader's
+buffers (``ReadBatch``).  Each
 chunk takes a slot of the engine's kept host staging
 (``staging.StagingPool``; pinned on a card) and the C++ packer writes its
 blobs straight into it; on a card they go from there into the bucket
@@ -49,7 +54,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -60,8 +65,10 @@ from classpro_tpu_torch.constants import DEFAULTS
 from classpro_tpu_torch.device import canonical_device, resolve_device
 from classpro_tpu_torch.estimation import GlobalModel, build_global_model
 from classpro_tpu_torch.io.classfile import ClassRecord, class_header
-from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
-from classpro_tpu_torch.io.fastx import read_fastx_checked
+from classpro_tpu_torch.io.fastk import (load_histogram, mismatch_error,
+                                         open_profiles)
+from classpro_tpu_torch.io.fastx import (FastxReader, ReadChunk,
+                                         read_fastx_checked)
 from classpro_tpu_torch.native import NativeWall, chunk_dims
 from classpro_tpu_torch.pack import _bucket
 from classpro_tpu_torch.params import build_replicas
@@ -183,6 +190,37 @@ def _prefetched(chunks, depth: int):
         it.close()
 
 
+class ReadBatch(NamedTuple):
+    """A device chunk's reads as arrays into reader chunks' buffers
+    (``ReadChunk``): each read's sequence address and length, its
+    compressed profile's address and byte count, its profile length and
+    its index in the file; ``keep`` holds the chunks they point into."""
+    seq_addr: np.ndarray
+    seq_len: np.ndarray
+    prof_addr: np.ndarray
+    prof_nb: np.ndarray
+    plen: np.ndarray
+    rid: np.ndarray
+    keep: tuple
+
+
+def read_batch(chunks) -> ReadBatch:
+    """The reads of ``chunks`` (ReadChunks from ``fastx_chunks``), in
+    order."""
+    def cat(f):
+        return np.concatenate([f(c) for c in chunks])
+    return ReadBatch(cat(ReadChunk.seq_addr), cat(lambda c: c.seq_len),
+                     cat(lambda c: c.prof_addr), cat(lambda c: c.prof_nb),
+                     cat(lambda c: c.plen[:c.n]),
+                     cat(lambda c: np.arange(c.rid0, c.rid0 + c.n)),
+                     tuple(chunks))
+
+
+def _take(b: ReadBatch, idx) -> ReadBatch:
+    """The reads of ``b`` at positions ``idx``."""
+    return ReadBatch(*(a[idx] for a in b[:-1]), b.keep)
+
+
 class TorchEngine:
     """``devices`` (a list, which may repeat a device) round-robins whole
     chunks over those devices (the JAX package's ``TpuEngine(devices=)``):
@@ -299,12 +337,16 @@ class TorchEngine:
 
     def classify_stream(self, chunks, prefetch: int = 2,
                         sort_window: int = 0):
-        """Yield one list of class strings per (seqs, profiles) chunk,
-        in order, with cross-chunk host/device overlap (three chunks in
-        flight: host k+1 || device k || finish k-1).
+        """Yield one list of class strings per chunk, in order, with
+        cross-chunk host/device overlap (three chunks in flight: host k+1
+        || device k || finish k-1).  A chunk is a (seqs, profiles) pair
+        (decoded profiles) or a ``ReadChunk`` of ``fastx_chunks`` (the
+        reader's buffers and each read's compressed profile, decoded in
+        the wall stage's workers); one stream takes one kind.
 
         ``prefetch`` > 0 pulls the input iterable on a bounded
-        background thread.  ``sort_window`` > 1 re-composes device
+        background thread (a queue of ``prefetch`` chunks, at least a
+        sort window's).  ``sort_window`` > 1 re-composes device
         batches from windows of that many input chunks, ordered by
         profile length (each DP warp runs as long as its longest row),
         and re-assembles the results into the original chunk structure
@@ -314,18 +356,24 @@ class TorchEngine:
             return
         pending: collections.deque = collections.deque()
         with _prefetched(chunks, prefetch) as src:
-            for seqs, profiles in src:
-                pending.append(self._submit(seqs, profiles))
+            for c in src:
+                if isinstance(c, ReadChunk):
+                    c = (read_batch((c,)),)
+                elif isinstance(c, ReadBatch):
+                    c = (c,)
+                pending.append(self._submit(*c))
                 if len(pending) >= self.depth:
                     yield self._finish(pending.popleft())
         while pending:
             yield self._finish(pending.popleft())
 
     def _sorted_stream(self, chunks, prefetch: int, W: int):
-        """classify_stream body for sort_window: flatten windows of W
-        input chunks, order reads by profile length, run the same
-        pipeline over the re-composed batches, then un-sort each
-        window's results back into the original chunk structure."""
+        """classify_stream body for sort_window: windows of W input
+        chunks, their reads ordered by profile length (a stable sort),
+        run through the same pipeline in re-composed batches of the
+        engine's batch size, then each window's results un-sorted back
+        into the original chunk structure.  Reader chunks are re-composed
+        as index arrays into their buffers (``read_batch``)."""
         import itertools
 
         B = self.batch_size
@@ -337,6 +385,16 @@ class TorchEngine:
                 win = list(itertools.islice(it, W))
                 if not win:
                     return
+                if isinstance(win[0], ReadChunk):
+                    wb = read_batch(win)
+                    order = np.argsort(wb.plen, kind="stable")
+                    subs = [order[k: k + B]
+                            for k in range(0, len(order), B)]
+                    win_meta.append(([c.n for c in win], order.tolist(),
+                                     len(subs)))
+                    for idx in subs:
+                        yield _take(wb, idx)
+                    continue
                 seqs = [s for ss, _ in win for s in ss]
                 profs = [p for _, pp in win for p in pp]
                 order = sorted(range(len(seqs)),
@@ -349,10 +407,13 @@ class TorchEngine:
                            [profs[i] for i in idx])
 
         # the generator runs ahead of the consumer (three chunks in
-        # flight), so win_meta[wi] exists when its last subchunk finishes
+        # flight), so win_meta[wi] exists when its last subchunk finishes.
+        # The prefetch queue holds a whole window: the consumer takes W
+        # chunks at once, and a shallower queue would leave the producer
+        # blocked while the window before runs
         pending: list = []
         wi = 0
-        with _prefetched(chunks, prefetch) as src:
+        with _prefetched(chunks, prefetch and max(prefetch, W)) as src:
             for res in self.classify_stream(sorted_chunks(src), prefetch=0):
                 pending.append(res)
                 sizes, order, nsub = win_meta[wi]
@@ -370,21 +431,75 @@ class TorchEngine:
                 wi += 1
 
     # ------------------------------------------------------------------
-    def _stage(self, seqs, profiles):
+    def _stage(self, seqs, profiles=None):
         """Wall stage (C++) for one chunk, with each staged read's profile
         length (``_plens``, by slab read) and the natural (R, max_m)
-        bucket of its reliable intervals (no device work yet)."""
+        bucket of its reliable intervals (no device work yet).  The chunk
+        is (seqs, profiles), or a ``ReadBatch`` alone: then each read's
+        profile is decoded in the worker that walks it
+        (``NativeWall.wall_stage_fastk``) and a profile whose length is
+        not the read's raises the reference's refusal
+        (``mismatch_error``) for the first such read of the file."""
+        if profiles is None:
+            return self._stage_reads(seqs)
         todo = [i for i in range(len(seqs)) if len(profiles[i]) > 0]
-        st = {"seqs": seqs, "profiles": profiles, "todo": todo}
+        st = {"seqs": seqs, "profiles": profiles,
+              "slen": [len(s) for s in seqs]}
         if not todo:
             return st
         g = sorted(todo, key=lambda i: len(profiles[i]))
         slab, n_out, n_rel, slot = self.wall.wall_stage_slab(
             [seqs[i].encode("ascii") for i in g],
             [profiles[i] for i in g], threads=self.threads)
+        return self._staged(st, g, [len(profiles[i]) for i in g], slab,
+                            n_out, n_rel, slot)
+
+    def _stage_reads(self, b: ReadBatch):
+        """``_stage`` of a ReadBatch: the profiles decoded in the wall
+        stage's workers, and every read's profile length checked."""
+        st = {"reads": b, "slen": b.seq_len.tolist()}
+        plen = b.plen
+        todo = np.flatnonzero(plen > 0)
+        g = todo[np.argsort(plen[todo], kind="stable")]
+        # a read with no k-mer (rlen < K) must have an empty profile
+        dec = self.wall.lib.cp_decode_profile
+        bad = any(dec(int(b.prof_addr[i]), int(b.prof_nb[i]), None, 0)
+                  for i in np.flatnonzero((plen == 0) & (b.prof_nb > 0)))
+        if g.size:
+            slab, n_out, n_rel, slot, dec_n = self.wall.wall_stage_fastk(
+                b.seq_addr[g], b.seq_len[g], b.prof_addr[g], b.prof_nb[g],
+                plen[g], threads=self.threads)
+            if (dec_n != plen[g]).any():
+                self.wall.release_slab(slab)
+                bad = True
+        if bad:
+            raise self._mismatch(b)
+        if not g.size:
+            return st
+        return self._staged(st, g.tolist(), plen[g], slab, n_out, n_rel,
+                            slot)
+
+    def _mismatch(self, b: ReadBatch) -> ValueError:
+        """The reference's refusal (``mismatch_error``) for the first read,
+        in file order, of the chunks ``b`` was taken from (its sort
+        window; the windows before it were staged whole) whose decoded
+        profile length is not its plen."""
+        dec = self.wall.lib.cp_decode_profile
+        for c in b.keep:
+            for j in range(c.n):
+                n = dec(int(c.prof_addr[j]), int(c.prof_nb[j]), None, 0)
+                if n != c.plen[j]:
+                    return mismatch_error(c.rid0 + j, int(c.seq_len[j]), n,
+                                          self.gm.kmer)
+        raise AssertionError("no read of the window mismatches")
+
+    @staticmethod
+    def _staged(st, g, plens, slab, n_out, n_rel, slot):
+        """Record a chunk's wall stage in ``st``: the staged reads ``g``
+        (slab read r is chunk read g[r]) with their profile lengths and
+        the natural bucket of their reliable intervals."""
         st.update(g=g, slab=slab, n_out=n_out, n_rel=n_rel, slot=slot,
-                  max_m=0,
-                  _plens=np.array([len(profiles[i]) for i in g], np.int64))
+                  max_m=0, _plens=np.asarray(plens, np.int64))
         sel_n = int((n_rel > 0).sum())
         if sel_n:
             st["_R"] = _bucket(sel_n)
@@ -416,10 +531,10 @@ class TorchEngine:
         fb, ib = self._pack_st(st, st["_R"], st["_mm"])
         return fb, ib, st["_R"], st["_mm"]
 
-    def _submit(self, seqs, profiles):
+    def _submit(self, seqs, profiles=None):
         """Wall stage + rel pack (both C++, the pack into the chunk's
         staging slot) + the chunk's device work, enqueued without waiting
-        for it."""
+        for it (the chunk as ``_stage`` takes it)."""
         st = self._stage(seqs, profiles)
         self.chunks_done += 1
         if self.PP is not None:
@@ -552,7 +667,7 @@ class TorchEngine:
             buf = st["un"].numpy()
             rows = st["rows"]
             out_off = np.zeros(len(rows) + 1, np.int64)
-            out_off[1:] = np.cumsum([len(st["seqs"][g[r]]) for r in rows])
+            out_off[1:] = np.cumsum([st["slen"][g[r]] for r in rows])
             cls = self.wall.expand_rows(st["slab"], st["slot"], st["n_out"],
                                         rows, buf[:, :-1].view(np.int8),
                                         out_off, threads=self.threads)
@@ -587,7 +702,7 @@ class TorchEngine:
                                       np.arange(live.size),
                                       threads=self.threads)
         out_off = np.zeros(len(rs) + 1, np.int64)
-        out_off[1:] = np.cumsum([len(st["seqs"][st["g"][r]]) for r in rs])
+        out_off[1:] = np.cumsum([st["slen"][st["g"][r]] for r in rs])
         buf = self.wall.finish_batch(
             slab_c, slot_c, n_out, n_rel, rel_out,
             rel_out.shape[1] if rel_out is not None else 1, out_off,
@@ -632,8 +747,8 @@ class TorchEngine:
         guard), release the chunk's staging slot (the rel planes and the
         result read by those two calls are its views), then ONE C++ call:
         scatter rel assignments, relaxation sweeps, class expansion."""
-        seqs = st["seqs"]
-        res = [""] * len(seqs)
+        slen = st["slen"]
+        res = [""] * len(slen)
         if "g" in st and self.PP is not None:
             for i, c in zip(st["g"], self._finish_alldev(st)):
                 res[i] = c
@@ -658,7 +773,7 @@ class TorchEngine:
                 self._exact_guard(st, rel_out)
                 self._release(st)
             out_off = np.zeros(len(g) + 1, np.int64)
-            out_off[1:] = np.cumsum([len(seqs[i]) for i in g])
+            out_off[1:] = np.cumsum([slen[i] for i in g])
             buf = self.wall.finish_batch(slab, slot, n_out, n_rel,
                                          rel_out, st["max_m"], out_off,
                                          threads=self.threads)
@@ -666,9 +781,9 @@ class TorchEngine:
             mv = memoryview(buf)  # str() decodes straight from the slab
             for r, i in enumerate(g):
                 res[i] = str(mv[out_off[r]: out_off[r + 1]], "ascii")
-        for i in range(len(seqs)):
+        for i in range(len(slen)):
             if not res[i]:
-                res[i] = "N" * len(seqs[i])
+                res[i] = "N" * slen[i]
         return res
 
 
@@ -709,33 +824,44 @@ def _warmup_shape(eng: TorchEngine, fastx_path: str, P, batch_size: int):
     return (_bucket(batch_size), nxt), sample_n, nrel_max
 
 
-def fastx_chunks(fastx_path: str, P, K: int, batch_size: int):
-    """The reads of a FASTX file in chunks of ``batch_size``, their
-    profiles decoded from ``P`` (``fetch_batch``): (records, seqs,
-    profiles) per chunk.  Raises ValueError for a read longer than the
-    maximum and for a profile whose length is not the read's."""
+def fastx_chunks(fastx_path: str, P, K: int, batch_size: int,
+                 first: int = 0, count: int | None = None):
+    """The reads of a FASTX file in ``ReadChunk``s of ``batch_size``,
+    streamed by the C++ reader (``FastxReader``), each with its reads'
+    compressed profiles in ``P`` (``ProfileIndex.ranges``), which the
+    wall stage decodes: reads ``first`` .. ``first + count`` (all from
+    ``first`` when count is None; the reads before it are read and
+    dropped, never made records).  Raises ValueError for a read longer
+    than the maximum (at the chunk that holds it) and IndexError for a
+    read beyond the profiles; a profile whose length is not the read's
+    raises in the wall stage (``TorchEngine._stage``)."""
+    end = None if count is None else first + count
+    with FastxReader(fastx_path, K=K, max_len=DEFAULTS.max_read_len) as rd:
+        while True:
+            want = batch_size if rd.rid >= first else min(
+                batch_size, first - rd.rid)
+            if end is not None and rd.rid >= first:
+                want = min(want, end - rd.rid)
+            if want <= 0:
+                return
+            skip = rd.rid < first
+            c = rd.next_chunk(want)
+            if rd.pending_error is not None:
+                raise rd.pending_error
+            if c is None:
+                return
+            if skip:
+                continue
+            c.prof_addr, c.prof_nb = P.ranges(
+                np.arange(c.rid0, c.rid0 + c.n))
+            c.profiles = P
+            yield c
 
-    def flush(chunk, rid0):
-        plens = [max(len(r.seq) - K + 1, 0) for r in chunk]
-        profs = P.fetch_batch(list(range(rid0, rid0 + len(chunk))), plens)
-        for j, p in enumerate(profs):   # ClassPro.c:184-187 rlen check
-            if len(p) != plens[j]:
-                rlen = len(chunk[j].seq)
-                raise ValueError(
-                    f"Read {rid0 + j}: rlen ({rlen}) != plen+Km1 "
-                    f"({len(p) + K - 1}) — profile/read mismatch")
-        return chunk, [r.seq for r in chunk], profs
 
-    chunk: list = []
-    rid = 0
-    for rec in read_fastx_checked(fastx_path, DEFAULTS.max_read_len):
-        chunk.append(rec)
-        rid += 1
-        if len(chunk) >= batch_size:
-            yield flush(chunk, rid - len(chunk))
-            chunk = []
-    if chunk:
-        yield flush(chunk, rid - len(chunk))
+def chunk_records(c: ReadChunk, classes) -> Iterator[ClassRecord]:
+    """The ClassRecords of a reader chunk's reads and their classes."""
+    for (name, comment), seq, cls in zip(c.names(), c.seqs(), classes):
+        yield ClassRecord(class_header(name, comment), seq, cls)
 
 
 def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
@@ -771,13 +897,13 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
               file=sys.stderr)
         eng.warmup((shape,))
         print("warmup done", file=sys.stderr)
-    recs: list = []
+    # the reader's chunks in flight (appended on the prefetch thread)
+    recs: collections.deque = collections.deque()
 
     def chunk_iter():
-        for chunk, seqs, profs in fastx_chunks(fastx_path, P, gm.kmer,
-                                               batch_size):
-            recs.append(chunk)
-            yield seqs, profs
+        for c in fastx_chunks(fastx_path, P, gm.kmer, batch_size):
+            recs.append(c)
+            yield c
 
     def stream():
         import time as _time
@@ -786,10 +912,7 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
         # sort_window=8: device batches composed from plen-ordered
         # windows (same bytes, shorter longest-row per batch)
         for classes in eng.classify_stream(chunk_iter(), sort_window=8):
-            chunk_recs = recs.pop(0)
-            for rec, cls in zip(chunk_recs, classes):
-                yield ClassRecord(class_header(rec.name, rec.comment),
-                                  rec.seq, cls)
+            yield from chunk_records(recs.popleft(), classes)
         if stats_out is not None:
             stats_out.update(stream_wall_s=_time.time() - t0, **eng.stats())
 

@@ -241,12 +241,21 @@ def _hidden(root: str, suffix: str) -> str:
     return os.path.join(d if d else ".", f".{b}.{suffix}")
 
 
+def mismatch_error(rid: int, rlen: int, plen: int, kmer: int) -> ValueError:
+    """The reference's refusal of a read whose profile length is not
+    rlen - K + 1 (ClassPro.c:184-187)."""
+    return ValueError(f"Read {rid}: rlen ({rlen}) != plen+Km1 "
+                      f"({plen + kmer - 1}) — profile/read mismatch")
+
+
 class ProfileIndex:
     """Random access to FASTK read profiles (ref Open_Profiles /
     Fetch_Profile, libfastk.c:1267-1562).
 
-    The per-part byte-offset indices are held in memory; compressed
-    streams are read lazily (one part file mmap'd at a time)."""
+    The per-part byte-offset indices are held in memory; each part file
+    is mapped read-only at its first use.  Decoding runs in the C++ host
+    plane (``cp_decode_profile``); a library that cannot be built or
+    loaded raises, and ``decode_profile`` is the plain version."""
 
     def __init__(self, root: str):
         stub = root if root.endswith(".prof") else root + ".prof"
@@ -268,6 +277,11 @@ class ProfileIndex:
                 self.nbase.append(nreads)
         self.nreads = nreads
         self.index = np.concatenate(index_parts)
+        self._nbase = np.asarray(self.nbase, np.int64)
+        # the first read id of each part (its start offset is 0: offsets
+        # restart per part, libfastk.c:1446-1454)
+        self._first = np.concatenate([[0], self._nbase[:-1]]).astype(
+            np.int64)
         self._part_data: dict[int, np.ndarray] = {}
 
     def _part_of(self, rid: int) -> int:
@@ -280,113 +294,99 @@ class ProfileIndex:
 
     def _data(self, part: int) -> np.ndarray:
         if part not in self._part_data:
-            data = np.fromfile(
-                _hidden(self._root, f"prof.{part + 1}"), dtype=np.uint8
-            )
+            path = _hidden(self._root, f"prof.{part + 1}")
+            size = os.path.getsize(path)
+            # mapped read-only: pages come in as the decode reads them
+            data = (np.memmap(path, dtype=np.uint8, mode="r") if size
+                    else np.zeros(0, np.uint8))
             # the part must hold at least its last read's end offset
             # (offsets restart per part, libfastk.c:1446-1454); a short
             # file would otherwise decode silently into garbage
             need = int(self.index[self.nbase[part]])
             if len(data) < need:
                 raise ValueError(
-                    f"{_hidden(self._root, f'prof.{part + 1}')}: "
-                    f"truncated profile part ({len(data)} bytes, pidx "
-                    f"needs {need})")
+                    f"{path}: truncated profile part ({len(data)} bytes, "
+                    f"pidx needs {need})")
             self._part_data[part] = data
         return self._part_data[part]
 
-    def raw(self, rid: int) -> bytes:
+    def ranges(self, rids) -> tuple[np.ndarray, np.ndarray]:
+        """The compressed profiles of reads ``rids``: each one's address
+        in its mapped part and its byte count (int64 arrays), the lo / hi
+        of ``fetch``; the parts stay mapped while the index lives.
+        Raises IndexError for a read id outside the profiles."""
+        rids = np.asarray(rids, np.int64)
+        if rids.size and (rids.min() < 0 or rids.max() >= self.nreads):
+            bad = rids[(rids < 0) | (rids >= self.nreads)][0]
+            raise IndexError(f"read id {int(bad)} out of range "
+                             f"[0,{self.nreads})")
+        parts = np.searchsorted(self._nbase, rids, side="right")
+        lo = np.where(rids == self._first[parts], 0, self.index[rids])
+        nb = self.index[rids + 1] - lo
+        base = np.zeros(self.nparts, np.int64)
+        for w in np.unique(parts):
+            base[w] = self._data(int(w)).ctypes.data
+        return base[parts] + lo, nb
+
+    def fetch(self, rid: int, max_len: int | None = None) -> np.ndarray:
+        """Uncompressed profile of read ``rid`` (0-based), decoded by the
+        C++ codec (``cp_decode_profile``); ``decode_profile`` is its plain
+        version."""
+        from classpro_tpu_torch.native import get_lib
+
+        lib = get_lib()
         w = self._part_of(rid)
-        data = self._data(w)
-        # Offsets restart at 0 within each part file (libfastk.c:1446-1454):
-        # the first read of a part has no stored start offset — it is 0.
+        # the first read of a part has no stored start offset: it is 0
         first_of_part = rid == 0 or (w > 0 and rid == self.nbase[w - 1])
         lo = 0 if first_of_part else int(self.index[rid])
         hi = int(self.index[rid + 1])
-        return data[lo:hi].tobytes()
-
-    _native = None  # class-level: 0 = unavailable, else the ctypes lib
-
-    def fetch(self, rid: int, max_len: int | None = None) -> np.ndarray:
-        """Uncompressed profile of read ``rid`` (0-based).  Decodes with
-        the C++ codec (csrc cp_decode_profile, ~100x the Python loop)
-        when the native library is available; the Python decoder stays
-        as the byte-validated fallback/oracle."""
-        if ProfileIndex._native is None:
-            try:
-                from classpro_tpu_torch.native import get_lib
-
-                ProfileIndex._native = get_lib()
-            except Exception:
-                ProfileIndex._native = 0
-        if ProfileIndex._native:
-            w = self._part_of(rid)
-            data = self._data(w)
-            first_of_part = rid == 0 or (w > 0 and rid == self.nbase[w - 1])
-            lo = 0 if first_of_part else int(self.index[rid])
-            hi = int(self.index[rid + 1])
-            nb = hi - lo
-            if nb == 0:
-                return np.zeros(0, dtype=np.uint16)
-            cap = 2 * nb + 16 if max_len is None else max_len
-            while True:
-                out = np.empty(cap, np.uint16)
-                n = ProfileIndex._native.cp_decode_profile(
-                    data[lo:hi].ctypes.data, nb, out.ctypes.data, cap)
-                if n <= cap:
-                    return out[:n]
-                if max_len is not None:
-                    return out[:max_len]
-                cap = n
-        return decode_profile(self.raw(rid), max_len)
+        data = self._data(w)
+        nb = hi - lo
+        if nb == 0:
+            return np.zeros(0, dtype=np.uint16)
+        cap = 2 * nb + 16 if max_len is None else max_len
+        while True:
+            out = np.empty(cap, np.uint16)
+            n = lib.cp_decode_profile(data[lo:hi].ctypes.data, nb,
+                                      out.ctypes.data, cap)
+            if n <= cap:
+                return out[:n]
+            if max_len is not None:
+                return out[:max_len]
+            cap = n
 
     def fetch_batch(self, rids, plens) -> list:
         """Decode many profiles in ONE native call (the per-read ctypes
-        round trip dominates fetch cost).  ``plens`` are the known
-        profile lengths (rlen - K + 1); falls back to per-read fetch
-        without the native library."""
-        if ProfileIndex._native is None:
-            self.fetch(rids[0] if len(rids) else 0)   # resolves _native
-        if not ProfileIndex._native or not len(rids):
-            return [self.fetch(r) for r in rids]
+        round trip dominates fetch cost).  ``plens`` are the reads'
+        profile lengths (rlen - K + 1, or 0); a profile of another length
+        raises the reference's profile/read mismatch (``mismatch_error``,
+        its rlen taken as plen + K - 1) for the first such read."""
+        from classpro_tpu_torch.native import get_lib
+
+        lib = get_lib()
         n = len(rids)
-        los = np.empty(n, np.int64)
-        his = np.empty(n, np.int64)
-        parts = [self._part_of(r) for r in rids]
-        if len(set(parts)) != 1:
-            # chunk straddles a part boundary: split into maximal
-            # same-part runs, one native batch call per run
-            out = []
-            i = 0
-            while i < n:
-                j = i
-                while j < n and parts[j] == parts[i]:
-                    j += 1
-                out.extend(self.fetch_batch(rids[i:j], plens[i:j]))
-                i = j
-            return out
-        data = self._data(parts[0])
-        for j, rid in enumerate(rids):
-            w = parts[j]
-            first = rid == 0 or (w > 0 and rid == self.nbase[w - 1])
-            los[j] = 0 if first else int(self.index[rid])
-            his[j] = int(self.index[rid + 1])
+        if not n:
+            return []
+        addr, nb = self.ranges(rids)
         caps = np.asarray(plens, np.int32)
         offs = np.zeros(n + 1, np.int64)
         np.cumsum(caps, out=offs[1:])
         cat = np.empty(int(offs[-1]), np.uint16)
         out_n = np.empty(n, np.int32)
-        ProfileIndex._native.cp_decode_profile_batch(
-            data.ctypes.data, los.ctypes.data, his.ctypes.data, n,
+        # offsets from the lowest address: one batch over every part
+        base = int(addr.min())
+        lo = addr - base
+        hi = lo + nb
+        lib.cp_decode_profile_batch(
+            base, lo.ctypes.data, hi.ctypes.data, n,
             cat.ctypes.data, offs.ctypes.data, caps.ctypes.data,
             out_n.ctypes.data)
-        out = []
-        for j in range(n):
-            if out_n[j] != caps[j]:          # unexpected length: redo solo
-                out.append(self.fetch(rids[j]))
-            else:
-                out.append(cat[offs[j]: offs[j] + out_n[j]])
-        return out
+        bad = np.flatnonzero(out_n != caps)
+        if bad.size:
+            j = int(bad[0])
+            raise mismatch_error(int(rids[j]), int(caps[j]) + self.kmer - 1,
+                                 int(out_n[j]), self.kmer)
+        return [cat[offs[j]: offs[j + 1]] for j in range(n)]
 
     def __len__(self) -> int:
         return self.nreads

@@ -4,10 +4,12 @@ The library is compiled on demand (g++ -O3 -shared) from the package's
 own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
 repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
 with ``cp_build_btg``, ``cp_exact_rel_batch``, ``cp_pack_chunk``,
-``cp_expand_rows`` and ``cp_demote_reconcile`` added, and its threaded
-entries on one worker pool kept for the process) into
-``classpro_tpu_torch/_build/``.  The engine has no pure-Python fallback:
-a failed build, or a library without one of these entries, raises.
+``cp_expand_rows``, ``cp_demote_reconcile``, ``cp_wall_stage_fastk`` and
+the streaming FASTX reader ``cp_fx_*`` (``io.fastx.FastxReader``) added,
+and its threaded entries on one worker pool kept for the process) into
+``classpro_tpu_torch/_build/``, with zlib.  Neither the engine nor the
+input plane has a pure-Python fallback: a failed build, or a library
+without one of these entries, raises.
 """
 
 from __future__ import annotations
@@ -48,11 +50,7 @@ def _build() -> str:
     tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-pthread",
            "-shared", "-fPIC", "-o", tmp, src, "-lm", "-lz"]
-    # libdeflate (~2-3x zlib inflate) when present; plain zlib otherwise
-    fast = (cmd[:1] + ["-DCP_HAVE_LIBDEFLATE"] + cmd[1:] + ["-ldeflate"])
-    r = subprocess.run(fast, capture_output=True)
-    if r.returncode != 0:
-        subprocess.run(cmd, check=True, capture_output=True)
+    subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, _SO)
     return _SO
 
@@ -106,14 +104,25 @@ def get_lib(force: bool = False):
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
-        lib.cp_gzip_inflate.restype = ctypes.c_int64
-        lib.cp_gzip_inflate.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64]
-        lib.cp_fastx_parse.restype = ctypes.c_int64
-        lib.cp_fastx_parse.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p]
+        lib.cp_wall_stage_fastk.restype = None
+        lib.cp_wall_stage_fastk.argtypes = (
+            lib.cp_wall_stage_batch_ptr.argtypes[:20]
+            + [ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int])
+        lib.cp_fx_open.restype = ctypes.c_void_p
+        lib.cp_fx_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                   ctypes.c_int64]
+        lib.cp_fx_close.restype = None
+        lib.cp_fx_close.argtypes = [ctypes.c_void_p]
+        lib.cp_fx_stats.restype = None
+        lib.cp_fx_stats.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.cp_fx_next.restype = ctypes.c_int64
+        lib.cp_fx_next.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_int64]
+            + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p] * 3
+            + [ctypes.c_void_p, ctypes.c_void_p])
         lib.cp_exact_rel.restype = ctypes.c_int
         lib.cp_exact_rel.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -331,29 +340,31 @@ class NativeWall:
                               int(dt.hc_idx), int(dt.n_cap))
         return self._walk_tab
 
-    def wall_stage_slab(self, seqs: list[bytes],
-                        profiles: list[np.ndarray],
-                        threads: int = 0, slot: int = 1024):
-        """Multithreaded wall stage returning the raw slotted slab
-        (read i's records at rows [i*slot, i*slot+n_out[i])) for zero-copy
-        consumption by `pack_rel`/`finish_batch`.  Returns
-        (slab structured array, n_out, n_rel, slot); retries the whole
-        batch with a larger slot on overflow (rare)."""
+    def _model_args(self) -> tuple:
+        """The model and table arguments of the wall stage entries (the
+        first 20 of ``cp_wall_stage_batch_ptr`` and
+        ``cp_wall_stage_fastk``)."""
         gm = self.gm
-        n = len(seqs)
-        threads = _threads(threads)
-        # pointer arrays into the caller-owned buffers (no concatenation)
-        profs_c = [np.ascontiguousarray(p, np.uint16) for p in profiles]
-        seq_ptrs = (ctypes.c_char_p * n)(*seqs)
-        prof_ptrs = (ctypes.c_void_p * n)(
-            *[p.ctypes.data for p in profs_c])
-        seq_len = np.array([len(s) for s in seqs], np.int32)
-        prof_len = np.array([len(p) for p in profs_c], np.int32)
+        btg, erates, pe_idx, hc_idx, n_cap = self._walk_tables()
+        return (gm.kmer, gm.cmax, int(gm.cov[2]), gm.read_len,
+                gm.defaults.max_n_hc, gm.defaults.min_cnt_change,
+                gm.defaults.max_cnt_change,
+                self._pe_thres.ctypes.data, gm.defaults.thres_diff_eo,
+                gm.defaults.thres_diff_rel, gm.emodel.hc_erate,
+                self._lmax.ctypes.data, self._lmaxp1,
+                self._pe.ctypes.data, self._cthres.ctypes.data,
+                btg.ctypes.data, erates.ctypes.data, pe_idx.ctypes.data,
+                hc_idx, n_cap)
+
+    def _slabbed(self, n: int, slot: int, call):
+        """Run ``call(out, slot, n_out, n_rel)`` (a wall stage entry over n
+        reads) into a slab of n * slot records, again with a slot 4x as
+        large while a read overflows its slot (rare); returns (slab, n_out,
+        n_rel, slot).  The slab comes from the pool ``release_slab``
+        fills, uninitialised: the entry writes [i*slot, i*slot+n_out[i])
+        and every consumer masks to n_out, so neither zeroing nor a fresh
+        allocation (page faults) per chunk is needed."""
         while True:
-            # np.empty + pooling: the C++ fills [i*slot, i*slot+n_out[i])
-            # and every consumer masks to n_out, so neither zeroing nor a
-            # fresh 11MB allocation (page faults) per chunk is needed —
-            # slabs are recycled via release_slab() at finish
             out = None
             pool = getattr(self, "_slab_pool", None)
             if pool:
@@ -365,24 +376,71 @@ class NativeWall:
                 out = np.empty(n * slot, dtype=_IVDT)
             n_out = np.zeros(n, np.int32)
             n_rel = np.zeros(n, np.int32)
-            btg, erates, pe_idx, hc_idx, n_cap = self._walk_tables()
-            self.lib.cp_wall_stage_batch_ptr(
-                gm.kmer, gm.cmax, int(gm.cov[2]), gm.read_len,
-                gm.defaults.max_n_hc, gm.defaults.min_cnt_change,
-                gm.defaults.max_cnt_change,
-                self._pe_thres.ctypes.data, gm.defaults.thres_diff_eo,
-                gm.defaults.thres_diff_rel, gm.emodel.hc_erate,
-                self._lmax.ctypes.data, self._lmaxp1,
-                self._pe.ctypes.data, self._cthres.ctypes.data,
-                btg.ctypes.data, erates.ctypes.data, pe_idx.ctypes.data,
-                hc_idx, n_cap,
-                n, seq_ptrs, seq_len.ctypes.data,
-                prof_ptrs, prof_len.ctypes.data,
-                out.ctypes.data_as(ctypes.c_void_p), slot,
-                n_out.ctypes.data, n_rel.ctypes.data, threads)
+            call(out, slot, n_out, n_rel)
             if (n_out >= 0).all():
                 return out, n_out, n_rel, slot
             slot *= 4
+
+    def wall_stage_slab(self, seqs: list[bytes],
+                        profiles: list[np.ndarray],
+                        threads: int = 0, slot: int = 1024):
+        """Multithreaded wall stage over decoded profiles, returning the
+        raw slotted slab (read i's records at rows [i*slot,
+        i*slot+n_out[i])) for zero-copy consumption by
+        `pack_rel`/`finish_batch`: (slab structured array, n_out, n_rel,
+        slot)."""
+        n = len(seqs)
+        threads = _threads(threads)
+        # pointer arrays into the caller-owned buffers (no concatenation)
+        profs_c = [np.ascontiguousarray(p, np.uint16) for p in profiles]
+        seq_ptrs = (ctypes.c_char_p * n)(*seqs)
+        prof_ptrs = (ctypes.c_void_p * n)(
+            *[p.ctypes.data for p in profs_c])
+        seq_len = np.array([len(s) for s in seqs], np.int32)
+        prof_len = np.array([len(p) for p in profs_c], np.int32)
+        args = self._model_args()
+        return self._slabbed(n, slot, lambda out, slot, n_out, n_rel:
+                             self.lib.cp_wall_stage_batch_ptr(
+            *args, n, seq_ptrs, seq_len.ctypes.data,
+            prof_ptrs, prof_len.ctypes.data,
+            out.ctypes.data_as(ctypes.c_void_p), slot,
+            n_out.ctypes.data, n_rel.ctypes.data, threads))
+
+    def wall_stage_fastk(self, seq_addr, seq_len, prof_addr, prof_nb,
+                         plen, threads: int = 0, slot: int = 1024):
+        """The wall stage with each read's profile decoded in the worker
+        that walks it (``cp_wall_stage_fastk``): read i is ``seq_len[i]``
+        bytes at address ``seq_addr[i]``, its FASTK profile ``prof_nb[i]``
+        compressed bytes at address ``prof_addr[i]``, and ``plen[i]``
+        counts long (the caller keeps both buffers alive for the call).
+        Returns (slab, n_out, n_rel, slot, dec_n) as ``wall_stage_slab``
+        does for the decoded profiles, and each read's decoded length:
+        a read whose ``dec_n`` is not its plen has no records (the
+        caller raises for it)."""
+        n = len(plen)
+        seq_addr = np.ascontiguousarray(seq_addr, np.int64)
+        seq_len = np.ascontiguousarray(seq_len, np.int32)
+        prof_addr = np.ascontiguousarray(prof_addr, np.int64)
+        prof_nb = np.ascontiguousarray(prof_nb, np.int64)
+        plen = np.ascontiguousarray(plen, np.int32)
+        if not (len(seq_addr) == len(seq_len) == len(prof_addr)
+                == len(prof_nb) == n):
+            raise ValueError("the read arrays differ in length")
+        if n and (plen.min() < 0 or prof_nb.min() < 0
+                  or seq_len.min() < 0):
+            raise ValueError("a negative length")
+        dec_n = np.zeros(n, np.int32)
+        threads = _threads(threads)
+        args = self._model_args()
+        slab, n_out, n_rel, slot = self._slabbed(
+            n, slot, lambda out, slot, n_out, n_rel:
+            self.lib.cp_wall_stage_fastk(
+                *args, n, seq_addr.ctypes.data, seq_len.ctypes.data,
+                prof_addr.ctypes.data, prof_nb.ctypes.data,
+                plen.ctypes.data, out.ctypes.data_as(ctypes.c_void_p),
+                slot, n_out.ctypes.data, n_rel.ctypes.data,
+                dec_n.ctypes.data, threads))
+        return slab, n_out, n_rel, slot, dec_n
 
     def release_slab(self, slab: np.ndarray) -> None:
         """Return a wall slab for reuse (keeps at most 4 — the stream

@@ -32,6 +32,7 @@ a rank, the run fails with NCCL's error.  Run one process per device::
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import hashlib
 import os
@@ -168,12 +169,11 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
     reference overwrites its temp shards, io.c:139, so resume is a
     superset, off by default).  ``_skip_init`` runs several pids in one
     process without a group (tests, chip_smoke.py)."""
-    from classpro_tpu_torch.constants import DEFAULTS
-    from classpro_tpu_torch.engine import TorchEngine
+    from classpro_tpu_torch.engine import (TorchEngine, chunk_records,
+                                           fastx_chunks)
     from classpro_tpu_torch.estimation import build_global_model
-    from classpro_tpu_torch.io.classfile import class_header
     from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
-    from classpro_tpu_torch.io.fastx import read_fastx_checked, root_of
+    from classpro_tpu_torch.io.fastx import root_of
 
     dev = _process_device(pid, device)
     if nproc > 1 and not _skip_init:
@@ -208,36 +208,19 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
                   f"different parameters — reclassifying",
                   file=sys.stderr)
     eng = TorchEngine(gm, batch_size=batch_size, device=dev)
-    recs: list = []
-    K = gm.kmer
-
-    def _flush(buf, rid0):
-        recs.append(buf)
-        plens = [max(len(r.seq) - K + 1, 0) for r in buf]
-        return ([r.seq for r in buf],
-                P.fetch_batch(list(range(rid0, rid0 + len(buf))), plens))
+    # the reader's chunks in flight (appended on the prefetch thread)
+    recs: collections.deque = collections.deque()
 
     def chunks():
-        buf: list = []
-        for rid, rec in enumerate(read_fastx_checked(source,
-                                                     DEFAULTS.max_read_len)):
-            if rid < beg:
-                continue
-            if rid >= end:
-                break
-            buf.append(rec)
-            if len(buf) >= batch_size:
-                yield _flush(buf, rid - len(buf) + 1)
-                buf = []
-        if buf:
-            yield _flush(buf, end - len(buf))
+        for c in fastx_chunks(source, P, gm.kmer, batch_size, first=beg,
+                              count=end - beg):
+            recs.append(c)
+            yield c
 
     with open(shard, "w") as f:
         for classes in eng.classify_stream(chunks(), sort_window=8):
-            chunk_recs = recs.pop(0)
-            for rec, cls in zip(chunk_recs, classes):
-                f.write(f"{class_header(rec.name, rec.comment)}\n"
-                        f"{rec.seq}\n+\n{cls}\n")
+            for r in chunk_records(recs.popleft(), classes):
+                f.write(f"{r.header}\n{r.seq}\n+\n{r.classes}\n")
     with open(stamp_path, "w") as f:
         f.write(stamp + "\n")
     if verbose:

@@ -163,24 +163,36 @@ def test_alldev_warmup_shape_is_the_first_chunks():
 
 def test_e2e_chunks_are_the_decoded_reads():
     """The end-to-end passes carry the reads and profiles the steady
-    passes carry, read as classify_file_torch reads them."""
+    passes carry, read as classify_file_torch reads them: the reader's
+    chunks, whose compressed profile ranges decode to the steady
+    passes' profiles at the chunk's profile lengths."""
     from classpro_tpu_torch.io.fastk import open_profiles
+    from classpro_tpu_torch.native import get_lib
 
+    lib = get_lib()
     fx = bench.load_fixture(str(TINY))
     P = open_profiles(fx["root"])
     e2e = list(bench.e2e_passes(fx, P, 100, 2))
     steady = list(bench.passes(fx, 100, 2))
-    assert [len(s) for s, _ in e2e] == [100, 100, 21] * 2
-    for (s1, p1), (s2, p2) in zip(e2e, steady, strict=True):
-        assert s1 == s2
+    assert [c.n for c in e2e] == [100, 100, 21] * 2
+    for c, (s2, p2) in zip(e2e, steady, strict=True):
+        assert c.seqs() == s2
+        assert list(c.plen[:c.n]) == [len(p) for p in p2]
+        p1 = []
+        for a, nb, n in zip(c.prof_addr, c.prof_nb, c.plen[:c.n]):
+            out = np.empty(int(n), np.uint16)
+            assert lib.cp_decode_profile(int(a), int(nb), out.ctypes.data,
+                                         int(n)) == n
+            p1.append(out)
         assert all(np.array_equal(a, b) for a, b in zip(p1, p2,
                                                         strict=True))
 
 
 def test_e2e_chunks_check_the_profile_length(tmp_path):
     """A read one base shorter than its profile stops the end-to-end
-    pass, as it stops classify_file_torch."""
-    from classpro_tpu_torch.engine import fastx_chunks
+    pass, as it stops classify_file_torch: the wall stage, which decodes
+    each read's profile, refuses it."""
+    from classpro_tpu_torch.engine import TorchEngine
     from classpro_tpu_torch.io.fastk import open_profiles
 
     d = _copy_tiny(tmp_path / "tiny", golden=False)
@@ -189,10 +201,12 @@ def test_e2e_chunks_check_the_profile_length(tmp_path):
     lines[3] = lines[3][:-1]              # the second read's one line
     with gzip.open(d / "reads.fasta.gz", "wt") as f:
         f.write("\n".join(lines))
+    fx = bench.load_fixture(str(d))
     P = open_profiles(str(d / "reads"))
+    eng = TorchEngine(fx["gm"], device="cpu")
     with pytest.raises(ValueError, match="Read 1: rlen .* profile/read "
                                          "mismatch"):
-        list(fastx_chunks(str(d / "reads.fasta.gz"), P, P.kmer, 200))
+        bench.stream(eng, bench.e2e_passes(fx, P, 200, 1))
 
 
 def test_flipped_golden_has_no_speed(tmp_path):
