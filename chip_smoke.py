@@ -261,22 +261,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              wall_stage_slab), n_out, n_rel and every record bit for
              bit; then the input part by part, ms a pass, in a process
              of its own (devtools/input_parts.py: file read, inflate,
-             newline count, parse,
-             record objects, length check, the Python around the reader
-             call, the profile ranges, decode), alone and on the
-             prefetch thread while the main stream runs (a pass's ms
-             and k-mers/s), and the main thread's parts alone (the
-             per-read encode, the sort window's list work, the wall
-             stage with the decode in it beside it on decoded profiles,
-             the output's records and write); which inflate the host
-             library was built with; the reader's capacity; then
-             `classify` on the card as a child process: its wall and
-             the classify process's own peak RSS (sampled every
-             millisecond inside it),
-             medium's bytes golden, the runs' bytes equal.  With --parent DIR, that checkout's input
-             (its whole-file reader, step by step as its fastx_chunks
-             runs it) and classify in turns with this tree's (parent,
-             this, this, parent).
+             scan, the Python around the reader call, the profile
+             ranges), alone and on the prefetch thread while the main
+             stream runs (a pass's ms and k-mers/s), and the main
+             thread's parts alone (the sort window's list work, the
+             wall stage with the decode in it beside it on decoded
+             profiles); the output by route and part, alone and under
+             the stream (the record route: ClassRecords and write_class
+             on the main thread; the output plane: the main thread's
+             hand-over and wait, the writer thread's compose, write(2)
+             and Python), a pass of the stream with its output beside
+             the stream alone, and the file's sha256 (medium's the
+             golden's, every run's and route's the same); the reader's
+             capacity; then `classify` on the card as a child process:
+             its wall and the classify process's own peak RSS (sampled
+             every millisecond inside it), medium's bytes golden, the
+             runs' bytes equal.  With --parent DIR, that checkout's
+             input and record route and classify in turns with this
+             tree's (parent, this, this, parent); classify's wall and
+             RSS also on a set of INPUT_BIG_GBP (0.1) Gbp
+             (devtools.soak.generate, K = 28, 83x); and, in the same
+             turns on medium, 83x and that set, INPUT_JOBS serve jobs'
+             wall_s (each tree's daemon) and INPUT_JOBS shard driver
+             runs (run_process, nproc 1, in a process of each tree);
+             the bytes equal across the runs.
 7. shard   - the parallel layer (K8) and the rest of classify's surface:
              (a) psum_histogram in a NCCL world of one rank equals its
              input (medium's partial instance histogram), the all-reduce
@@ -365,6 +373,7 @@ JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gzip
 import hashlib
@@ -4165,19 +4174,29 @@ def phase_bench(gbp: float, d: str, guard: dict | None, smi: str,
 # tree and dataset
 INPUT_PASSES = 5
 INPUT_STREAM_PASSES = {"medium": 20, "guard": 4}
+# with --parent, classify's wall and RSS also on a set of this many
+# billions of bases (K = 28, 83x)
+INPUT_BIG_GBP = 0.1
+# with --parent, serve jobs and shard driver runs per tree and dataset
+INPUT_JOBS = 3
+# the output routes input_parts times: this tree both, a parent the
+# record route (which every tree has: the route classify took before the
+# output plane, and the one -s, DAZZ and --engine exact keep)
+INPUT_ROUTES = {"this": "records,writer", "parent": "records"}
 # the input's parts (devtools/input_parts.py, run in each checkout)
 INPUT_PARTS = os.path.join(HERE, "classpro_tpu_torch", "devtools",
                            "input_parts.py")
 
 
-def _tree_input(tree: str, fasta: str, root: str, spasses: int) -> dict:
+def _tree_input(tree: str, fasta: str, root: str, spasses: int,
+                routes: str) -> dict:
     """The input of checkout ``tree``'s classify over ``fasta`` / ``root``
-    part by part (``devtools/input_parts.py`` of this tree, run with that
-    checkout's package)."""
+    part by part, and its output by ``routes`` (``devtools/input_parts.py``
+    of this tree, run with that checkout's package)."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     r = subprocess.run([sys.executable, INPUT_PARTS, fasta, root,
-                        str(INPUT_PASSES), str(spasses)], cwd=tree, env=env,
-                       capture_output=True, text=True, timeout=900)
+                        str(INPUT_PASSES), str(spasses), routes], cwd=tree,
+                       env=env, capture_output=True, text=True, timeout=900)
     recs = [json.loads(x) for x in r.stdout.splitlines()
             if x.startswith("{")]
     if r.returncode != 0 or len(recs) != 1:
@@ -4214,12 +4233,14 @@ runpy.run_module("classpro_tpu_torch.cli", run_name="__main__",
 
 def _classify_rss(tree: str, fasta: str, out: str) -> dict:
     """``classify`` of checkout ``tree`` on the card over ``fasta`` as a
-    child process: its wall seconds and the peak resident set of the
-    classify process itself (``_HWM_CLI``, MB)."""
+    child process: its wall seconds, the seconds after its set-up (the
+    stream and the output: ``--stats-json``'s ``wall_s``) and the peak
+    resident set of the classify process itself (``_HWM_CLI``, MB)."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     t = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", _HWM_CLI, "classify", fasta,
-                        "-o", out, "--device", "cuda"], cwd=tree, env=env,
+                        "-o", out, "--device", "cuda", "--stats-json",
+                        out + ".json"], cwd=tree, env=env,
                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                        text=True, timeout=900)
     wall = time.perf_counter() - t
@@ -4228,7 +4249,12 @@ def _classify_rss(tree: str, fasta: str, out: str) -> dict:
     if r.returncode != 0 or len(hwm) != 1:
         fail(f"input: classify of {tree} over {fasta} (rc {r.returncode}): "
              f"{r.stderr[-2000:]}")
-    return {"wall_s": wall, "rss_mb": int(hwm[0]) / 2**20}
+    with open(out + ".json") as f:
+        st = json.load(f)
+    os.remove(out + ".json")
+    return {"wall_s": wall, "stream_s": st["wall_s"],
+            "rss_mb": int(hwm[0]) / 2**20, "reads": st["reads"],
+            "kmers": st["kmers"]}
 
 
 def _input_slabs(fasta: str, root: str) -> int:
@@ -4284,14 +4310,104 @@ def _parts_line(r: dict, where: str) -> str:
         + f"; total {p['total']:.3f} ms a pass"
 
 
+def _output_line(r: dict, route: str) -> str:
+    """A tree's output by ``route`` and part, ms a pass (``input_parts``'s
+    "output")."""
+    from classpro_tpu_torch.devtools.input_parts import OUT_PARTS
+
+    o = r["output"][route]
+    return f"{route}: alone " \
+        + ", ".join(f"{k} {o['alone'][k]:.3f}" for k in OUT_PARTS[route]) \
+        + "; under the stream " \
+        + ", ".join(f"{k} {o['stream'][k]:.3f}" for k in OUT_PARTS[route]) \
+        + f" ms a pass; a pass with the output {o['stream']['pass_ms']:.3f}" \
+        f" ms against {r['stream']['pass_ms']:.3f} without"
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while b := f.read(1 << 22):
+            h.update(b)
+    return h.hexdigest()
+
+
+# a shard driver run in a checkout's own process: run_process (nproc 1)
+# over one dataset INPUT_JOBS times, each run's seconds
+_SHARD_RUNS = r"""
+import json, sys, time
+from classpro_tpu_torch.parallel.driver import run_process
+fasta, root, out, n = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+secs = []
+for _ in range(n):
+    t = time.perf_counter()
+    run_process(fasta, root, out, device="cuda")
+    secs.append(time.perf_counter() - t)
+print(json.dumps(secs))
+"""
+
+
+def _callers(who: str, tree: str, sets: dict, gold: dict, tmp: str) -> dict:
+    """The output plane's other callers in checkout ``tree``: its serve
+    daemon (warmed on medium) given INPUT_JOBS classify jobs on each
+    dataset of ``sets`` (each reply's ``wall_s``), and its shard driver
+    run INPUT_JOBS times over each (``_SHARD_RUNS``, seconds a run); each
+    file's sha256 must be ``gold``'s for its dataset."""
+    from classpro_tpu_torch.serve import request
+
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    sock = os.path.join(tmp, "ab.sock")
+    out = os.path.join(tmp, "caller.class")
+    rec: dict = {"who": who, "serve_wall_s": {}, "shard_run_s": {}}
+    p = subprocess.Popen(
+        [sys.executable, "-m", "classpro_tpu_torch.cli", "serve",
+         "--socket", sock, "--warmup-root", sets["medium"][1],
+         "--device", "cuda"], cwd=tree, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        _wait_ready(p, 600)
+        for name, (fasta, root) in sets.items():
+            walls = []
+            for _ in range(INPUT_JOBS):
+                rep = request(sock, {"cmd": "classify", "source": fasta,
+                                     "fastk_root": root, "output": out},
+                              timeout=600)
+                if not rep.get("ok") or _sha256_file(out) != gold[name]:
+                    fail(f"input: {who}'s serve job over {name}: {rep}")
+                walls.append(rep["wall_s"])
+            rec["serve_wall_s"][name] = walls
+        if not request(sock, {"cmd": "shutdown"}, timeout=30).get("ok") \
+                or p.wait(timeout=120) != 0:
+            fail(f"input: {who}'s serve daemon did not shut down")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+    for name, (fasta, root) in sets.items():
+        r = subprocess.run([sys.executable, "-c", _SHARD_RUNS, fasta, root,
+                            out, str(INPUT_JOBS)], cwd=tree, env=env,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0 or _sha256_file(out) != gold[name]:
+            fail(f"input: {who}'s shard driver over {name} (rc "
+                 f"{r.returncode}): {r.stderr[-2000:]}")
+        rec["shard_run_s"][name] = json.loads(r.stdout.splitlines()[-1])
+    os.remove(out)
+    say(f"input {who}: serve jobs' wall_s {json.dumps(rec['serve_wall_s'])}"
+        f"; shard driver runs' s {json.dumps(rec['shard_run_s'])}")
+    return rec
+
+
 def phase_input(parent: str | None, gbp: float, d: str, smi: str) -> dict:
-    """The input plane: on medium and the guard dataset (``d``, made here
-    unless the guard phase made it), every chunk's slab from the reader
-    and the fused decode held against the old feed's (``_input_slabs``);
-    each tree's input part by part (``devtools/input_parts.py``; this
-    tree alone, or with ``parent`` in turns: parent, this, this, parent),
-    and each tree's ``classify`` wall and peak RSS (in the same turns),
-    the bytes golden on medium and equal across the runs at 83x."""
+    """The input and output planes: on medium and the guard dataset
+    (``d``, made here unless the guard phase made it), every chunk's slab
+    from the reader and the fused decode held against the old feed's
+    (``_input_slabs``); each tree's input and output part by part
+    (``devtools/input_parts.py``; this tree alone, or with ``parent`` in
+    turns: parent, this, this, parent; the output's file medium's golden
+    and the same in every run), and each tree's ``classify`` wall and
+    peak RSS (in the same turns), the bytes golden on medium and equal
+    across the runs at 83x; with ``parent``, classify's also on a set of
+    ``INPUT_BIG_GBP`` (83x, K = 28)."""
     from classpro_tpu_torch.devtools import soak
     from classpro_tpu_torch.devtools.input_parts import MAIN_PARTS
 
@@ -4305,19 +4421,34 @@ def phase_input(parent: str | None, gbp: float, d: str, smi: str) -> dict:
                       os.path.join(d, "reads"))}
     rec: dict = {"card": smi, "cpus": os.cpu_count(), "datasets": {}}
     turns = _ab(parent) if parent else [("this", HERE)]
+    gold: dict = {}        # each dataset's .class sha256, from classify
     tmp = tempfile.mkdtemp(prefix="cpinput")
     try:
+        if parent:
+            t = time.time()
+            big = os.path.join(tmp, "big")
+            soak.generate(big, INPUT_BIG_GBP, seed=GUARD_SEED,
+                          kmer=GUARD_KMER, cov=GUARD_COV)
+            sets["big"] = (os.path.join(big, "reads.fasta"),
+                           os.path.join(big, "reads"))
+            say(f"input: the {INPUT_BIG_GBP} Gbp set generated in "
+                f"{time.time() - t:.1f} s")
         for name, (fasta, root) in sets.items():
-            n = _input_slabs(fasta, root)
-            say(f"input {name}: {n} reads' slabs from the reader and the "
-                f"fused decode equal the old feed's, bit for bit")
             runs = []
-            for who, tree in turns:
-                r = _tree_input(tree, fasta, root, INPUT_STREAM_PASSES[name])
+            if name == "big":
+                turns_parts = []
+            else:
+                n = _input_slabs(fasta, root)
+                say(f"input {name}: {n} reads' slabs from the reader and "
+                    f"the fused decode equal the old feed's, bit for bit")
+                turns_parts = turns
+            shas, alone_shas = set(), set()
+            for who, tree in turns_parts:
+                r = _tree_input(tree, fasta, root, INPUT_STREAM_PASSES[name],
+                                INPUT_ROUTES[who])
                 r["who"] = who
                 runs.append(r)
-                say(f"input {name} {who} ({r['tree']}, inflate: "
-                    f"{r['inflate']}): alone {_parts_line(r, 'alone')} "
+                say(f"input {name} {who}: alone {_parts_line(r, 'alone')} "
                     f"(wall {r['alone']['wall']:.3f}; resident peak "
                     f"+{r['alone']['rss_growth_mb']:.1f} MB); under the "
                     f"stream {_parts_line(r, 'stream')}, a pass "
@@ -4327,26 +4458,44 @@ def phase_input(parent: str | None, gbp: float, d: str, smi: str) -> dict:
                     f"MB); "
                     f"main thread alone: " + ", ".join(
                         f"{k} {r['main_thread'][k]:.3f}" for k in MAIN_PARTS)
-                    + " ms a pass"
-                    + (f"; reader capacity {r['reader_capacity']} B"
-                       if "reader_capacity" in r else ""))
+                    + f" ms a pass; reader capacity {r['reader_capacity']} B")
+                for route, o in r["output"].items():
+                    shas.add(o["stream"]["sha256"])
+                    alone_shas.update(o["alone_sha256"])
+                    say(f"input {name} {who} {_output_line(r, route)}")
+            if len(shas) > 1 or len(alone_shas) > 1:
+                fail(f"input: the output over {name} differs between runs "
+                     f"or routes")
+            spasses = INPUT_STREAM_PASSES.get(name, 0)
+            if name == "medium" and shas and shas != {hashlib.sha256(
+                    _gold_bytes("medium") * spasses).hexdigest()}:
+                fail("input: the output over medium is not the golden")
             rss, outs = [], set()
             for k, (who, tree) in enumerate(turns):
                 out = os.path.join(tmp, f"{name}_{k}.class")
                 r = _classify_rss(tree, fasta, out)
                 r["who"] = who
+                r["sha256"] = _sha256_file(out)
                 rss.append(r)
-                outs.add(_read(out))
+                outs.add(r["sha256"])
                 os.remove(out)
-                say(f"input {name} {who}: classify wall {r['wall_s']:.2f} s,"
-                    f" peak RSS {r['rss_mb']:.1f} MB")
-            if name == "medium" and outs != {_gold_bytes("medium")}:
+                say(f"input {name} {who}: classify wall {r['wall_s']:.2f} s"
+                    f" ({r['stream_s']} s after its set-up; {r['reads']} "
+                    f"reads, {r['kmers']} k-mers), peak RSS "
+                    f"{r['rss_mb']:.1f} MB, .class sha256 {r['sha256']}")
+            if name == "medium" and outs != {
+                    hashlib.sha256(_gold_bytes("medium")).hexdigest()}:
                 fail("input: classify over medium did not write the golden")
-            if len(outs) != 1:
+            if len(outs) != 1 or len({(r["reads"], r["kmers"])
+                                      for r in rss}) != 1:
                 fail(f"input: the classify runs over {name} wrote different "
-                     f"bytes")
-            rec["datasets"][name] = {"slab_reads": n, "runs": runs,
-                                     "classify": rss}
+                     f"bytes or counts")
+            rec["datasets"][name] = {"slab_reads": None if name == "big"
+                                     else n, "runs": runs, "classify": rss}
+            gold[name] = outs.pop()
+        if parent:
+            rec["callers"] = [_callers(who, tree, sets, gold, tmp)
+                              for who, tree in turns]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec["seconds"] = time.time() - t0
@@ -4435,6 +4584,25 @@ def _k8(rec: dict) -> None:
         f"{rec['k8_bound_ms']:.6f} ms (bytes); psum_histogram with its "
         f"copies {host_ms:.3f} ms; estimate_distributed == .hist model "
         f"(cov {gm.cov.tolist()}, dr_ratio {gm.dr_ratio})")
+
+
+@contextlib.contextmanager
+def _writer_files():
+    """The read counts of the .class files completed through the output
+    plane (``ClassWriter.close``) inside the block."""
+    from classpro_tpu_torch.io import classfile
+
+    written: list = []
+    close = classfile.ClassWriter.close
+
+    def counted(w):
+        close(w)
+        written.append(w.reads)
+    classfile.ClassWriter.close = counted
+    try:
+        yield written
+    finally:
+        classfile.ClassWriter.close = close
 
 
 def _driver(rec: dict, tmp: str) -> None:
@@ -4742,7 +4910,17 @@ def phase_shard() -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
     try:
         _k8(rec)
-        _driver(rec, tmp)
+        # every shard run of (b) writes through the output plane: nproc 1
+        # twice, 4 shards twice (tiny, medium), the resume's 4 and then
+        # its two re-run shards
+        with _writer_files() as written:
+            _driver(rec, tmp)
+        if len(written) != 2 + 8 + 4 + 2:
+            fail(f"driver: {len(written)} shard runs wrote through the "
+                 f"output plane, 16 expected")
+        rec["driver_writer_files"] = len(written)
+        say(f"shard (b) driver: {len(written)} shard files written through "
+            f"the output plane ({sum(written)} reads)")
         _sharded(rec, devices)
         _round_robin(rec, rr)
         _cli(rec, tmp)
@@ -4820,12 +4998,16 @@ def phase_serve(keep: str) -> dict:
                                                         "reads"),
                              "output": out1}, timeout=30)
         host1 = time.perf_counter() - t1
-        if not rep.get("ok") or _read(out1) != _gold_bytes("tiny"):
+        # the job's file through the output plane: its writer's seconds
+        # by part come back in the reply
+        if not rep.get("ok") or _read(out1) != _gold_bytes("tiny") \
+                or rep["output_s"]["compose"] <= 0:
             fail(f"serve job 1 (tiny): {rep}")
         jobs.append({"fixture": "tiny", "via": "request",
                      "wall_s": rep["wall_s"], "client_s": host1,
                      "kmers": rep["kmers"],
                      "kmers_per_s": rep["kmers"] / rep["wall_s"],
+                     "output_s": rep["output_s"],
                      "launches": rep["launches"], "graphs": rep["graphs"]})
         # job 1b: tiny with the -M HIsim model, its bucket tiny's: the
         # job's own graph, the golden of that model
@@ -4840,10 +5022,12 @@ def phase_serve(keep: str) -> dict:
         with gzip.open(os.path.join(FIX, "tiny", "golden_M.class.gz"),
                        "rb") as f:
             if not rep.get("ok") or _read(out1m) != f.read() \
-                    or rep["graphs"]["replays"] <= 0:
+                    or rep["graphs"]["replays"] <= 0 \
+                    or rep["output_s"]["compose"] <= 0:
                 fail(f"serve job 1b (tiny -M): {rep}")
         jobs.append({"fixture": "tiny -M", "via": "request",
                      "wall_s": rep["wall_s"], "kmers": rep["kmers"],
+                     "output_s": rep["output_s"],
                      "launches": rep["launches"], "graphs": rep["graphs"]})
         # job 2: medium, through the CLI client
         out2 = os.path.join(tmp, "medium.class")

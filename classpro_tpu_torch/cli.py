@@ -293,6 +293,10 @@ def cmd_classify(args: argparse.Namespace) -> int:
         out = args.output or root + ".class"
         if args.pmm:
             _print_pmm(args, fk_root)
+        # the device engine writes through the output plane (each
+        # chunk's records composed in C++ and written off this thread);
+        # -s and the exact oracle keep the record route
+        job = recs = None
         if exact:
             from classpro_tpu_torch.exact.pipeline import classify_file
 
@@ -301,16 +305,16 @@ def cmd_classify(args: argparse.Namespace) -> int:
                                  read_len=args.read_len,
                                  model_path=args.model)
         else:
-            from classpro_tpu_torch.engine import classify_file_torch
+            from classpro_tpu_torch.engine import ClassifyJob
 
-            recs = classify_file_torch(
+            job = ClassifyJob(
                 args.source, fk_root, coverage=args.coverage,
                 read_len=args.read_len, model_path=args.model,
                 threads=args.threads, verbose=args.verbose,
                 device=args.device, devices=args.devices, stats_out=stats,
                 warmup=args.warmup)
         if args.seeds:
-            recs = _with_seeds(recs, fk_root, out)
+            recs = _with_seeds(recs or job.records(), fk_root, out)
 
         def counted(records):
             for rec in records:
@@ -318,9 +322,13 @@ def cmd_classify(args: argparse.Namespace) -> int:
                 stats["reads"] += 1
                 yield rec
 
-        t0 = time.time()       # set-up ran in classify_file_torch
+        t0 = time.time()       # set-up ran in ClassifyJob
         with _profiled(args.torch_profile, args.device):
-            write_class(out, counted(recs))
+            if recs is None:
+                w = job.write(out)
+                stats.update(reads=w.reads, kmers=w.kmers)
+            else:
+                write_class(out, counted(recs))
         wall = time.time() - t0
     if args.stats_json:
         with open(args.stats_json, "w") as f:

@@ -14,8 +14,9 @@
 // The port's own copy of the repository's csrc/classpro_host.cpp (the
 // JAX package builds that one), with cp_build_btg, cp_exact_rel_batch,
 // cp_pack_chunk, cp_expand_rows, cp_demote_reconcile, the wall stage
-// that decodes each read's profile in its worker (cp_wall_stage_fastk)
-// and the streaming FASTX reader (cp_fx_*) added, every threaded entry
+// that decodes each read's profile in its worker (cp_wall_stage_fastk),
+// the streaming FASTX reader (cp_fx_*) and the .class composer
+// (cp_class_compose) added, every threaded entry
 // on one kept worker pool (pool::Pool), and the entries that nothing
 // here calls (cp_wall_stage_batch, cp_unrel_batch, cp_expand_batch, the
 // whole-file cp_gzip_inflate and cp_fastx_parse) left out.  Exposed via
@@ -2584,6 +2585,89 @@ int64_t cp_fx_next(void* h, int64_t B, int64_t n, int K, int64_t max_len,
     n++;
   }
   return n;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// The output plane: a reader chunk's .class records composed straight
+// from its buffers and the class lines the finish stages wrote, for the
+// writer (io.classfile.ClassWriter) to write(2) as they are.
+// ---------------------------------------------------------------------
+
+extern "C" {
+
+// Compose the .class records of n reads into out (out_cap bytes): read
+// i's are '@', its name (name[name_off[2i], name_off[2i+1])), ' ', its
+// comment (up to name_off[2i+2]) or "(null)" when that is empty (glibc's
+// "%s" of the reference's NULL comment), '\n', its sequence
+// (seq[seq_off[i], seq_off[i+1])), "\n+\n", its class line and '\n'.
+// The class line is cls_len[i] bytes at address cls_addr[i], or
+// cls_len[i] 'N' where cls_addr[i] is 0 (a read with no k-mer).
+// Returns 0 with res[0] the bytes written, res[1] the reads and res[2]
+// the class bytes that are not 'N' (the k-mers classified); 1, writing
+// nothing, when out_cap is short (res[0] the bytes needed); -1 when a
+// class line's length is not its sequence's (res[3] the read).
+int cp_class_compose(int64_t n, const char* name, const int64_t* name_off,
+                     const char* seq, const int64_t* seq_off,
+                     const int64_t* cls_addr, const int64_t* cls_len,
+                     char* out, int64_t out_cap, int64_t* res) {
+  static const char kNull[] = "(null)";
+  res[0] = res[1] = res[2] = 0;
+  res[3] = -1;
+  int64_t need = 0;
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t sl = seq_off[i + 1] - seq_off[i];
+    if (cls_len[i] != sl) {
+      res[3] = i;
+      return -1;
+    }
+    const int64_t cl = name_off[2 * i + 2] - name_off[2 * i + 1];
+    need += (name_off[2 * i + 1] - name_off[2 * i]) + (cl ? cl : 6)
+            + 2 * sl + 7;
+  }
+  if (need > out_cap) {
+    res[0] = need;
+    return 1;
+  }
+  char* o = out;
+  int64_t kmers = 0;
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t n0 = name_off[2 * i], n1 = name_off[2 * i + 1],
+                  n2 = name_off[2 * i + 2];
+    const int64_t sl = seq_off[i + 1] - seq_off[i];
+    *o++ = '@';
+    std::memcpy(o, name + n0, (size_t)(n1 - n0));
+    o += n1 - n0;
+    *o++ = ' ';
+    if (n2 > n1) {
+      std::memcpy(o, name + n1, (size_t)(n2 - n1));
+      o += n2 - n1;
+    } else {
+      std::memcpy(o, kNull, 6);
+      o += 6;
+    }
+    *o++ = '\n';
+    std::memcpy(o, seq + seq_off[i], (size_t)sl);
+    o += sl;
+    std::memcpy(o, "\n+\n", 3);
+    o += 3;
+    if (cls_addr[i]) {
+      const char* c = reinterpret_cast<const char*>(cls_addr[i]);
+      std::memcpy(o, c, (size_t)sl);
+      int64_t k = 0;
+      for (int64_t j = 0; j < sl; j++) k += c[j] != 'N';
+      kmers += k;
+    } else {
+      std::memset(o, 'N', (size_t)sl);
+    }
+    o += sl;
+    *o++ = '\n';
+  }
+  res[0] = o - out;
+  res[1] = n;
+  res[2] = kmers;
+  return 0;
 }
 
 }  // extern "C"

@@ -44,8 +44,13 @@ what ``_finish`` waits on before it reads the slot and releases it; the
 one stream orders each chunk's use of the static buffers before the next
 chunk's.  No chunk pins or allocates host memory once the pool has met
 the stream's largest chunk.  ``classify_chunk`` is the
-synchronous single-chunk form.  Interval arrays are padded to bucketed
-shapes (``_bucket``, ``_bucket_m``).  ``TorchEngine(devices=[...])``
+synchronous single-chunk form.  A chunk's class lines stay in the uint8
+buffers the host plane writes them to (``ChunkClasses``: each read's
+buffer and offset); ``classify_stream(buffers=True)`` hands them out as
+they are, for the output plane (``io.classfile.ClassWriter``) to compose
+and write off the main thread, and otherwise as one ``str`` a read.
+Interval arrays are padded to bucketed shapes (``_bucket``,
+``_bucket_m``).  ``TorchEngine(devices=[...])``
 deals whole chunks round robin over several devices, each with its own
 tables, stream, graphs and events (``_enqueue``).
 """
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import time
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -64,7 +70,8 @@ from classpro_tpu_torch import rel as rel_mod
 from classpro_tpu_torch.constants import DEFAULTS
 from classpro_tpu_torch.device import canonical_device, resolve_device
 from classpro_tpu_torch.estimation import GlobalModel, build_global_model
-from classpro_tpu_torch.io.classfile import ClassRecord, class_header
+from classpro_tpu_torch.io.classfile import (ChunkClasses, ClassRecord,
+                                             ClassWriter, class_header)
 from classpro_tpu_torch.io.fastk import (load_histogram, mismatch_error,
                                          open_profiles)
 from classpro_tpu_torch.io.fastx import (FastxReader, ReadChunk,
@@ -333,16 +340,18 @@ class TorchEngine:
                        profiles: list[np.ndarray]) -> list[str]:
         """Synchronous single-chunk classification (= one submit +
         finish of the pipelined stream)."""
-        return self._finish(self._submit(seqs, profiles))
+        return self._finish(self._submit(seqs, profiles)).strs()
 
     def classify_stream(self, chunks, prefetch: int = 2,
-                        sort_window: int = 0):
+                        sort_window: int = 0, buffers: bool = False):
         """Yield one list of class strings per chunk, in order, with
         cross-chunk host/device overlap (three chunks in flight: host k+1
-        || device k || finish k-1).  A chunk is a (seqs, profiles) pair
-        (decoded profiles) or a ``ReadChunk`` of ``fastx_chunks`` (the
-        reader's buffers and each read's compressed profile, decoded in
-        the wall stage's workers); one stream takes one kind.
+        || device k || finish k-1); with ``buffers``, each chunk's
+        ``ChunkClasses`` instead (its lines left in the host plane's
+        buffers, no per-read object made).  A chunk is a (seqs, profiles)
+        pair (decoded profiles) or a ``ReadChunk`` of ``fastx_chunks``
+        (the reader's buffers and each read's compressed profile, decoded
+        in the wall stage's workers); one stream takes one kind.
 
         ``prefetch`` > 0 pulls the input iterable on a bounded
         background thread (a queue of ``prefetch`` chunks, at least a
@@ -352,8 +361,10 @@ class TorchEngine:
         and re-assembles the results into the original chunk structure
         and order, so output bytes are unchanged."""
         if sort_window > 1:
-            yield from self._sorted_stream(chunks, prefetch, sort_window)
+            yield from self._sorted_stream(chunks, prefetch, sort_window,
+                                           buffers)
             return
+        out = (lambda cc: cc) if buffers else ChunkClasses.strs
         pending: collections.deque = collections.deque()
         with _prefetched(chunks, prefetch) as src:
             for c in src:
@@ -363,17 +374,19 @@ class TorchEngine:
                     c = (c,)
                 pending.append(self._submit(*c))
                 if len(pending) >= self.depth:
-                    yield self._finish(pending.popleft())
+                    yield out(self._finish(pending.popleft()))
         while pending:
-            yield self._finish(pending.popleft())
+            yield out(self._finish(pending.popleft()))
 
-    def _sorted_stream(self, chunks, prefetch: int, W: int):
+    def _sorted_stream(self, chunks, prefetch: int, W: int,
+                       buffers: bool):
         """classify_stream body for sort_window: windows of W input
         chunks, their reads ordered by profile length (a stable sort),
         run through the same pipeline in re-composed batches of the
         engine's batch size, then each window's results un-sorted back
-        into the original chunk structure.  Reader chunks are re-composed
-        as index arrays into their buffers (``read_batch``)."""
+        into the original chunk structure (the reads' buffer indexes and
+        offsets, with numpy).  Reader chunks are re-composed as index
+        arrays into their buffers (``read_batch``)."""
         import itertools
 
         B = self.batch_size
@@ -390,7 +403,7 @@ class TorchEngine:
                     order = np.argsort(wb.plen, kind="stable")
                     subs = [order[k: k + B]
                             for k in range(0, len(order), B)]
-                    win_meta.append(([c.n for c in win], order.tolist(),
+                    win_meta.append(([c.n for c in win], order,
                                      len(subs)))
                     for idx in subs:
                         yield _take(wb, idx)
@@ -400,8 +413,8 @@ class TorchEngine:
                 order = sorted(range(len(seqs)),
                                key=lambda i: len(profs[i]))
                 subs = [order[k: k + B] for k in range(0, len(order), B)]
-                win_meta.append(([len(ss) for ss, _ in win], order,
-                                 len(subs)))
+                win_meta.append(([len(ss) for ss, _ in win],
+                                 np.asarray(order, np.int64), len(subs)))
                 for idx in subs:
                     yield ([seqs[i] for i in idx],
                            [profs[i] for i in idx])
@@ -413,19 +426,21 @@ class TorchEngine:
         # blocked while the window before runs
         pending: list = []
         wi = 0
+        out = (lambda cc: cc) if buffers else ChunkClasses.strs
         with _prefetched(chunks, prefetch and max(prefetch, W)) as src:
-            for res in self.classify_stream(sorted_chunks(src), prefetch=0):
+            for res in self.classify_stream(sorted_chunks(src), prefetch=0,
+                                            buffers=True):
                 pending.append(res)
                 sizes, order, nsub = win_meta[wi]
                 if len(pending) < nsub:
                     continue
-                flat = [c for r in pending for c in r]
-                unsort = [None] * len(flat)
-                for j, i in enumerate(order):
-                    unsort[i] = flat[j]
+                # read order[j] of the window is read j of the sorted run
+                back = np.empty(len(order), np.int64)
+                back[order] = np.arange(len(order))
+                unsorted = ChunkClasses.join(pending).take(back)
                 off = 0
                 for sz in sizes:
-                    yield unsort[off: off + sz]
+                    yield out(unsorted.take(slice(off, off + sz)))
                     off += sz
                 pending = []
                 wi += 1
@@ -444,7 +459,7 @@ class TorchEngine:
             return self._stage_reads(seqs)
         todo = [i for i in range(len(seqs)) if len(profiles[i]) > 0]
         st = {"seqs": seqs, "profiles": profiles,
-              "slen": [len(s) for s in seqs]}
+              "slen": np.array([len(s) for s in seqs], np.int64)}
         if not todo:
             return st
         g = sorted(todo, key=lambda i: len(profiles[i]))
@@ -457,7 +472,7 @@ class TorchEngine:
     def _stage_reads(self, b: ReadBatch):
         """``_stage`` of a ReadBatch: the profiles decoded in the wall
         stage's workers, and every read's profile length checked."""
-        st = {"reads": b, "slen": b.seq_len.tolist()}
+        st = {"reads": b, "slen": b.seq_len}
         plen = b.plen
         todo = np.flatnonzero(plen > 0)
         g = todo[np.argsort(plen[todo], kind="stable")]
@@ -476,8 +491,7 @@ class TorchEngine:
             raise self._mismatch(b)
         if not g.size:
             return st
-        return self._staged(st, g.tolist(), plen[g], slab, n_out, n_rel,
-                            slot)
+        return self._staged(st, g, plen[g], slab, n_out, n_rel, slot)
 
     def _mismatch(self, b: ReadBatch) -> ValueError:
         """The reference's refusal (``mismatch_error``) for the first read,
@@ -498,8 +512,9 @@ class TorchEngine:
         """Record a chunk's wall stage in ``st``: the staged reads ``g``
         (slab read r is chunk read g[r]) with their profile lengths and
         the natural bucket of their reliable intervals."""
-        st.update(g=g, slab=slab, n_out=n_out, n_rel=n_rel, slot=slot,
-                  max_m=0, _plens=np.asarray(plens, np.int64))
+        st.update(g=np.asarray(g, np.int64), slab=slab, n_out=n_out,
+                  n_rel=n_rel, slot=slot, max_m=0,
+                  _plens=np.asarray(plens, np.int64))
         sel_n = int((n_rel > 0).sum())
         if sel_n:
             st["_R"] = _bucket(sel_n)
@@ -653,40 +668,38 @@ class TorchEngine:
         st.update({key: host.out, "done": done})
         return st
 
-    def _finish_alldev(self, st) -> list[str]:
-        """Class strings of an all-device chunk, in g order: wait for the
-        device event, expand the interval assignments from the staging
-        slot's result (one C++ call on the -T workers), read the guard
-        flags from it, release the slot (its last read), then re-decide
-        the flagged reads exactly."""
+    def _finish_alldev(self, st, cc: ChunkClasses) -> None:
+        """The class lines of an all-device chunk into ``cc``: wait for
+        the device event, expand the interval assignments from the
+        staging slot's result (one C++ call on the -T workers), read the
+        guard flags from it, release the slot (its last read), then
+        re-decide the flagged reads exactly (their lines from a buffer of
+        their own)."""
+        if "rows" not in st:
+            return
+        if "done" in st:
+            st["done"].synchronize()
         g = st["g"]
-        res_g = [""] * len(g)
-        if "rows" in st:
-            if "done" in st:
-                st["done"].synchronize()
-            buf = st["un"].numpy()
-            rows = st["rows"]
-            out_off = np.zeros(len(rows) + 1, np.int64)
-            out_off[1:] = np.cumsum([st["slen"][g[r]] for r in rows])
-            cls = self.wall.expand_rows(st["slab"], st["slot"], st["n_out"],
-                                        rows, buf[:, :-1].view(np.int8),
-                                        out_off, threads=self.threads)
-            mv = memoryview(cls)
-            for k, r in enumerate(rows):
-                res_g[r] = str(mv[out_off[k]: out_off[k + 1]], "ascii")
-            rs = rows[buf[:len(rows), -1] != 0]
-            self._release(st)
-            if rs.size:
-                self.guard_flagged += int(rs.size)
-                for r, c in zip(rs, self._exact_alldev(st, rs)):
-                    res_g[r] = c
-        return res_g
+        buf = st["un"].numpy()
+        rows = st["rows"]
+        out_off = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(st["slen"][g[rows]], out=out_off[1:])
+        cc.put(g[rows], self.wall.expand_rows(
+            st["slab"], st["slot"], st["n_out"], rows,
+            buf[:, :-1].view(np.int8), out_off, threads=self.threads),
+            out_off[:-1])
+        rs = rows[buf[:len(rows), -1] != 0]
+        self._release(st)
+        if rs.size:
+            self.guard_flagged += int(rs.size)
+            cc.put(g[rs], *self._exact_alldev(st, rs))
 
-    def _exact_alldev(self, st, rs: np.ndarray) -> list[str]:
+    def _exact_alldev(self, st, rs: np.ndarray):
         """Whole-read exact classification of the staged reads ``rs``
         (the all-device path's guard): one C++ exact rel call over their
         rel records, then one C++ relaxation and expansion over a compact
-        copy of their slab rows, both on the -T workers."""
+        copy of their slab rows, both on the -T workers.  Returns the
+        class lines' buffer and each read's offset in it."""
         slot = st["slot"]
         n_out, n_rel = st["n_out"][rs], st["n_rel"][rs]
         # row q of the compact slab = read rs[q]'s records
@@ -702,14 +715,12 @@ class TorchEngine:
                                       np.arange(live.size),
                                       threads=self.threads)
         out_off = np.zeros(len(rs) + 1, np.int64)
-        out_off[1:] = np.cumsum([st["slen"][st["g"][r]] for r in rs])
+        np.cumsum(st["slen"][st["g"][rs]], out=out_off[1:])
         buf = self.wall.finish_batch(
             slab_c, slot_c, n_out, n_rel, rel_out,
             rel_out.shape[1] if rel_out is not None else 1, out_off,
             threads=self.threads)
-        mv = memoryview(buf)
-        return [str(mv[out_off[q]: out_off[q + 1]], "ascii")
-                for q in range(len(rs))]
+        return buf, out_off[:-1]
 
     def _exact_guard(self, st, rel_out) -> None:
         """Host-exact recompute of flagged rows (in place), one C++ call
@@ -741,17 +752,16 @@ class TorchEngine:
                                   live[rows], st["_plens"][live[rows]],
                                   rel_out, rows, threads=self.threads)
 
-    def _finish(self, st) -> list[str]:
+    def _finish(self, st) -> ChunkClasses:
         """Wait for the chunk's device result, run the host rel steps (one
         C++ call for the demotions and the reconciliation, one for the
         guard), release the chunk's staging slot (the rel planes and the
         result read by those two calls are its views), then ONE C++ call:
-        scatter rel assignments, relaxation sweeps, class expansion."""
-        slen = st["slen"]
-        res = [""] * len(slen)
+        scatter rel assignments, relaxation sweeps, class expansion.  The
+        chunk's class lines stay in the buffer that call wrote."""
+        cc = ChunkClasses.none(st["slen"])
         if "g" in st and self.PP is not None:
-            for i, c in zip(st["g"], self._finish_alldev(st)):
-                res[i] = c
+            self._finish_alldev(st, cc)
             self.wall.release_slab(st["slab"])
         elif "g" in st:
             g, slab, slot = st["g"], st["slab"], st["slot"]
@@ -773,18 +783,12 @@ class TorchEngine:
                 self._exact_guard(st, rel_out)
                 self._release(st)
             out_off = np.zeros(len(g) + 1, np.int64)
-            out_off[1:] = np.cumsum([slen[i] for i in g])
-            buf = self.wall.finish_batch(slab, slot, n_out, n_rel,
-                                         rel_out, st["max_m"], out_off,
-                                         threads=self.threads)
+            np.cumsum(st["slen"][g], out=out_off[1:])
+            cc.put(g, self.wall.finish_batch(
+                slab, slot, n_out, n_rel, rel_out, st["max_m"], out_off,
+                threads=self.threads), out_off[:-1])
             self.wall.release_slab(slab)
-            mv = memoryview(buf)  # str() decodes straight from the slab
-            for r, i in enumerate(g):
-                res[i] = str(mv[out_off[r]: out_off[r + 1]], "ascii")
-        for i in range(len(slen)):
-            if not res[i]:
-                res[i] = "N" * slen[i]
-        return res
+        return cc
 
 
 def _check_out(res: torch.Tensor, out: torch.Tensor) -> None:
@@ -864,6 +868,100 @@ def chunk_records(c: ReadChunk, classes) -> Iterator[ClassRecord]:
         yield ClassRecord(class_header(name, comment), seq, cls)
 
 
+def chunk_classes(eng: TorchEngine, chunks, buffers: bool = False):
+    """(reader chunk, its classes) for each ``ReadChunk`` of ``chunks``
+    (``fastx_chunks``), in order, through ``eng.classify_stream`` with
+    sort_window 8 (device batches composed from plen-ordered windows:
+    the same bytes, a shorter longest row per batch); the classes are
+    ``ChunkClasses`` with ``buffers``, else one str a read."""
+    # the reader's chunks in flight (appended on the prefetch thread)
+    held: collections.deque = collections.deque()
+
+    def chunk_iter():
+        for c in chunks:
+            held.append(c)
+            yield c
+
+    for classes in eng.classify_stream(chunk_iter(), sort_window=8,
+                                       buffers=buffers):
+        yield held.popleft(), classes
+
+
+def write_chunks(path: str, eng: TorchEngine, chunks) -> ClassWriter:
+    """Classify the reader chunks ``chunks`` and write their .class
+    records to ``path`` through a ``ClassWriter`` (each chunk composed
+    and written off this thread, from the reader's buffers and the class
+    buffers); returns the closed writer (its ``reads``, ``kmers`` and
+    ``seconds``) once the file is complete.  Raises the writer's error,
+    if it had one."""
+    with ClassWriter(path) as w:
+        for c, classes in chunk_classes(eng, chunks, buffers=True):
+            w.put(c, classes)
+    return w
+
+
+class ClassifyJob:
+    """A FASTX file's classification against its FASTK root, set up when
+    made (model, engine, device tables, warm-up): ``records()`` yields
+    one ClassRecord per read, in input order; ``write(path)`` writes the
+    .class file through the output plane (``write_chunks``), with no
+    per-read object.  ``devices`` > 0 round-robins the chunks over
+    ``cuda:0`` .. ``cuda:devices-1`` (``local_devices``: raises when
+    fewer cards exist).  ``warmup`` readies the devices for the
+    dataset's expected bucket before the stream (``_warmup_shape``).
+    ``stats_out`` gets the stream's wall seconds and the engine's
+    ``stats()`` when a stream ends."""
+
+    def __init__(self, fastx_path: str, fastk_root: str, coverage: int = 0,
+                 read_len: int = 20000, model_path: str | None = None,
+                 batch_size: int = 200, threads: int = 0,
+                 verbose: bool = False, device=None, devices: int = 0,
+                 stats_out: dict | None = None, warmup: bool = False):
+        hist = load_histogram(fastk_root)
+        gm = build_global_model(hist, coverage=coverage, read_len=read_len,
+                                model_path=model_path)
+        P = open_profiles(fastk_root)
+        if P.kmer != gm.kmer:
+            raise ValueError(f"{fastk_root}: .hist k-mer size ({gm.kmer}) "
+                             f"!= .prof k-mer size ({P.kmer})")
+        eng = TorchEngine(gm, batch_size=batch_size, threads=threads,
+                          verbose=verbose, device=device,
+                          devices=local_devices(devices, device))
+        if warmup:
+            import sys
+
+            shape, sample_n, nrel_max = _warmup_shape(eng, fastx_path, P,
+                                                      batch_size)
+            print(f"warming up the device for shape {shape} (sampled "
+                  f"{sample_n} reads, max n_rel {nrel_max})...",
+                  file=sys.stderr)
+            eng.warmup((shape,))
+            print("warmup done", file=sys.stderr)
+        self.fastx_path, self.P, self.eng = fastx_path, P, eng
+        self.batch_size, self.stats_out = batch_size, stats_out
+
+    def _chunks(self):
+        return fastx_chunks(self.fastx_path, self.P, self.eng.gm.kmer,
+                            self.batch_size)
+
+    def _stats(self, t0: float) -> None:
+        if self.stats_out is not None:
+            self.stats_out.update(stream_wall_s=time.time() - t0,
+                                  **self.eng.stats())
+
+    def records(self) -> Iterator[ClassRecord]:
+        t0 = time.time()
+        for c, classes in chunk_classes(self.eng, self._chunks()):
+            yield from chunk_records(c, classes)
+        self._stats(t0)
+
+    def write(self, path: str) -> ClassWriter:
+        t0 = time.time()
+        w = write_chunks(path, self.eng, self._chunks())
+        self._stats(t0)
+        return w
+
+
 def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
                         read_len: int = 20000, model_path: str | None = None,
                         batch_size: int = 200, threads: int = 0,
@@ -871,49 +969,11 @@ def classify_file_torch(fastx_path: str, fastk_root: str, coverage: int = 0,
                         devices: int = 0, stats_out: dict | None = None,
                         warmup: bool = False) -> Iterator[ClassRecord]:
     """Classify a FASTX file against its FASTK root; yields one
-    ClassRecord per read, in input order.  ``devices`` > 0 round-robins
-    the chunks over ``cuda:0`` .. ``cuda:devices-1`` (``local_devices``:
-    raises when fewer cards exist).  ``warmup`` readies the devices for
-    the dataset's expected bucket before the stream (``_warmup_shape``).
-    Set-up (model, engine, device tables, warm-up) runs eagerly at call
-    time; the stream is the returned generator."""
-    hist = load_histogram(fastk_root)
-    gm = build_global_model(hist, coverage=coverage, read_len=read_len,
-                            model_path=model_path)
-    P = open_profiles(fastk_root)
-    if P.kmer != gm.kmer:
-        raise ValueError(f"{fastk_root}: .hist k-mer size ({gm.kmer}) != "
-                         f".prof k-mer size ({P.kmer})")
-    eng = TorchEngine(gm, batch_size=batch_size, threads=threads,
-                      verbose=verbose, device=device,
-                      devices=local_devices(devices, device))
-    if warmup:
-        import sys
-
-        shape, sample_n, nrel_max = _warmup_shape(eng, fastx_path, P,
-                                                  batch_size)
-        print(f"warming up the device for shape {shape} (sampled "
-              f"{sample_n} reads, max n_rel {nrel_max})...",
-              file=sys.stderr)
-        eng.warmup((shape,))
-        print("warmup done", file=sys.stderr)
-    # the reader's chunks in flight (appended on the prefetch thread)
-    recs: collections.deque = collections.deque()
-
-    def chunk_iter():
-        for c in fastx_chunks(fastx_path, P, gm.kmer, batch_size):
-            recs.append(c)
-            yield c
-
-    def stream():
-        import time as _time
-
-        t0 = _time.time()
-        # sort_window=8: device batches composed from plen-ordered
-        # windows (same bytes, shorter longest-row per batch)
-        for classes in eng.classify_stream(chunk_iter(), sort_window=8):
-            yield from chunk_records(recs.popleft(), classes)
-        if stats_out is not None:
-            stats_out.update(stream_wall_s=_time.time() - t0, **eng.stats())
-
-    return stream()
+    ClassRecord per read, in input order (``ClassifyJob(...).records()``:
+    set-up runs eagerly at call time; the stream is the returned
+    generator)."""
+    return ClassifyJob(fastx_path, fastk_root, coverage=coverage,
+                       read_len=read_len, model_path=model_path,
+                       batch_size=batch_size, threads=threads,
+                       verbose=verbose, device=device, devices=devices,
+                       stats_out=stats_out, warmup=warmup).records()

@@ -4,12 +4,13 @@ The library is compiled on demand (g++ -O3 -shared) from the package's
 own ``classpro_tpu_torch/csrc/host/classpro_host.cpp`` (a copy of the
 repository's ``csrc/classpro_host.cpp``, which the JAX package builds,
 with ``cp_build_btg``, ``cp_exact_rel_batch``, ``cp_pack_chunk``,
-``cp_expand_rows``, ``cp_demote_reconcile``, ``cp_wall_stage_fastk`` and
-the streaming FASTX reader ``cp_fx_*`` (``io.fastx.FastxReader``) added,
+``cp_expand_rows``, ``cp_demote_reconcile``, ``cp_wall_stage_fastk``,
+the streaming FASTX reader ``cp_fx_*`` (``io.fastx.FastxReader``) and the
+.class composer ``cp_class_compose`` (``io.classfile.ClassWriter``) added,
 and its threaded entries on one worker pool kept for the process) into
 ``classpro_tpu_torch/_build/``, with zlib.  Neither the engine nor the
-input plane has a pure-Python fallback: a failed build, or a library
-without one of these entries, raises.
+input and output planes have a pure-Python fallback: a failed build, or
+a library without one of these entries, raises.
 """
 
 from __future__ import annotations
@@ -123,6 +124,10 @@ def get_lib(force: bool = False):
              ctypes.c_int64]
             + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p] * 3
             + [ctypes.c_void_p, ctypes.c_void_p])
+        lib.cp_class_compose.restype = ctypes.c_int
+        lib.cp_class_compose.argtypes = (
+            [ctypes.c_int64] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int64, ctypes.c_void_p])
         lib.cp_exact_rel.restype = ctypes.c_int
         lib.cp_exact_rel.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

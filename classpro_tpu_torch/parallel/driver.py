@@ -32,7 +32,6 @@ a rank, the run fails with NCCL's error.  Run one process per device::
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import hashlib
 import os
@@ -169,8 +168,8 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
     reference overwrites its temp shards, io.c:139, so resume is a
     superset, off by default).  ``_skip_init`` runs several pids in one
     process without a group (tests, chip_smoke.py)."""
-    from classpro_tpu_torch.engine import (TorchEngine, chunk_records,
-                                           fastx_chunks)
+    from classpro_tpu_torch.engine import (TorchEngine, fastx_chunks,
+                                           write_chunks)
     from classpro_tpu_torch.estimation import build_global_model
     from classpro_tpu_torch.io.fastk import load_histogram, open_profiles
     from classpro_tpu_torch.io.fastx import root_of
@@ -208,19 +207,10 @@ def run_process(source: str, fastk_root: str | None, out: str | None,
                   f"different parameters — reclassifying",
                   file=sys.stderr)
     eng = TorchEngine(gm, batch_size=batch_size, device=dev)
-    # the reader's chunks in flight (appended on the prefetch thread)
-    recs: collections.deque = collections.deque()
-
-    def chunks():
-        for c in fastx_chunks(source, P, gm.kmer, batch_size, first=beg,
-                              count=end - beg):
-            recs.append(c)
-            yield c
-
-    with open(shard, "w") as f:
-        for classes in eng.classify_stream(chunks(), sort_window=8):
-            for r in chunk_records(recs.popleft(), classes):
-                f.write(f"{r.header}\n{r.seq}\n+\n{r.classes}\n")
+    # the shard written through the output plane, complete and closed
+    # before its params stamp
+    write_chunks(shard, eng, fastx_chunks(source, P, gm.kmer, batch_size,
+                                          first=beg, count=end - beg))
     with open(stamp_path, "w") as f:
         f.write(stamp + "\n")
     if verbose:

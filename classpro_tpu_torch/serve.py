@@ -90,8 +90,9 @@ def _make_warm(device, warmup_root: str | None, warmup_shapes: tuple,
 
 
 def _do_classify(req: dict, device) -> dict:
-    from classpro_tpu_torch.engine import classify_file_torch
-    from classpro_tpu_torch.io.classfile import write_class
+    """One classify job: the .class file written through the output plane
+    (``ClassifyJob.write``), complete and closed before the reply."""
+    from classpro_tpu_torch.engine import ClassifyJob
     from classpro_tpu_torch.io.fastx import root_of
 
     source = req["source"]
@@ -100,27 +101,18 @@ def _do_classify(req: dict, device) -> dict:
     before, g0 = _launches(), _graphs()
     t0 = time.time()
     st: dict = {}
-    recs = classify_file_torch(
+    w = ClassifyJob(
         source, req.get("fastk_root") or root,
         coverage=int(req.get("coverage", 0)),
         read_len=int(req.get("read_len", 20000)),
         model_path=req.get("model"),
         batch_size=int(req.get("batch_size", 200)),
         threads=int(req.get("threads", 0)),
-        warmup=bool(req.get("warmup", False)), device=device, stats_out=st)
-    n = kmers = 0
-
-    def counted():
-        nonlocal n, kmers
-        for r in recs:
-            n += 1
-            kmers += len(r.classes) - r.classes.count("N")
-            yield r
-
-    write_class(out, counted())
+        warmup=bool(req.get("warmup", False)), device=device,
+        stats_out=st).write(out)
     after, g1 = _launches(), _graphs()
-    return {"ok": True, "output": out, "reads": n, "kmers": kmers,
-            "wall_s": time.time() - t0,
+    return {"ok": True, "output": out, "reads": w.reads, "kmers": w.kmers,
+            "wall_s": time.time() - t0, "output_s": w.seconds,
             "guard_flagged": st.get("guard_flagged", 0),
             "launches": {k: after[k] - before[k] for k in after},
             "graphs": {k: g1[k] - g0[k] for k in g1},

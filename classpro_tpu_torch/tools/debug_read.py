@@ -125,7 +125,7 @@ def _production(eng, seq: str, profile, intvls, out) -> str:
         print("\n--- device DP ---", file=out)
         print("  no reliable interval: the device DP did not run",
               file=out)
-    return eng._finish(st)[0]
+    return eng._finish(st).strs()[0]
 
 
 def debug_read(source: str, rid: int, fastk_root: str | None = None,

@@ -247,7 +247,10 @@ def test_alldev_guard_maps_slab_reads(threads):
                                     threads=1)
         return str(memoryview(buf), "ascii")
 
-    assert eng._exact_alldev(st, rs) == [one(r) for r in rs]
+    buf, off = eng._exact_alldev(st, rs)
+    mv = memoryview(buf)
+    assert [str(mv[o: o + len(st["seqs"][st["g"][r]])], "ascii")
+            for r, o in zip(rs, off)] == [one(r) for r in rs]
 
 
 # ---------------------------------------------------------------------

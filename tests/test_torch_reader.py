@@ -11,6 +11,15 @@ decodes each read's FASTK profile in the worker that walks it
   hypothesis, at chunk sizes 1, 2, 3, 7 and 200 and at input blocks small
   enough that records straddle them.  Trailing garbage after a gzip
   member and a file that is neither FASTA nor FASTQ raise in all three.
+  Where the JAX package's native whole-blob parse (``cp_fastx_parse``)
+  departs from its own Python reader, which it names as its spec, the
+  port holds to the spec: an empty line where a FASTQ header is due is
+  an empty header (the native parse takes that line's terminator as the
+  mark and reads the next line as the header), and the native parse
+  stops at newlines // 2 + 2 records.  On every drawn text the port
+  equals that Python reader (``_jax_spec``, the native parse switched
+  off), and the JAX records equal a model of the native parse
+  (``_jax_native_records``).
 - The fused decode and wall stage: its slab, n_out and n_rel equal
   ``wall_stage_slab`` over ``fetch_batch``'s profiles, bit for bit, at
   T = 1 and 8, on medium's chunks and on a chunk that straddles a profile
@@ -32,11 +41,12 @@ import pathlib
 import re
 import shutil
 import tempfile
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -85,6 +95,15 @@ def _three(path) -> tuple[list, list, list]:
     return ([tuple(r) for r in read_fastx(str(path))],
             [tuple(r) for r in _read_fastx_plain(str(path))],
             [tuple(r) for r in jfx.read_fastx(str(path))])
+
+
+def _jax_spec(path) -> list:
+    """The JAX package's Python reader, which its ``read_fastx`` names as
+    the semantic spec, run by switching its native parse off."""
+    import classpro_tpu.io.fastx as jfx
+
+    with mock.patch.object(jfx, "_read_fastx_native", lambda p: None):
+        return [tuple(r) for r in jfx.read_fastx(str(path))]
 
 
 def _all_sizes(path, want, blocks=BLOCKS) -> None:
@@ -204,21 +223,118 @@ def fastx_texts(draw):
     return text.encode()
 
 
+_WS_BYTES = b" \t\n\r\v\f"
+
+
+def _jax_native_records(text: bytes) -> list[tuple]:
+    """The records the JAX package's ``read_fastx`` gives for ``text``: a
+    model of its native whole-blob parse (``cp_fastx_parse``).  Its line
+    model is the Python reader's ('\\n', '\\r\\n' and a lone '\\r' end a
+    line), and it departs from that reader in two places: it sizes its
+    record table at newlines // 2 + 2 records and stops there (on texts
+    of many one-line records or of lone-CR newlines), and it takes the
+    byte at a FASTQ header's place as the mark whatever that byte is, so
+    an empty line ended by one byte there gives up its terminator and
+    the next line is read as the header."""
+    n = len(text)
+    if not n:
+        return []
+
+    def line(i: int) -> tuple[int, int]:
+        """The end of the line from ``i`` and where the next one starts."""
+        e = i
+        while e < n and text[e] not in b"\r\n":
+            e += 1
+        if e < n and text[e] == 13 and e + 1 < n and text[e + 1] == 10:
+            return e, e + 2
+        return e, min(e + 1, n)
+
+    def stripped(a: int, b: int) -> str:
+        while a < b and text[a] in _WS_BYTES:
+            a += 1
+        while b > a and text[b - 1] in _WS_BYTES:
+            b -= 1
+        return text[a:b].decode()
+
+    fastq = text[:1] == b"@"
+    out, pos = [], 0
+    while pos < n and len(out) < text.count(b"\n") // 2 + 2:
+        h0 = pos + 1                  # the byte at pos is the mark
+        he, pos = line(h0)
+        n0 = h0
+        while n0 < he and text[n0] in _WS_BYTES:
+            n0 += 1
+        n1 = n0
+        while n1 < he and text[n1] not in _WS_BYTES:
+            n1 += 1
+        c0 = n1
+        while c0 < he and text[c0] in _WS_BYTES:
+            c0 += 1
+        name, comment = text[n0:n1].decode(), text[c0:he].decode()
+        if fastq:
+            a, (b, pos) = pos, line(pos)
+            seq = stripped(a, b)
+            _, pos = line(pos)        # the '+' line
+            a, (b, pos) = pos, line(pos)
+            out.append((name, comment, seq, stripped(a, b)))
+            continue
+        seq = []
+        while pos < n and text[pos] != ord(">"):
+            a, (b, pos) = pos, line(pos)
+            seq.append(stripped(a, b))
+        out.append((name, comment, "".join(seq), None))
+    return out
+
+
+# the text on which the JAX records first departed from the plain
+# reader's (an empty line at a FASTQ header's place, ended by '\n')
+F1_TEXT = b"@\n\n+\n\n@\n\n+\r\n@\n\n+\n\n"
+
+
 @settings(max_examples=150, deadline=None)
 @given(text=fastx_texts(), gz=st.booleans(),
        B=st.sampled_from(CHUNKS), block=st.sampled_from(BLOCKS))
+@example(text=F1_TEXT, gz=False, B=1, block=1)
+@example(text=F1_TEXT, gz=True, B=200, block=1 << 20)
 def test_drawn_texts(text, gz, B, block):
     with tempfile.TemporaryDirectory() as d:
         p = pathlib.Path(d) / ("x.fx" + (".gz" if gz else ""))
         p.write_bytes(gzip.compress(text) if gz else text)
         port, plain, jax = _three(p)
-        assert port == plain
-        # the JAX package's whole-blob parse sizes its record table at
-        # (newlines // 2 + 2) records, so it stops there on texts of
-        # many one-line records or of lone-CR newlines; the port's
-        # reader has no such cap
-        assert jax == plain[: text.count(b"\n") // 2 + 2]
+        assert port == plain == _jax_spec(p)
+        # the JAX package's native parse, modelled: its record cap and
+        # its FASTQ header rule (the port's reader and the spec have
+        # neither)
+        assert jax == _jax_native_records(text)
         assert [tuple(r) for r in _chunked(p, B, block)] == plain
+
+
+# an empty line where a FASTQ header is due: the spec reading (the JAX
+# package's Python reader, which the port and its plain reader follow)
+# is an empty header, whatever ends the line
+EMPTY_HEADER = {
+    "lf": (b"@r1 c\nAC\n+\nII\n\nGG\n+\nJJ\n",
+           [("r1", "c", "AC", "II"), ("", "", "GG", "JJ")]),
+    "lone_cr": (b"@r1\rAC\r+\rII\r\rGG\r+\rJJ\r@r3 x\rT\r+\rK\r",
+                [("r1", "", "AC", "II"), ("", "", "GG", "JJ"),
+                 ("r3", "x", "T", "K")]),
+    "crlf": (b"@r1\r\nAC\r\n+\r\nII\r\n\r\nGG\r\n+\r\nJJ\r\n",
+             [("r1", "", "AC", "II"), ("", "", "GG", "JJ")]),
+    "f1": (F1_TEXT, [("", "", "", ""), ("", "", "", "@"),
+                     ("", "", "+", "")]),
+}
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gz"])
+@pytest.mark.parametrize("name", sorted(EMPTY_HEADER))
+def test_empty_fastq_header_line(name, gz, tmp_path):
+    text, want = EMPTY_HEADER[name]
+    p = tmp_path / ("e.fq" + (".gz" if gz else ""))
+    p.write_bytes(gzip.compress(text) if gz else text)
+    port, plain, jax = _three(p)
+    assert port == plain == _jax_spec(p) == want
+    assert jax == _jax_native_records(text)
+    _all_sizes(p, want)
 
 
 # ---------------------------------------------------------------------
